@@ -41,3 +41,7 @@ def pytest_configure(config):
         "e2e: full-pipeline drive (threaded SLAM, CLI subprocess, camera "
         "training); all e2e tests are also slow",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the PyTorch port's kernels); skips without one",
+    )
