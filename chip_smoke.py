@@ -7,7 +7,8 @@ Runs from the root of a checkout, on a machine with one CUDA card; imports
 nothing of JAX. Phases, each of which raises on failure:
 
 1. Device: no CUDA card, no run. Prints the card's name and power limit.
-2. Build: compiles the CUDA sources of loner_tpu_torch/csrc into build/.
+2. Build: compiles the CUDA sources of loner_tpu_torch/csrc into build/, one
+   nvcc process per source, all started together.
 3. Kernels: the fused Fourier-MLP forward and backward kernels against their
    plain PyTorch version on the card, at the flagship shapes (2,097,152
    points, 48 frequencies, 99 -> 256 -> 256 -> 1, bf16), each timed with CUDA
@@ -16,6 +17,18 @@ nothing of JAX. Phases, each of which raises on failure:
    (8 keyframes x 512 rays x 512 samples) through ``make_phase_runner``, with
    the kernels' launch counts; then one iteration's loss and twist gradient
    through the kernels against the plain sigma path, on the same draws.
+5. Composite kernel: the fused alpha-compositing kernel against its plain
+   version at 16384 rays x 1024 and 2048 samples (relu, softplus, an opaque
+   wall), each timed with CUDA events beside the plain version.
+6. Experiment: a temporary experiment directory (full_config.pkl with the
+   flagship settings, checkpoints/final.tar from the port's save_checkpoint)
+   holding the slice's trained field and proposal and 8 keyframe poses.
+7. Render slice: ``render_full_map`` with its defaults (8 poses x 65,536 rays x
+   1024 samples, 2048-ray chunks) through the composite and Fourier forward
+   kernels, with their launch counts; the render layers of one chunk; one
+   512 x 256 spherical depth frame at 2048 samples.
+8. Render against plain: one virtual scan through the kernels and through the
+   plain sigma path and plain compositor, depth and variance compared.
 
 The second-to-last line of output is a JSON record of the kernels; the last is
 ``{"ok": true, "device": {...}}``.
@@ -40,8 +53,36 @@ FWD_MAX_ABS = 5e-2  # sigma is O(1)-O(10); 5e-2 is ~2 bf16 ulps at 8
 GRAD_REL_L2 = 1e-2  # ||kernel - plain|| / ||plain|| for dW, db and dpts
 LOSS_RTOL = 1e-3  # the slice's loss, kernel vs plain sigma path
 TWIST_GRAD_REL_L2 = 2e-2  # the slice's twist gradient, kernel vs plain
+# Composite kernel against its plain version, f32 (the warp scan multiplies in
+# another order than cumprod): (rtol, atol), the tolerances of
+# tests/test_pallas_ops.py:31-34.
+COMPOSITE_TOL = {"depth": (2e-4, 2e-4), "opacity": (2e-4, 2e-4), "var": (1e-3, 2e-4),
+                 "weights": (5e-3, 2e-4)}
+# One virtual scan, kernels against the plain path, on finite rays with depth in
+# [near, far]: sigma differs by a bf16 ulp at rare points (f32 summation order)
+# and compositing in f32 rounding. Measured on an H100: median 1.6e-7, p99
+# 6.4e-7; variance p99 1.2e-7. The bounds leave two orders of magnitude.
+RENDER_DEPTH_MEDIAN = 1e-5  # median |depth_k - depth_p| / (far - near)
+RENDER_DEPTH_P99 = 1e-4  # 99th percentile of the same
+RENDER_VAR_P99 = 1e-4  # 99th percentile of |var_k - var_p| / (far - near)^2
 
 WINDOW = 8  # keyframes in the flagship window
+RAY_RANGE = (1.0, 10.0)  # meters, cfg/model_config/tpu_native_model_config.yaml
+WORLD_CUBE = {"scale_factor": 12.0, "shift": [0.0, 0.0, 0.0]}
+# cfg/nerf_config/tpu_fourier.yaml as a plain dict (the card's machine has no PyYAML).
+FLAGSHIP_NERF = {
+    "enable_view_dependence": True, "encoding_sigma": "fourier", "compute_dtype": "bfloat16",
+    "sigma_kernel": "xla",
+    "fourier_sigma": {"n_freqs": 48, "scale": 6.0, "include_input": True, "seed": 1234,
+                      "encode_impl": "vjp"},
+    "dir_encoding_intensity": {"degree": 4, "otype": "SphericalHarmonics"},
+    "intensity_network": {"activation": "ReLU", "n_hidden_layers": 4, "n_neurons": 64,
+                          "otype": "MLP", "output_activation": "None"},
+    "pos_encoding_intensity": {"base_resolution": 16, "log2_hashmap_size": 19,
+                               "n_features_per_level": 2, "n_levels": 16, "otype": "HashGrid"},
+    "sigma_network": {"activation": "ReLU", "n_hidden_layers": 2, "n_neurons": 256,
+                      "otype": "MLP", "output_activation": "None"},
+}
 
 
 def device_line() -> str:
@@ -243,7 +284,228 @@ def run_slice(dev, cfg, field_cfg, n_iters: int = 20, w: int = WINDOW) -> dict:
         raise RuntimeError("slice loss: kernel path disagrees with the plain path")
     if not (torch.isfinite(g_k).all() and grad_rel <= TWIST_GRAD_REL_L2):
         raise RuntimeError("slice twist gradient: kernel path disagrees with the plain path")
-    return launches
+    return launches, new_field, new_prop
+
+
+def check_composite(dev) -> dict:
+    from loner_tpu_torch.ops import composite as cp
+
+    b, near, far = 16384, RAY_RANGE[0] / 12.0, RAY_RANGE[1] / 12.0
+    gen = torch.Generator(device=dev).manual_seed(21)
+    worst, times = 0.0, {}
+    for s in (1024, 2048):
+        u = torch.rand((b, s), generator=gen, device=dev)
+        z = torch.sort(near + (far - near) * u, dim=1).values
+        sigma = 3.0 * torch.randn((b, s), generator=gen, device=dev)
+        wall = torch.zeros_like(sigma)
+        wall[: b // 2, s // 2] = 1e8  # half the rays hit an opaque wall mid-ray
+        far_t = torch.full((b,), far, device=dev)
+        dnorm = 0.9 + 0.2 * torch.rand((b,), generator=gen, device=dev)
+        for case, sig, softplus in (("relu", sigma, False), ("softplus", sigma, True),
+                                    ("wall", wall, False)):
+            out_k = cp.composite_cuda(z, sig, far_t, dnorm, softplus)
+            out_p = cp.composite_plain(z, sig, far_t, dnorm, softplus)
+            torch.cuda.synchronize()
+            errs = []
+            for name, a, p in zip(("depth", "opacity", "var", "weights"), out_k, out_p):
+                rtol, atol = COMPOSITE_TOL[name]
+                if a.shape != p.shape or not torch.isfinite(a).all():
+                    raise RuntimeError(f"composite kernel: {name} wrong shape or non-finite")
+                err = float((a - p).abs().max())
+                errs.append(f"{name} {err:.2e}")
+                worst = max(worst, err)
+                if not torch.allclose(a, p, rtol=rtol, atol=atol):
+                    raise RuntimeError(f"composite kernel disagrees with its plain version: "
+                                       f"S={s} {case} {name}, max |err| {err}")
+            print(f"kernel composite S={s} {case}: max |kernel - plain| " + ", ".join(errs),
+                  flush=True)
+        times[s] = (cuda_ms(lambda: cp.composite_cuda(z, sigma, far_t, dnorm, True)),
+                    cuda_ms(lambda: cp.composite_plain(z, sigma, far_t, dnorm, True)))
+        print(f"kernel composite times at {b} x {s}, softplus (median of 5, ms): "
+              f"kernel {times[s][0]:.4f}, plain {times[s][1]:.4f}", flush=True)
+    return {"name": "composite", "route": "cuda", "source": "loner_tpu_torch/csrc/composite.cu",
+            "replaces": "loner_tpu/ops/pallas/composite.py:27", "launches": 0,
+            "max_abs_err": worst, "ms": times[1024][0], "plain_ms": times[1024][1]}
+
+
+def write_experiment(log_dir: str, field, prop, field_cfg, seed: int = 3) -> None:
+    """An experiment directory as a run of the system leaves it: the flagship
+    settings in full_config.pkl and checkpoints/final.tar in Mapper.build_ckpt's
+    schema, with WINDOW keyframe poses from a seed inside the world cube."""
+    import pickle
+
+    from loner_tpu_torch.common.pose import Pose
+    from loner_tpu_torch.common.world_cube import WorldCube
+    from loner_tpu_torch.mapping.mapper import build_ckpt, save_checkpoint
+    from loner_tpu_torch.models.field import FieldConfig
+
+    if FieldConfig.from_settings(FLAGSHIP_NERF, 3) != field_cfg:
+        raise RuntimeError("FLAGSHIP_NERF does not parse to the slice's field config")
+    model_config = {
+        "data": {"ray_range": list(RAY_RANGE)},
+        "model": {"num_colors": 3, "nerf_config": FLAGSHIP_NERF,
+                  "render": {"N_samples_test": 2048, "chunk": 16384, "compositor": "pallas"},
+                  "occ_model": {"prop_n_ctrl": 33, "prop_train_subsample": 8,
+                                "proposal": {"n_freqs": 16, "scale": 3.0, "n_neurons": 64,
+                                             "n_hidden_layers": 2}}},
+    }
+    os.makedirs(os.path.join(log_dir, "checkpoints"))
+    with open(os.path.join(log_dir, "full_config.pkl"), "wb") as f:
+        pickle.dump({"mapper": {"optimizer": {"model_config": model_config}},
+                     "world_cube": WORLD_CUBE}, f)
+    rng = np.random.default_rng(seed)
+    poses = []
+    for i in range(WINDOW):
+        twist = np.concatenate([rng.uniform(-2.0, 2.0, 3), rng.normal(0.0, 0.1, 3)])
+        twist = Pose.from_twist(twist).to_twist()
+        poses.append({"timestamp": 3.0 * i, "lidar_to_camera": None, "lidar_pose": twist,
+                      "gt_lidar_pose": None, "tracked_pose": twist})
+    save_checkpoint(os.path.join(log_dir, "checkpoints", "final.tar"),
+                    build_ckpt(field, prop, poses, WorldCube.from_dict(WORLD_CUBE), 20))
+
+
+def render_layers(model) -> dict:
+    """Device ms of one 2048-ray x 1024-sample chunk's layers (CUDA events)."""
+    from loner_tpu_torch.analysis._render_impl import get_chunk_renderer
+    from loner_tpu_torch.analysis.renderer_lidar import build_lidar_ray_directions
+    from loner_tpu_torch.mapping.rays import get_far_val
+    from loner_tpu_torch.models.field import query_field
+    from loner_tpu_torch.models.rendering import make_sampler, pack_rays
+    from loner_tpu_torch.ops.composite import composite_rays
+
+    dev, cube = model.device, model.world_cube
+    d = torch.from_numpy(build_lidar_ray_directions()[:2048]).to(dev)
+    o = torch.zeros_like(d)
+    near = torch.full((2048,), RAY_RANGE[0] / cube.scale_factor, device=dev)
+    far = torch.clamp(get_far_val(o, d), max=RAY_RANGE[1] / cube.scale_factor)
+    rays = pack_rays(o, d, near, far)
+    sampler = make_sampler(model.occ_grid, n_ctrl=33)
+    chunk = get_chunk_renderer(model, 1024, True, True)
+    with torch.inference_mode():
+        z = sampler.get_samples(rays, 1024, 0.0, model.occ_grid)
+        pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
+        raw = query_field(model.field_params, pts, None, model.field_cfg, sigma_only=True)
+        sig, dn = raw.reshape(2048, 1024), torch.linalg.norm(d, dim=-1)
+        return {
+            "sampler": cuda_ms(lambda: sampler.get_samples(rays, 1024, 0.0, model.occ_grid)),
+            "sigma_fwd": cuda_ms(lambda: query_field(model.field_params, pts, None,
+                                                     model.field_cfg, sigma_only=True)),
+            "composite": cuda_ms(lambda: composite_rays(z, sig, far, dn, softplus=True)),
+            "chunk": cuda_ms(lambda: chunk(rays, model.field_params, model.occ_grid)),
+        }
+
+
+def check_cloud(cloud: np.ndarray, out_dir: str, voxel_size: float) -> None:
+    """A map cloud is finite xyz and is what render_full_map wrote to disk."""
+    from loner_tpu_torch.analysis.renderer_lidar import read_pcd
+
+    npy, pcd = (os.path.join(out_dir, f"render_full_{voxel_size}.{ext}") for ext in ("npy", "pcd"))
+    if not (os.path.exists(npy) and os.path.exists(pcd)):
+        raise RuntimeError(f"render_full_map wrote no {npy} / .pcd")
+    if cloud.ndim != 2 or cloud.shape[1] != 3 or not np.isfinite(cloud).all():
+        raise RuntimeError(f"render_full_map: cloud of shape {cloud.shape} or non-finite")
+    if not np.array_equal(np.load(npy), cloud) or not np.allclose(read_pcd(pcd), cloud,
+                                                                    atol=1e-5):
+        raise RuntimeError("render_full_map: the .npy / .pcd files differ from the cloud")
+
+
+def run_render(dev, field, prop, field_cfg) -> int:
+    import tempfile
+    from dataclasses import replace
+
+    from loner_tpu_torch.analysis.render_utils import (
+        kf_pose_matrices, load_experiment, render_depth_chunked,
+    )
+    from loner_tpu_torch.analysis.renderer import render_dataset_frame, spherical_ray_directions
+    from loner_tpu_torch.analysis.renderer_lidar import build_lidar_ray_directions, render_full_map
+    from loner_tpu_torch.ops import composite as cp
+    from loner_tpu_torch.ops import fourier_mlp as fm
+
+    with tempfile.TemporaryDirectory(prefix="loner_tpu_torch_smoke_") as log_dir:
+        write_experiment(log_dir, field, prop, field_cfg)
+        n_rays, chunk = 64 * 1024, 2048
+        chunks = WINDOW * -(-n_rays // chunk)
+
+        # The render slice through the entry point, with its defaults.
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fm.counts.reset()
+        cp.counts.reset()
+        t0 = time.perf_counter()
+        cloud = render_full_map(log_dir)
+        elapsed = time.perf_counter() - t0
+        launches = {"composite": cp.counts.composite_launches,
+                    "fourier_mlp_fwd": fm.counts.fwd_launches}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        check_cloud(cloud, os.path.join(log_dir, "lidar_renders"), 0.1)
+        for name, count in launches.items():
+            if count < chunks:
+                raise RuntimeError(f"{name} launched {count} times for {chunks} render chunks")
+        print(f"render slice: render_full_map, {WINDOW} poses x {n_rays} rays x 1024 samples "
+              f"in {chunk}-ray chunks: {elapsed:.3f} s, {1e3 * elapsed / WINDOW:.3f} ms per "
+              f"virtual scan, {WINDOW * n_rays / elapsed:.1f} rendered rays/s, peak device "
+              f"memory {peak_gb:.3f} GB, launches {launches}, cloud {cloud.shape[0]} points "
+              "(var_threshold 1 m^2)", flush=True)
+        # A field trained 20 iterations on random depths spreads each ray's
+        # weights over metres, so the default variance threshold may keep no
+        # point; a loose threshold on two poses checks the cloud's contents.
+        loose = render_full_map(log_dir, skip_step=4, var_threshold=1e3, voxel_size=0.2,
+                                out_dir=os.path.join(log_dir, "loose"))
+        check_cloud(loose, os.path.join(log_dir, "loose"), 0.2)
+        reach = np.linalg.norm(loose, axis=1).max()  # poses lie within 2 * sqrt(3) m
+        if loose.shape[0] < 1000 or reach > RAY_RANGE[1] + 2.0 * np.sqrt(3.0):
+            raise RuntimeError(f"loose cloud: {loose.shape[0]} points reaching {reach:.2f} m")
+        print(f"render slice, var_threshold 1e3 m^2, 2 poses: cloud {loose.shape[0]} points",
+              flush=True)
+
+        model = load_experiment(log_dir)
+        if model.device.type != "cuda" or model.compositor != "pallas":
+            raise RuntimeError(f"loaded on {model.device} with compositor {model.compositor}")
+        print("render layers of one 2048-ray x 1024-sample chunk (device ms, median of 5): "
+              + json.dumps(render_layers(model)), flush=True)
+
+        # One depth frame at the entry point's 2048 samples.
+        pose = kf_pose_matrices(model)[0][0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = render_dataset_frame(model, pose, spherical_ray_directions(512, 256), (256, 512))
+        frame_s = time.perf_counter() - t0
+        if frame["depth"].shape != (256, 512) or not all(
+                np.isfinite(frame[k]).all() for k in ("depth", "variance", "opacity")):
+            raise RuntimeError("render_dataset_frame: wrong shape or non-finite")
+        print(f"depth frame: 512 x 256 spherical, 2048 samples: {1e3 * frame_s:.3f} ms",
+              flush=True)
+
+        # One virtual scan through the kernels and through the plain path.
+        plain = replace(model, field_cfg=replace(model.field_cfg, sigma_kernel="plain"),
+                        compositor="plain", render_cache={})
+        dirs = build_lidar_ray_directions() @ pose[:3, :3].T
+        origins = np.broadcast_to(pose[:3, 3], dirs.shape)
+        scans, scan_ms = {}, {}
+        for name, m in (("kernel", model), ("plain", plain), ("kernel", model),
+                        ("plain", plain)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scans[name] = render_depth_chunked(m, origins, dirs, RAY_RANGE, n_samples=1024,
+                                               chunk=chunk)
+            scan_ms[name] = 1e3 * (time.perf_counter() - t0)  # the second of each pair
+    (dk, vk), (dp, vp) = [(scans[n]["depth"], scans[n]["variance"]) for n in ("kernel", "plain")]
+    span = RAY_RANGE[1] - RAY_RANGE[0]
+    ok = np.isfinite(dk) & np.isfinite(dp) & (dp >= RAY_RANGE[0]) & (dp <= RAY_RANGE[1])
+    rel_d = np.abs(dk - dp)[ok] / span
+    rel_v = np.abs(vk - vp)[ok] / span ** 2
+    med, p99, vp99 = float(np.median(rel_d)), float(np.quantile(rel_d, 0.99)), float(
+        np.quantile(rel_v, 0.99))
+    print(f"render kernel vs plain, one scan ({int(ok.sum())} of {ok.size} rays finite and in "
+          f"range; variance median {float(np.median(vp)):.3f} m^2): |ddepth|/range median "
+          f"{med:.3e} (tolerance {RENDER_DEPTH_MEDIAN}), p99 "
+          f"{p99:.3e} (tolerance {RENDER_DEPTH_P99}), max {float(rel_d.max()):.3e}; "
+          f"|dvar|/range^2 p99 {vp99:.3e} (tolerance {RENDER_VAR_P99}); scan ms kernel "
+          f"{scan_ms['kernel']:.3f}, plain {scan_ms['plain']:.3f}", flush=True)
+    if ok.mean() < 0.99 or not (med <= RENDER_DEPTH_MEDIAN and p99 <= RENDER_DEPTH_P99
+                                and vp99 <= RENDER_VAR_P99):
+        raise RuntimeError("render: the kernel path disagrees with the plain path")
+    return launches["composite"]
 
 
 def main() -> int:
@@ -252,7 +514,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    from loner_tpu_torch.ops import composite as cp
     from loner_tpu_torch.ops import fourier_mlp as fm
+    from loner_tpu_torch.ops.build import build_all
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -262,14 +526,19 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
+    build_all()
     fm._lib()
+    cp._lib()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
 
     cfg, field_cfg = flagship_configs()
     kernels = check_kernels(dev, field_cfg)
-    launches = run_slice(dev, cfg, field_cfg)
+    launches, field, prop = run_slice(dev, cfg, field_cfg)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    composite = check_composite(dev)
+    composite["launches"] = run_render(dev, field, prop, field_cfg)
+    kernels.append(composite)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

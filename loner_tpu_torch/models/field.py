@@ -106,7 +106,10 @@ def fourier_bmat(cfg: FourierConfig, device: torch.device) -> torch.Tensor:
     """The fixed (3, F) projection: jax.random.normal(key(seed)) * scale * 2pi,
     bit-equal to the JAX package's ``fourier_bmat``."""
     b = _unscaled_bmat(cfg.seed, cfg.n_freqs) * np.float32(cfg.scale) * np.float32(2.0 * math.pi)
-    return torch.from_numpy(b.astype(np.float32)).to(device)
+    # Cached for the process: never an inference tensor, whatever mode the
+    # first caller runs in, or autograd could not save it later.
+    with torch.inference_mode(False):
+        return torch.from_numpy(b.astype(np.float32)).to(device)
 
 
 @dataclass(frozen=True)

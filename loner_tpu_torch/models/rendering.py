@@ -152,24 +152,55 @@ class ProposalRaySampler:
         return _inverse_cdf(cdf, z_ctrl, u)
 
 
+def make_sampler(occ_state, n_ctrl: Optional[int] = None):
+    """The sampler for an occupancy-slot state: None -> uniform, a dict of
+    proposal-MLP params -> proposal sampler with the trained ``n_ctrl``.
+    An occupancy-grid array (OGM) is not ported."""
+    if occ_state is None:
+        return UniformRaySampler()
+    if isinstance(occ_state, dict):
+        return ProposalRaySampler(n_ctrl=n_ctrl)
+    raise NotImplementedError("the occupancy-grid (OGM) sampler is not ported")
+
+
 def render_rays(rays: torch.Tensor, field_params, field_cfg, sampler, n_samples: int,
                 perturb: float = 0.0, raw_noise_std: float = 0.0, occ_state=None,
                 ret_var: bool = False, jitter: Optional[torch.Tensor] = None,
-                noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                noise: Optional[torch.Tensor] = None,
+                compositor: str = "xla") -> Dict[str, torch.Tensor]:
     """Render a batch of (N, 11) rays through the sigma field. Returns
-    depth / weights / opacity [/ variance] / z_vals / points."""
+    depth / weights / opacity [/ variance] / z_vals / points.
+
+    ``compositor="pallas"`` (the JAX package's config word) takes the fused
+    compositor of ``ops/composite.py`` when it applies, by the JAX rule:
+    ``ret_var`` and no sigma noise. It is the CUDA kernel on a CUDA tensor and
+    its plain version on a CPU tensor; ``"plain"`` takes the plain version on
+    every device (the reference the kernel is held to on the card). Otherwise,
+    and for ``"xla"``, compositing is ``raw2outputs``."""
     from loner_tpu_torch.models.field import query_field
 
+    if compositor not in ("xla", "pallas", "plain"):
+        raise ValueError(f"compositor must be 'xla', 'pallas' or 'plain', got {compositor!r}")
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
     far = rays[:, 10:11]
     z_vals = sampler.get_samples(rays, n_samples, perturb, occ_state, jitter)
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]  # (N, S, 3)
     n_rays, s = pts.shape[:2]
     raw = query_field(field_params, pts.reshape(-1, 3), None, field_cfg, sigma_only=True)
-    out = raw2outputs(
-        raw.reshape(n_rays, s, -1), z_vals, rays_d, noise=noise, raw_noise_std=raw_noise_std,
-        softplus=field_cfg.density_activation == "softplus", far=far, ret_var=ret_var,
-    )
+    softplus = field_cfg.density_activation == "softplus"
+    if compositor != "xla" and ret_var and (raw_noise_std == 0 or noise is None):
+        from loner_tpu_torch.ops.composite import composite_rays
+
+        depth, opacity, var, weights = composite_rays(
+            z_vals.contiguous(), raw.reshape(n_rays, s), far[:, 0].contiguous(),
+            torch.linalg.norm(rays_d, dim=-1), softplus=softplus, plain=compositor == "plain",
+        )
+        out = {"depth": depth, "weights": weights, "opacity": opacity, "variance": var}
+    else:
+        out = raw2outputs(
+            raw.reshape(n_rays, s, -1), z_vals, rays_d, noise=noise,
+            raw_noise_std=raw_noise_std, softplus=softplus, far=far, ret_var=ret_var,
+        )
     out["z_vals"] = z_vals
     out["points"] = pts
     return out

@@ -5,7 +5,7 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a process asks for it, and loaded with ``ctypes``. The hash covers the source and
 the flags, so an edited source builds anew and an unchanged one is reused. The
 sources have a plain C interface and include no PyTorch header: ``nvcc`` takes
-seconds for them.
+seconds for them. ``build_all`` starts one ``nvcc`` for each source, all at once.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "loner_tpu_torch"
@@ -35,20 +36,41 @@ def _nvcc() -> str:
     return path
 
 
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> None:
+    """Compile the named sources (default: every ``csrc/*.cu``) that are not
+    built yet, one ``nvcc`` process each, all started together."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu")) if names is None else list(names)
+    jobs = []
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        jobs.append((name, proc, tmp, out))
+    failed = []
+    for name, proc, tmp, out in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on csrc/{name}.cu:\n{stdout}\n{stderr}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"{name}-{digest[:16]}.so"
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-    return ctypes.CDLL(str(out))
+    build_all([name])
+    return ctypes.CDLL(str(_target(name)))

@@ -137,6 +137,16 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def check_point_count(n: int) -> None:
+    """The kernels index points and position gradients as ``int 3 * p``
+    (``csrc/fourier_mlp.cu:195-197,210,417``), which overflows at 3 N >= 2^31."""
+    if 3 * n >= 2 ** 31:
+        raise ValueError(
+            f"{n} points: the Fourier-MLP kernels take at most {(2 ** 31 - 1) // 3} "
+            "per call (32-bit point offsets); split the call"
+        )
+
+
 def _cuda_args(ws, bs, bmat, pts01, dtype):
     """Validate the operands and pack the weights as the kernels take them."""
     if dtype != torch.bfloat16:
@@ -147,6 +157,7 @@ def _cuda_args(ws, bs, bmat, pts01, dtype):
     k0, h = ws[0].shape
     if pts01.dtype != torch.float32 or pts01.dim() != 2 or pts01.shape[1] != 3:
         raise ValueError(f"pts01 must be (N, 3) float32, got {tuple(pts01.shape)} {pts01.dtype}")
+    check_point_count(pts01.shape[0])
     if bmat.dtype != torch.float32 or bmat.shape[0] != 3 or bmat.device != dev:
         raise ValueError("bmat must be (3, F) float32 on the points' device")
     if k0 != 2 * f + 3:

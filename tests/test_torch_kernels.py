@@ -5,15 +5,19 @@ that has only PyTorch and the CUDA toolkit:
 
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
-Without a card every test skips. Tolerances (bf16, kernel and plain version
-differ only in f32 summation order): forward max abs 5e-2 on O(1)-O(10) sigma;
-gradients relative L2 1e-2, since a rare flipped ReLU mask moves single points'
-gradients.
+Without a card the card tests skip. Tolerances, Fourier MLP (bf16, kernel and
+plain version differ only in f32 summation order): forward max abs 5e-2 on
+O(1)-O(10) sigma; gradients relative L2 1e-2, since a rare flipped ReLU mask
+moves single points' gradients. Compositing (f32; the kernel's warp scan
+multiplies in another order than cumprod): the tolerances of
+tests/test_pallas_ops.py, depth and opacity rtol/atol 2e-4, weights rtol 5e-3
+atol 2e-4, variance rtol 1e-3 atol 2e-4.
 """
 import numpy as np
 import pytest
 import torch
 
+from loner_tpu_torch.ops import composite as tc
 from loner_tpu_torch.ops import fourier_mlp as tfm
 
 torch.set_num_threads(1)
@@ -94,3 +98,71 @@ def test_cpu_tensors_take_the_plain_version():
     out = tfm.fourier_sigma_fused(mlp, pts, bmat)
     torch.testing.assert_close(out, tfm.fourier_mlp_fwd_plain(ws, bs, bmat, pts, torch.bfloat16))
     assert (tfm.counts.fwd_launches, tfm.counts.bwd_launches) == before
+
+
+def test_point_count_guard_raises_before_any_launch():
+    # 3 N >= 2^31 overflows the kernels' int point offsets; meta tensors hold no data.
+    ws, bs, bmat, _, _ = _operands(8, 32, 2, 4, torch.device("cpu"))
+    meta = torch.device("meta")
+    ws, bs, bmat = [w.to(meta) for w in ws], [b.to(meta) for b in bs], bmat.to(meta)
+    n_max = (2 ** 31 - 1) // 3
+    tfm.check_point_count(n_max)
+    before = (tfm.counts.fwd_launches, tfm.counts.bwd_launches)
+    for n in (n_max + 1, 16384 * 2048 * 32):
+        pts = torch.empty((n, 3), dtype=torch.float32, device=meta)
+        with pytest.raises(ValueError, match="32-bit point offsets"):
+            tfm.fourier_mlp_fwd_cuda(ws, bs, bmat, pts, torch.bfloat16)
+        with pytest.raises(ValueError, match="32-bit point offsets"):
+            tfm.fourier_mlp_bwd_cuda(ws, bs, bmat, pts, torch.empty((n, 1), device=meta),
+                                     torch.bfloat16)
+    assert (tfm.counts.fwd_launches, tfm.counts.bwd_launches) == before
+
+
+TOL = {"depth": (2e-4, 2e-4), "opacity": (2e-4, 2e-4), "var": (1e-3, 2e-4),
+       "weights": (5e-3, 2e-4)}
+
+
+def _composite_case(b, s, seed, wall=False):
+    rng = np.random.default_rng(seed)
+    z = np.sort(rng.uniform(1.0 / 12, 10.0 / 12, (b, s)).astype(np.float32), axis=1)
+    sigma = rng.normal(0.0, 3.0, (b, s)).astype(np.float32)
+    if wall:
+        sigma[: b // 2] = 0.0
+        sigma[: b // 2, s // 2] = 1e8
+    far = np.full((b,), 10.0 / 12, np.float32)
+    dnorm = rng.uniform(0.5, 1.5, b).astype(np.float32)
+    return z, sigma, far, dnorm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,softplus,wall", [
+    (300, 128, False, False), (1000, 1000, True, False), (17, 33, True, False),
+    (256, 2048, False, True), (5, 1, True, False),
+])
+def test_composite_kernel_matches_plain(cuda_device, b, s, softplus, wall):
+    args = [torch.tensor(a, device=cuda_device) for a in _composite_case(b, s, 2, wall)]
+    before = tc.counts.composite_launches
+    out_k = tc.composite_cuda(*args, softplus=softplus)
+    out_p = tc.composite_plain(*args, softplus=softplus)
+    torch.cuda.synchronize()
+    assert tc.counts.composite_launches == before + 1
+    for name, a, p in zip(("depth", "opacity", "var", "weights"), out_k, out_p):
+        rtol, atol = TOL[name]
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, p, rtol=rtol, atol=atol, msg=name)
+    # composite_rays picks the kernel for a CUDA tensor.
+    out_r = tc.composite_rays(*args, softplus=softplus)
+    assert tc.counts.composite_launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(out_r, out_k))
+
+
+@pytest.mark.cuda
+def test_composite_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    z, sigma, far, dnorm = [torch.tensor(a, device=cuda_device)
+                            for a in _composite_case(8, 16, 3)]
+    with pytest.raises(ValueError):
+        tc.composite_cuda(z.double(), sigma, far, dnorm)
+    with pytest.raises(ValueError):
+        tc.composite_cuda(z, sigma, far.cpu(), dnorm)
+    with pytest.raises(ValueError):
+        tc.composite_cuda(z, sigma.clone().requires_grad_(True), far, dnorm)

@@ -8,8 +8,9 @@
   gets the draws JAX made, re-derived from its per-step keys. Tolerances: loss
   trajectory rtol 2e-5, parameters and twists atol 5e-6 (three Adam steps of
   lr <= 5e-3 on f32 gradients that differ in summation order).
-- The import boundary: the port runs a step with jax, optax and yaml unimportable
-  and pulls in nothing of ``loner_tpu``.
+- The import boundary: the port runs a step, and renders a map cloud from a
+  checkpoint it wrote, with jax, optax, yaml (and matplotlib) unimportable, and
+  pulls in nothing of ``loner_tpu``.
 """
 import os
 import subprocess
@@ -250,3 +251,61 @@ def test_port_runs_a_step_without_jax_optax_yaml_or_loner_tpu():
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0 and "boundary ok" in proc.stdout, proc.stdout + proc.stderr
+
+
+def test_port_renders_without_jax_optax_yaml_matplotlib_or_loner_tpu(tmp_path):
+    script = textwrap.dedent("""
+        import os, pickle, sys
+        for m in ("jax", "optax", "yaml", "matplotlib"):
+            sys.modules[m] = None
+        import numpy as np
+        import torch
+        from loner_tpu_torch.analysis.renderer import render_dataset_frame, spherical_ray_directions
+        from loner_tpu_torch.analysis.render_utils import load_experiment
+        from loner_tpu_torch.analysis.renderer_lidar import render_full_map
+        from loner_tpu_torch.common.pose import Pose
+        from loner_tpu_torch.common.world_cube import WorldCube
+        from loner_tpu_torch.mapping.mapper import build_ckpt, save_checkpoint
+        from loner_tpu_torch.models.field import FieldConfig, init_field_params
+        from loner_tpu_torch.models.proposal import ProposalConfig, init_proposal_params
+
+        log_dir = sys.argv[1]
+        nerf = {"encoding_sigma": "fourier", "compute_dtype": "bfloat16",
+                "fourier_sigma": {"n_freqs": 8}, "sigma_network": {"n_neurons": 32,
+                "n_hidden_layers": 2}, "intensity_network": {"n_neurons": 16,
+                "n_hidden_layers": 1}, "pos_encoding_intensity": {"n_levels": 2,
+                "log2_hashmap_size": 10}}
+        model = {"data": {"ray_range": [1, 10]}, "model": {"nerf_config": nerf,
+                 "num_colors": 3, "render": {"compositor": "pallas"},
+                 "occ_model": {"prop_n_ctrl": 5}}}
+        cube = WorldCube(12.0, np.zeros(3))
+        os.makedirs(os.path.join(log_dir, "checkpoints"))
+        with open(os.path.join(log_dir, "full_config.pkl"), "wb") as f:
+            pickle.dump({"mapper": {"optimizer": {"model_config": model}},
+                         "world_cube": cube.as_dict()}, f)
+        dev = torch.device("cpu")
+        gen = torch.Generator().manual_seed(0)
+        params = init_field_params(gen, FieldConfig.from_settings(nerf), dev)
+        prop = init_proposal_params(gen, ProposalConfig(n_freqs=8, n_neurons=16), dev)
+        twist = Pose.from_twist(np.array([0.5, 0.0, 0.2, 0.0, 0.0, 0.3])).to_twist()
+        poses = [{"timestamp": 0.0, "lidar_pose": twist}]
+        save_checkpoint(os.path.join(log_dir, "checkpoints", "final.tar"),
+                        build_ckpt(params, prop, poses, cube, 1))
+        cloud = render_full_map(log_dir, num_channels=4, num_columns=8, n_samples=16,
+                                var_threshold=1e6, device="cpu")
+        assert cloud.shape[1] == 3 and cloud.shape[0] > 0 and np.isfinite(cloud).all()
+        model = load_experiment(log_dir, device="cpu")
+        frame = render_dataset_frame(model, np.eye(4), spherical_ray_directions(8, 4), (4, 8),
+                                     n_samples=16)
+        assert np.isfinite(frame["depth"]).all()
+        bad = sorted(m for m in sys.modules
+                     if m == "loner_tpu" or m.startswith("loner_tpu."))
+        assert not bad, bad
+        assert all(sys.modules[m] is None for m in ("jax", "optax", "yaml", "matplotlib"))
+        print("render boundary ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path / "exp")], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and "render boundary ok" in proc.stdout, (
+        proc.stdout + proc.stderr)
