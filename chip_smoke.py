@@ -29,6 +29,15 @@ nothing of JAX. Phases, each of which raises on failure:
    512 x 256 spherical depth frame at 2048 samples.
 8. Render against plain: one virtual scan through the kernels and through the
    plain sigma path and plain compositor, depth and variance compared.
+9. SLAM: a box-room sequence (``SLAM_SCANS`` scans of a 32 x 512 virtual
+   LiDAR at 10 Hz) through ``loner_tpu_torch.run_loner.run_trial``, threaded,
+   on cuda:0, at the flagship SLAM settings (cfg/synthetic/box_room_tpu_rt_r4.yaml
+   as a plain dict): the real-time factor, ms per mapping iteration, the
+   tracking latency, peak device memory and the kernels' launch counts; ATE of
+   both trajectories against the ground truth; the map's depth (one virtual
+   scan of ``render_full_map`` at the first keyframe) against the analytic
+   raycast of the scene; the ICP of one frame pair on the card against the
+   CPU, with no host synchronisation in a dispatch.
 
 The second-to-last line of output is a JSON record of the kernels; the last is
 ``{"ok": true, "device": {...}}``.
@@ -508,6 +517,306 @@ def run_render(dev, field, prop, field_cfg) -> int:
     return launches["composite"]
 
 
+SLAM_SCANS = 150  # 15 s of a 10 Hz box-room sequence
+SLAM_LIDAR = (32, 512)  # channels x columns: 16,384 returns per scan
+ATE_MAX = 0.15  # m, ATE RMSE bar of tests/test_e2e_slam.py:143,151
+MAP_DEPTH_MEDIAN_MAX = 0.3  # m, |rendered - analytic depth| median of the map check
+ICP_CARD_CPU_TOL = 1e-4  # transform entries, ICP on the card against the CPU
+
+
+def flagship_slam_settings(log_prefix: str) -> dict:
+    """cfg/synthetic/box_room_tpu_rt_r4.yaml over cfg/defaults.yaml as a plain
+    dict (the card's machine has no PyYAML). On purpose it differs in the log
+    prefix, ``system.precompile`` (kernels built and every program run once
+    before the clock starts, as the JAX drives ran with --precompile) and the
+    test-render compositor (the fused one, as cfg/model_config/
+    tpu_native_model_config.yaml has it; mapping does not read it).
+    tests/test_torch_slam.py holds the rest equal to the YAML."""
+    schedule_item = lambda n, **kw: {"num_iterations": n, "freeze_poses": False,  # noqa: E731
+                                     **kw, "freeze_rgb_mlp": True}
+    sync = {"enabled": True, "min_buffer_size": 2, "max_time_delta": 3}
+    icp_stage = lambda t: {"threshold": t, "max_iterations": 10, "relative_fitness": 1e-08,  # noqa: E731
+                           "relative_rmse": 1e-08}
+    return {
+        "calibration": {
+            "lidar_to_camera": {"xyz": [0, 0, 0], "orientation": [0, 0, 0, 1]},
+            "camera_intrinsic": {"k": None, "distortion": None, "new_k": None, "width": None,
+                                 "height": None},
+        },
+        "debug": {"global_enabled": True, "flags": {
+            "use_groundtruth_poses": False, "log_losses": False, "log_times": True,
+            "profile": False, "profile_optimizer": False, "write_frame_point_clouds": False,
+            "write_ray_point_clouds": False, "store_ray": False, "draw_samples": False,
+            "draw_rays_eps": False}},
+        "mapper": {
+            "data_prep_on_cpu": True, "log_level": "DISABLED",
+            "keyframe_manager": {
+                "keyframe_selection": {"strategy": "TEMPORAL", "temporal": {"time_diff_seconds": 3.0},
+                                       "motion": {"translation_threshold_m": 0.5,
+                                                  "rotation_threshold_deg": 22.5}},
+                "window_selection": {"strategy": "HYBRID", "hybrid_settings": {"num_recent_frames": 1},
+                                     "window_size": 8},
+            },
+            "optimizer": {
+                "freeze_poses": False, "enabled": True, "seed": 0, "detach_rgb_from_poses": True,
+                "detach_rgb_from_sigma": False, "skip_pose_refinement": True,
+                "num_samples": {"lidar": 512, "sky": 0, "camera": 0},
+                "rays_selection": {"strategy": "RANDOM"},
+                "samples_selection": {"strategy": "PROPOSAL"},
+                "keyframe_schedule": [
+                    {"num_keyframes": 1, "iteration_schedule": [
+                        {"num_iterations": 1000, "freeze_poses": True, "freeze_sigma_mlp": False,
+                         "freeze_rgb_mlp": True}]},
+                    {"num_keyframes": -1, "iteration_schedule": [
+                        schedule_item(50, latest_kf_only=True, freeze_sigma_mlp=True),
+                        schedule_item(50, freeze_sigma_mlp=False)]},
+                ],
+                "model_config": {
+                    "data": {"ray_range": [0.5, 14.0]},
+                    "model": {
+                        "num_colors": 3, "model_type": "nerf_decoupled",
+                        "nerf_config": {
+                            **{k: v for k, v in FLAGSHIP_NERF.items()
+                               if k not in ("sigma_kernel", "fourier_sigma")},
+                            "fourier_sigma": {"n_freqs": 48, "scale": 6.0, "include_input": True},
+                            "pos_encoding_sigma": {"base_resolution": 16, "log2_hashmap_size": 18,
+                                                   "n_features_per_level": 2, "n_levels": 16,
+                                                   "otype": "HashGrid"},
+                        },
+                        "ray_range": [0.5, 14.0],
+                        "render": {"N_samples_train": 512, "N_samples_test": 1024, "retraw": True,
+                                   "lindisp": False, "perturb": 1.0, "white_bkgd": False,
+                                   "raw_noise_std": 1.0, "chunk": 16384, "netchunk": 0,
+                                   "compositor": "pallas"},
+                        "occ_model": {"voxel_size": 100, "lr": 0.0001, "N_iters_acc": 10,
+                                      "prop_lr": 0.001, "prop_n_ctrl": 33,
+                                      "proposal": {"n_freqs": 16, "scale": 3.0, "n_neurons": 64,
+                                                   "n_hidden_layers": 2},
+                                      "prop_train_subsample": 8},
+                    },
+                    "train": {"lrate_sigma_mlp": 0.005, "lrate_rgb": 0.01, "lrate_pose": 0.001,
+                              "encode_impl": "vjp_bf16", "lrate_gamma": 1.0, "decay_rate": 0.001,
+                              "pose_lrate_gamma": 1.0, "rgb_weight_decay": 1e-05,
+                              "sigma_weight_decay": 0.0, "steps_per_dispatch": 3,
+                              "max_inflight_dispatches": 1, "point_chunk": 0},
+                    "loss": {"loss_selection": "L1_JS",
+                             "JS_loss": {"min_js_score": 1.0, "max_js_score": 10.0, "alpha": 1.0},
+                             "decay_los_lambda": False, "los_lambda": 1000.0,
+                             "min_los_lambda": 10.0, "los_lambda_decay_rate": 0.001,
+                             "los_lambda_decay_steps": 15000, "decay_depth_eps": True,
+                             "depth_eps": 3.0, "min_depth_eps": 0.5, "depth_eps_decay_rate": 0.95,
+                             "depth_eps_decay_steps": 1, "depthloss_lambda": 0.005},
+                },
+            },
+        },
+        "system": {
+            "single_threaded": False, "precompile": True, "log_dir_prefix": log_prefix,
+            "lidar_only": True, "sky_segmentation": False, "image_scale_factor": 0.5,
+            "synchronization": dict(sync),
+            "world_cube": {"compute_from_groundtruth": True,
+                           "trajectory_bounding_box": {"x": [-10, 10], "y": [-10, 10],
+                                                       "z": [-10, 10]}},
+            "lidar_fov": {"enabled": False, "range": [[0, 235], [305, 360]]},
+            "lidar_timestamps_relative_to_start": True,
+        },
+        "tracker": {
+            "synchronization": dict(sync),
+            "frame_synthesis": {"strategy": None, "sky_removal": None,
+                                "frame_decimation_rate_hz": 5, "frame_match_tolerance": 0.01,
+                                "frame_delta_t_sec_tolerance": 0.02, "decimate_on_load": False},
+            "icp": {"scan_duration": 0.9, "schedule": [icp_stage(1.5), icp_stage(0.125)],
+                    "downsample": {"type": "UNIFORM", "target_uniform_point_count": 5000,
+                                   "voxel_downsample_size": 0.1}},
+            "motion_compensation": {"enabled": True},
+            "compute_sky_rays": False,
+        },
+    }
+
+
+def write_slam_dataset(root: str):
+    """The box-room sequence through the port's ScanStreamWriter; returns the
+    scene and the ground-truth poses."""
+    from loner_tpu_torch.datasets.scan_stream import ScanStreamWriter
+    from loner_tpu_torch.datasets.synthetic import VirtualLidar, generate_sequence
+
+    scans, poses, ts, scene, _ = generate_sequence(
+        num_scans=SLAM_SCANS, lidar=VirtualLidar(num_channels=SLAM_LIDAR[0],
+                                                 num_columns=SLAM_LIDAR[1]))
+    writer = ScanStreamWriter(root)
+    for scan in scans:
+        writer.add_scan(scan)
+    writer.write_gt(poses, ts)
+    return scene, poses, ts
+
+
+def check_icp_card_against_cpu(dev, dataset: str) -> dict:
+    """One real frame pair (scans 0 and 2, the 5 Hz decimation) at 5120 points
+    through run_icp_schedule on the card and on the CPU; one dispatch on the
+    tracker's kind of stream under torch.cuda.set_sync_debug_mode("error")."""
+    from loner_tpu_torch.common.frame import Frame
+    from loner_tpu_torch.datasets.scan_stream import ScanStreamReader
+    from loner_tpu_torch.tracking.icp import run_icp_schedule
+
+    reader = ScanStreamReader(dataset)
+    tgt, src = (Frame(reader.read_scan(i)).build_point_cloud(scan_duration=0.9, target_points=5000)
+                for i in (0, 2))
+    schedule = [{"threshold": 1.5, "max_iterations": 10}, {"threshold": 0.125, "max_iterations": 10}]
+    stream = torch.cuda.Stream(dev, priority=-1)
+    with torch.cuda.stream(stream):
+        run_icp_schedule(src, tgt, schedule, pad_size=5120, device=dev).transformation.cpu()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            card = run_icp_schedule(src, tgt, schedule, pad_size=5120, device=dev)
+            # The tracker's chained velocity init: a device tensor.
+            chained = run_icp_schedule(src, tgt, schedule, pad_size=5120, init=card.transformation)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        t_card = card.transformation.cpu().numpy()
+        chained.transformation.cpu()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        run_icp_schedule(src, tgt, schedule, pad_size=5120, device=dev)
+        end.record()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        device_ms = start.elapsed_time(end)
+    t_cpu = run_icp_schedule(src, tgt, schedule, pad_size=5120,
+                             device=torch.device("cpu")).transformation.numpy()
+    err = float(np.abs(t_card - t_cpu).max())
+    print(f"ICP card vs CPU, one frame pair at 5120 points: max |dT| {err:.3e} (tolerance "
+          f"{ICP_CARD_CPU_TOL}), no host sync in a dispatch; one dispatch {host_ms:.3f} ms on "
+          f"the host, {device_ms:.3f} ms on the card (CUDA events)", flush=True)
+    if not err <= ICP_CARD_CPU_TOL:
+        raise RuntimeError(f"ICP on the card disagrees with the CPU: {err}")
+    return {"icp_card_cpu_err": err, "icp_host_ms": host_ms, "icp_device_ms": device_ms}
+
+
+def check_map_depth(dev, log_dir: str, scene, gt0: np.ndarray) -> int:
+    """render_full_map at the first keyframe (the anchored, identity pose of
+    the SLAM frame; the ground-truth pose of scan 0 in the scene) through the
+    composite and Fourier forward kernels; each kept point's range against the
+    analytic raycast along its ray. Returns the composite kernel's launches."""
+    from loner_tpu_torch.analysis.render_utils import kf_pose_matrices, load_experiment
+    from loner_tpu_torch.analysis.renderer_lidar import render_full_map
+    from loner_tpu_torch.ops import composite as cp
+    from loner_tpu_torch.ops import fourier_mlp as fm
+
+    model = load_experiment(log_dir, device=dev)
+    mats, _ = kf_pose_matrices(model)
+    if model.compositor != "pallas":
+        raise RuntimeError(f"the SLAM run's config renders with compositor {model.compositor}")
+    cp.counts.reset()
+    fm.counts.reset()
+    cloud = render_full_map(log_dir, skip_step=len(mats), voxel_size=0.02, device=dev)
+    launches = {"composite": cp.counts.composite_launches, "fourier_mlp_fwd": fm.counts.fwd_launches}
+    if cloud.shape[0] < 1000 or not np.isfinite(cloud).all():
+        raise RuntimeError(f"map check: {cloud.shape[0]} points kept")
+    # The SLAM frame is the ground truth zeroed at scan 0: scene = gt0 @ SLAM.
+    world = cloud @ gt0[:3, :3].T + gt0[:3, 3]
+    origin = (gt0 @ mats[0])[:3, 3]
+    rng = np.linalg.norm(world - origin, axis=1)
+    truth = scene.raycast(np.broadcast_to(origin, world.shape), (world - origin) / rng[:, None])
+    err = np.abs(rng - truth)
+    med = float(np.median(err))
+    print(f"map check: render_full_map at keyframe 0 ({cloud.shape[0]} points kept, variance "
+          f"< 1 m^2): |rendered - analytic depth| median {med:.4f} m (bound "
+          f"{MAP_DEPTH_MEDIAN_MAX}), mean {float(err.mean()):.4f}, p90 "
+          f"{float(np.quantile(err, 0.9)):.4f}; launches {launches}", flush=True)
+    for name, count in launches.items():
+        if count < 1:
+            raise RuntimeError(f"map check: {name} was not launched")
+    if not med <= MAP_DEPTH_MEDIAN_MAX:
+        raise RuntimeError(f"map check: median depth error {med} m")
+    return launches["composite"]
+
+
+def run_slam(dev) -> dict:
+    """Phase 9: the threaded flagship SLAM run through run_trial on ``dev``."""
+    import tempfile
+
+    from loner_tpu_torch import run_loner
+    from loner_tpu_torch.analysis.traj_metrics import evaluate_trajectory_files
+    from loner_tpu_torch.ops import fourier_mlp as fm
+
+    with tempfile.TemporaryDirectory(prefix="loner_tpu_torch_slam_") as tmp:
+        dataset = os.path.join(tmp, "dataset")
+        t0 = time.perf_counter()
+        scene, gt_poses, ts = write_slam_dataset(dataset)
+        print(f"SLAM dataset: {SLAM_SCANS} scans of {SLAM_LIDAR[0] * SLAM_LIDAR[1]} rays, "
+              f"{ts[-1] - ts[0] + 0.1:.1f} s of sequence, written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        icp = check_icp_card_against_cpu(dev, dataset)
+
+        loners = []
+
+        class RecordingLoner(run_loner.Loner):
+            def start(self):
+                loners.append(self)
+                super().start()
+
+        settings = flagship_slam_settings(os.path.join(tmp, "outputs"))
+        original, run_loner.Loner = run_loner.Loner, RecordingLoner
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            fm.counts.reset()
+            t0 = time.perf_counter()
+            log_dir = run_loner.run_trial(settings, dataset, experiment_name="smoke_slam",
+                                          device=dev)
+            wall = time.perf_counter() - t0
+            launches = {"fourier_mlp_fwd": fm.counts.fwd_launches,
+                        "fourier_mlp_bwd": fm.counts.bwd_launches}
+        finally:
+            run_loner.Loner = original
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+
+        (loner,) = loners
+        opt = loner.mapper.optimizer
+        placed = {"field": opt.state.field_params["sigma"]["mlp"]["w0"].device,
+                  "proposal": opt.state.occ_grid["w0"].device,
+                  "icp": loner.tracker._last_relative_dev.device}
+        if any(d != dev for d in placed.values()):
+            raise RuntimeError(f"SLAM tensors not on {dev}: {placed}")
+
+        runtime = float(open(os.path.join(log_dir, "runtime.txt")).read().split()[1])
+        seq_s = float(ts[-1] - ts[0]) + 0.1
+        timing = np.loadtxt(os.path.join(log_dir, "timing.csv"), delimiter=",", ndmin=2)
+        track = np.loadtxt(os.path.join(log_dir, "track_times.csv"), delimiter=",", ndmin=2)
+        its = int(timing[:, 0].sum())
+        boot_ms = 1e3 * timing[0, 1] / timing[0, 0]
+        win_ms = 1e3 * timing[1:, 1].sum() / max(timing[1:, 0].sum(), 1)
+        print(f"SLAM: {len(timing)} keyframes, {its} mapping iterations; per keyframe "
+              "(iterations, s): " + ", ".join(f"({int(n)}, {t:.3f})" for n, t in timing),
+              flush=True)
+        print(f"SLAM: runtime {runtime:.3f} s for {seq_s:.1f} s of sequence, real-time factor "
+              f"{seq_s / runtime:.4f}; ms per mapping iteration: W=1 bootstrap {boot_ms:.3f}, "
+              f"W=8 windows {win_ms:.3f}; tracking latency ({len(track)} updates) median "
+              f"{1e3 * float(np.median(track[:, 0])):.3f} ms, p95 "
+              f"{1e3 * float(np.quantile(track[:, 0], 0.95)):.3f} ms; peak device memory "
+              f"{peak_gb:.3f} GB; run_trial {wall:.3f} s; launches {launches}; tensors on "
+              f"{sorted({str(d) for d in placed.values()})}", flush=True)
+        for name, count in launches.items():
+            if count < its:
+                raise RuntimeError(f"{name} launched {count} times in {its} mapping iterations")
+
+        ate = {}
+        for name in ("estimated_trajectory", "tracking_only"):
+            res = evaluate_trajectory_files(
+                os.path.join(log_dir, "trajectory", f"{name}.txt"),
+                os.path.join(log_dir, "trajectory", "groundtruth.txt"), delta_m=1.0)
+            ate[name] = res["ate"]["rmse"]
+        print(f"SLAM ATE RMSE: estimated {ate['estimated_trajectory']:.4f} m, tracking only "
+              f"{ate['tracking_only']:.4f} m (bound {ATE_MAX})", flush=True)
+        if not all(v < ATE_MAX for v in ate.values()):
+            raise RuntimeError(f"SLAM ATE above {ATE_MAX} m: {ate}")
+
+        composite = check_map_depth(dev, log_dir, scene, gt_poses[0])
+    return {"launches": {**launches, "composite": composite}, **icp}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs only on a GPU",
@@ -539,6 +848,10 @@ def main() -> int:
     composite = check_composite(dev)
     composite["launches"] = run_render(dev, field, prop, field_cfg)
     kernels.append(composite)
+    # The SLAM slice's main path: its launch counts go into the kernels' record.
+    slam = run_slam(dev)
+    for k in kernels:
+        k["launches"] = slam["launches"][k["name"]]
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,8 @@ def _eye_like(x: torch.Tensor, shape) -> torch.Tensor:
 
 
 def _bottom_row(top: torch.Tensor) -> torch.Tensor:
-    row = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype, device=top.device)
+    # Made on the device (no host-to-device copy, which would synchronise).
+    row = torch.eye(4, dtype=top.dtype, device=top.device)[3:]
     return row.expand(top.shape[:-2] + (1, 4))
 
 
@@ -161,3 +162,97 @@ def interpolate_transforms(
     rots = r_start @ axis_angle_to_matrix(rel_aa * alpha)
     top = torch.cat([rots, trans[..., :, None]], dim=-1)
     return torch.cat([top, _bottom_row(top)], dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# 3x3 linear algebra without host synchronisation
+# ---------------------------------------------------------------------------
+# torch.linalg.svd and torch.linalg.eigh check their error codes on the host,
+# which synchronises a CUDA device with the CPU. The tracker's ICP runs many of
+# these small problems inside one pipelined dispatch, so it takes the closed
+# forms below instead: elementwise ops, any batch shape, no host round trip.
+
+_POLAR_ITERS = 8
+
+
+def det3(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (...) determinant."""
+    return (m[..., 0, 0] * (m[..., 1, 1] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 1])
+            - m[..., 0, 1] * (m[..., 1, 0] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 0])
+            + m[..., 0, 2] * (m[..., 1, 0] * m[..., 2, 1] - m[..., 1, 1] * m[..., 2, 0]))
+
+
+def _cofactor3(m: torch.Tensor) -> torch.Tensor:
+    """Cofactor matrix, det(m) * m^-T: rows r1 x r2, r2 x r0, r0 x r1."""
+    r0, r1, r2 = m[..., 0, :], m[..., 1, :], m[..., 2, :]
+    return torch.stack([torch.linalg.cross(r1, r2), torch.linalg.cross(r2, r0),
+                        torch.linalg.cross(r0, r1)], dim=-2)
+
+
+def symmetric3_smallest_eigvec(a: torch.Tensor) -> torch.Tensor:
+    """Unit eigenvector of the smallest eigenvalue of symmetric (..., 3, 3)
+    matrices, as ``torch.linalg.eigh(a)[1][..., 0]`` up to sign.
+
+    The eigenvalue comes from the trigonometric closed form; the vector is the
+    longest cross product of two rows of ``a - lambda I``. Where those rows
+    span one line only (a double smallest eigenvalue), any vector orthogonal to
+    it is an eigenvector; where ``a`` is a multiple of I, every vector is, and
+    ``[1, 0, 0]`` is returned, as eigh does. Use float64 for accuracy."""
+    a00, a11, a22 = a[..., 0, 0], a[..., 1, 1], a[..., 2, 2]
+    a01, a02, a12 = a[..., 0, 1], a[..., 0, 2], a[..., 1, 2]
+    q = (a00 + a11 + a22) / 3.0
+    p2 = (a00 - q) ** 2 + (a11 - q) ** 2 + (a22 - q) ** 2 + 2.0 * (a01 ** 2 + a02 ** 2 + a12 ** 2)
+    p = torch.sqrt(p2 / 6.0)
+    p_safe = torch.where(p > 0, p, torch.ones_like(p))
+    eye = torch.eye(3, dtype=a.dtype, device=a.device)
+    b = (a - q[..., None, None] * eye) / p_safe[..., None, None]
+    r = torch.clamp(det3(b) / 2.0, -1.0, 1.0)
+    phi = torch.acos(r) / 3.0
+    lam = q + 2.0 * p * torch.cos(phi + 2.0 * torch.pi / 3.0)
+
+    m = a - lam[..., None, None] * eye
+    r0, r1, r2 = m[..., 0, :], m[..., 1, :], m[..., 2, :]
+    cands = torch.stack([torch.linalg.cross(r0, r1), torch.linalg.cross(r0, r2),
+                         torch.linalg.cross(r1, r2)], dim=-2)
+    norms = torch.linalg.norm(cands, dim=-1)
+    best = torch.argmax(norms, dim=-1, keepdim=True)
+    v = torch.gather(cands, -2, best[..., None].expand(best.shape + (3,)))[..., 0, :]
+    v_norm = torch.gather(norms, -1, best)
+
+    # Rank <= 1: a vector orthogonal to the longest row, built with the axis
+    # least aligned with it.
+    row_norms = torch.linalg.norm(m, dim=-1)
+    top = torch.argmax(row_norms, dim=-1, keepdim=True)
+    row = torch.gather(m, -2, top[..., None].expand(top.shape + (3,)))[..., 0, :]
+    axis = torch.nn.functional.one_hot(torch.argmin(row.abs(), dim=-1), 3).to(a.dtype)
+    ortho = torch.linalg.cross(row, axis)
+    row_max = torch.gather(row_norms, -1, top)
+    rank2 = v_norm > 1e-10 * row_max ** 2
+    v = torch.where(rank2, v / torch.where(rank2, v_norm, torch.ones_like(v_norm)),
+                    ortho / torch.linalg.norm(ortho, dim=-1, keepdim=True).clamp_min(1e-300))
+    scalar = row_max <= 1e-12 * torch.clamp(q.abs()[..., None], min=1e-300)
+    return torch.where(scalar | (row_max == 0), eye[0].expand(v.shape), v)
+
+
+def orthonormalize_transform(t_mat: torch.Tensor) -> torch.Tensor:
+    """Nearest SE(3) element (Frobenius): the rotation block projected onto
+    SO(3) as ``U diag(1, 1, det(U V^T)) V^T`` of its SVD, the translation kept.
+
+    Counterpart of ``loner_tpu/tracking/icp.py::orthonormalize_transform``,
+    without an SVD: the scaled Newton iteration ``X <- (g X + X^-T / g) / 2``
+    converges to the orthogonal polar factor ``U V^T``; where that has
+    determinant -1, the reflection along the right singular vector of the
+    smallest singular value turns it into the rotation. Computed in float64,
+    returned in the input's dtype. (..., 4, 4) -> (..., 4, 4)."""
+    r = t_mat[..., :3, :3].to(torch.float64)
+    x = r
+    for _ in range(_POLAR_ITERS):
+        x_inv_t = _cofactor3(x) / det3(x)[..., None, None]
+        g = torch.sqrt(torch.linalg.norm(x_inv_t, dim=(-2, -1))
+                       / torch.linalg.norm(x, dim=(-2, -1)))[..., None, None]
+        x = 0.5 * (g * x + x_inv_t / g)
+    v = symmetric3_smallest_eigvec(r.transpose(-1, -2) @ r)
+    flipped = x - 2.0 * (x @ v[..., :, None]) * v[..., None, :]
+    rot = torch.where((det3(x) < 0)[..., None, None], flipped, x).to(t_mat.dtype)
+    top = torch.cat([rot, t_mat[..., :3, 3:]], dim=-1)
+    return torch.cat([top, t_mat[..., 3:, :]], dim=-2)

@@ -1,15 +1,25 @@
-"""Checkpoint files of the mapper.
+"""Mapper: keyframe gating, the windowed optimisation and checkpoints.
 
-Counterpart of the checkpoint part of ``loner_tpu/mapping/mapper.py``: a
-checkpoint is a pickled dict of numpy arrays under the reference's ``.tar``
-names, in ``Mapper.build_ckpt``'s schema, so either package reads what the
-other wrote. The ``Mapper`` thread itself is not ported yet.
+Counterpart of ``loner_tpu/mapping/mapper.py``. Drains the frame signal,
+elects keyframes, runs the optimiser on the active window, emits the keyframe
+pose states, and writes checkpoints with the reference's cadence and names
+(``ckpt_<kf>.tar`` per keyframe: poses only, except every 10th keyframe at
+STANDARD and every one at VERBOSE, which hold the full state; ``final.tar`` at
+shutdown). A checkpoint is a pickled dict of numpy arrays in the JAX package's
+schema, so either package reads what the other wrote.
 """
 from __future__ import annotations
 
+import copy
+import os
 import pickle
+import time
+from dataclasses import replace
 from typing import Any, Dict, List, Optional
 
+import torch
+
+from loner_tpu_torch.common.signals import SharedState, Signal, StopSignal
 from loner_tpu_torch.common.world_cube import WorldCube
 from loner_tpu_torch.convert import (  # noqa: F401  (tree_to_numpy: the public name)
     field_params_to_jax,
@@ -42,3 +52,162 @@ def build_ckpt(field_params: Dict[str, Any], occ_state: Optional[Dict[str, Any]]
     if occ_state is not None:
         ckpt["occ_model_state_dict"] = proposal_params_to_jax(occ_state)
     return ckpt
+
+
+class Mapper:
+    def __init__(
+        self,
+        settings,
+        frame_signal: Signal,
+        keyframe_update_signal: Signal,
+        world_cube: WorldCube,
+        device: torch.device,
+        enable_sky_segmentation: bool = False,
+    ) -> None:
+        from loner_tpu_torch.mapping.keyframe_manager import KeyFrameManager
+        from loner_tpu_torch.mapping.optimizer import Optimizer, OptimizerConfig
+        from loner_tpu_torch.models.field import FieldConfig
+
+        self._frame_slot = frame_signal.register()
+        self._keyframe_update_signal = keyframe_update_signal
+        self._settings = settings
+        self._world_cube = world_cube
+
+        seed = int(settings.optimizer.get("seed", 0))
+        self._keyframe_manager = KeyFrameManager(settings.keyframe_manager, seed=seed)
+
+        model_cfg = settings.optimizer.model_config
+        model_type = str(model_cfg.model.get("model_type", "nerf_decoupled"))
+        if model_type != "nerf_decoupled":
+            raise ValueError(f"unknown model_type {model_type!r}")
+        if int(settings.get("mesh_devices", 0) or 0) > 1 or isinstance(
+                settings.get("mesh_devices"), (list, tuple)):
+            raise NotImplementedError("a device mesh (system.mesh_devices) is not ported")
+        if int(settings.optimizer.num_samples.get("camera", 0)) > 0:
+            raise NotImplementedError("camera samples are not ported")
+        if enable_sky_segmentation and int(settings.optimizer.num_samples.sky) > 0:
+            raise NotImplementedError("sky rays in the mapper are not ported")
+        # The optimiser's full window class is the keyframe window's size.
+        opt_cfg = replace(
+            OptimizerConfig.from_settings(settings.optimizer, model_cfg),
+            window_size=int(settings.keyframe_manager.window_selection.window_size),
+        )
+        field_cfg = FieldConfig.from_settings(model_cfg.model.nerf_config,
+                                              int(model_cfg.model.num_colors))
+        debug = settings.debug
+        self._optimizer = Optimizer(
+            opt_cfg, field_cfg, world_cube.scale_factor, world_cube.shift,
+            settings.optimizer.keyframe_schedule, device,
+            skip_pose_refinement=bool(settings.optimizer.skip_pose_refinement),
+            use_gt_poses=bool(debug.get("use_groundtruth_poses", False)),
+            freeze_poses=bool(settings.optimizer.freeze_poses),
+            seed=seed,
+            log_directory=settings.get("log_directory"),
+            profile_optimizer=bool(debug.get("profile_optimizer", False)),
+            **{k: bool(debug.get(k, False)) for k in (
+                "log_losses", "write_ray_point_clouds", "store_ray", "draw_samples",
+                "draw_rays_eps")},
+        )
+
+        self.processed_stop_signal = False
+        self._shared_state: Optional[SharedState] = None
+        self._optimizer_enabled = bool(settings.optimizer.get("enabled", True))
+        self._log_level = settings.get("log_level", "DISABLED")
+        self._log_directory = settings.get("log_directory", ".")
+        os.makedirs(f"{self._log_directory}/checkpoints", exist_ok=True)
+
+    @property
+    def optimizer(self):
+        return self._optimizer
+
+    @property
+    def keyframe_manager(self):
+        return self._keyframe_manager
+
+    def warm_up(self, n_points: int) -> float:
+        """Build the kernels and run each reachable phase runner once (see
+        ``Optimizer.warm_up``)."""
+        if not self._optimizer_enabled:
+            return 0.0
+        return self._optimizer.warm_up(n_points)
+
+    def update(self) -> bool:
+        tic = time.time()
+        did_map_frame = False
+        did_work = False
+
+        if self._frame_slot.has_value():
+            new_frame = self._frame_slot.get_value()
+            did_work = True
+            if isinstance(new_frame, StopSignal):
+                self.processed_stop_signal = True
+                return True
+
+            if self._settings.debug.get("use_groundtruth_poses", False):
+                # A shallow copy: the Frame is shared with the logger thread.
+                new_frame = copy.copy(new_frame)
+                new_frame._lidar_pose = new_frame._gt_lidar_pose
+
+            accepted = self._keyframe_manager.process_frame(new_frame) is not None
+            if self._shared_state is not None:
+                self._shared_state.last_mapped_frame_time = (
+                    self._keyframe_manager.get_last_mapped_time())
+
+            if self._optimizer_enabled and accepted:
+                self._optimizer.iterate_optimizer(self._keyframe_manager.get_active_window())
+                pose_state = self._keyframe_manager.get_poses_state()
+                kf_idx = self._optimizer._keyframe_count - 1
+                path = f"{self._log_directory}/checkpoints/ckpt_{kf_idx}.tar"
+                if (kf_idx % 10 == 0 and self._log_level == "STANDARD") or (
+                        self._log_level == "VERBOSE"):
+                    save_checkpoint(path, self.build_ckpt())
+                else:
+                    save_checkpoint(path, {"global_step": self._optimizer.state.global_step,
+                                           "poses": pose_state})
+                self._keyframe_update_signal.emit(pose_state)
+                did_map_frame = True
+        elif self._shared_state is not None:
+            t = self._keyframe_manager.get_last_mapped_time()
+            if t is not None:
+                self._shared_state.last_mapped_frame_time = t
+
+        if did_map_frame and self._settings.debug.get("log_times", False):
+            with open(f"{self._log_directory}/map_times.csv", "a+") as f:
+                f.write(f"{time.time() - tic}\n")
+        return did_work
+
+    def run(self, shared_state: SharedState) -> None:
+        self._shared_state = shared_state
+        while not self.processed_stop_signal:
+            did_work = self.update()
+            time.sleep(1e-4 if did_work else 5e-3)
+        self.finish()
+        print("Mapping Done.")
+
+    def build_ckpt(self) -> dict:
+        """A full checkpoint of the map state and the keyframe poses."""
+        opt = self._optimizer
+        return build_ckpt(opt.state.field_params, opt.state.occ_grid,
+                          self._keyframe_manager.get_poses_state(), self._world_cube,
+                          opt.state.global_step)
+
+    def finish(self) -> None:
+        path = f"{self._log_directory}/checkpoints/final.tar"
+        print("Saving Last Checkpoint to", path)
+        save_checkpoint(path, self.build_ckpt())
+
+    def restore_from_checkpoint(self, ckpt: dict, kf_frames) -> None:
+        """Rebuild the keyframe set from a full checkpoint's pose states and
+        re-read Frames, and seat the optimiser's map state. ``kf_frames[i]`` is
+        the Frame whose scan matches ``ckpt['poses'][i]['timestamp']``."""
+        from loner_tpu_torch.mapping.keyframe import KeyFrame
+
+        states = ckpt["poses"]
+        if len(states) != len(kf_frames):
+            raise ValueError(f"checkpoint has {len(states)} keyframes, got "
+                             f"{len(kf_frames)} rebuilt frames")
+        keyframes = [KeyFrame.from_pose_state(frame, state, anchored=(i == 0))
+                     for i, (state, frame) in enumerate(zip(states, kf_frames))]
+        self._keyframe_manager.restore(keyframes)
+        self._optimizer.restore(ckpt["network_state_dict"], ckpt.get("occ_model_state_dict"),
+                                ckpt["global_step"], len(keyframes))

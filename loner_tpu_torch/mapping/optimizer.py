@@ -1,27 +1,37 @@
-"""Windowed joint pose+map optimization: the mapping hot loop.
+"""Windowed joint pose+map optimization: the mapping hot loop and its host loop.
 
-Counterpart of ``make_phase_runner`` in ``loner_tpu/mapping/optimizer.py``. One
+Counterpart of ``loner_tpu/mapping/optimizer.py``. ``make_phase_runner``: one
 iteration samples rays from the device-resident keyframe buffers, builds them
 through the pose twists, draws samples with the proposal (or uniform) sampler,
 evaluates the Fourier sigma field, composites, takes the JS dynamic-margin loss
 plus the proposal's linear loss, and makes one masked multi-LR Adam step over
-the sigma, proposal and twist parameters.
+the sigma, proposal and twist parameters. ``Optimizer``: the host-side loop that
+runs a keyframe window through the iteration schedule and writes the
+optimised poses back.
 
 Freeze flags are gradient masks, and each phase builds a fresh Adam, as in the
-JAX package. The loop is plain Python; ``steps_per_dispatch`` has no effect.
+JAX package. The loop is plain Python; ``steps_per_dispatch`` and
+``max_inflight_dispatches`` have no effect.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field as dc_field
+import time
+from dataclasses import dataclass, field as dc_field, replace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from loner_tpu_torch import convert
 from loner_tpu_torch.mapping.loss import LossConfig, compute_lidar_loss
-from loner_tpu_torch.mapping.rays import WindowBuffers, sample_and_build_rays
-from loner_tpu_torch.models.field import FieldConfig
+from loner_tpu_torch.mapping.rays import (
+    DeviceScanPool, WindowBuffers, build_window_buffers, sample_and_build_rays,
+)
+from loner_tpu_torch.models.field import FieldConfig, init_field_params
 from loner_tpu_torch.models.losses import get_logits_grad
-from loner_tpu_torch.models.proposal import ProposalConfig, proposal_logits
+from loner_tpu_torch.models.proposal import (
+    ProposalConfig, init_proposal_params, proposal_logits,
+)
 from loner_tpu_torch.models.rendering import ProposalRaySampler, UniformRaySampler
 
 
@@ -66,6 +76,8 @@ class OptimizerConfig:
     prop_train_subsample: int = 4
     proposal: ProposalConfig = dc_field(default_factory=ProposalConfig)
     ray_range: Tuple[float, float] = (1.0, 10.0)
+    # Keyframe slots of the full window class (the KF#1 bootstrap runs at 1).
+    window_size: int = 8
     enable_sky: bool = False
     # Accepted for the JAX package's configs; the port's loop is plain Python.
     steps_per_dispatch: int = 10
@@ -265,3 +277,239 @@ def make_phase_runner(cfg: OptimizerConfig, field_cfg: FieldConfig, phase: Phase
         return new_field, new_prop, tw.detach(), stack(losses), stack(eps_log)
 
     return run_phase
+
+
+@dataclass
+class MapState:
+    """The optimiser's device state: field params, proposal params (None for
+    the uniform sampler) and the iteration count over the whole run."""
+
+    field_params: Dict[str, Any]
+    occ_grid: Optional[Dict[str, Any]]
+    global_step: int = 0
+
+
+_DEBUG_DUMPS = ("log_losses", "write_ray_point_clouds", "store_ray", "draw_samples",
+                "draw_rays_eps")
+
+
+class Optimizer:
+    """Host side: the keyframe schedule, the phase-runner cache and the map
+    state on one torch device.
+
+    Counterpart of ``loner_tpu/mapping/optimizer.py::Optimizer``: runs a
+    keyframe window through its iteration schedule (``iterate_optimizer``) and
+    writes the optimised poses back into the keyframes. The random draws come
+    from a ``torch.Generator`` on the device, seeded with ``seed``."""
+
+    def __init__(
+        self,
+        cfg: OptimizerConfig,
+        field_cfg: FieldConfig,
+        world_scale: float,
+        world_shift: np.ndarray,
+        keyframe_schedule: List[dict],
+        device: torch.device,
+        skip_pose_refinement: bool = True,
+        use_gt_poses: bool = False,
+        freeze_poses: bool = False,
+        seed: int = 0,
+        log_directory: Optional[str] = None,
+        profile_optimizer: bool = False,
+        **debug_dumps: bool,
+    ) -> None:
+        unknown = sorted(set(debug_dumps) - set(_DEBUG_DUMPS))
+        if unknown:
+            raise TypeError(f"unexpected arguments {unknown}")
+        asked = sorted(k for k, v in debug_dumps.items() if v)
+        if asked:
+            raise NotImplementedError(f"debug dumps {asked} are not ported")
+        self._cfg = cfg
+        self._field_cfg = field_cfg
+        self._device = torch.device(device)
+        self._world_scale = torch.tensor(float(world_scale), device=self._device)
+        self._world_shift = torch.from_numpy(np.asarray(world_shift, np.float32)).to(self._device)
+        self._keyframe_schedule = keyframe_schedule
+        self._skip_pose_refinement = skip_pose_refinement
+        self._use_gt_poses = use_gt_poses
+        self._freeze_poses = freeze_poses
+        self._log_directory = log_directory
+        self._profile_optimizer = profile_optimizer
+
+        self._generator = torch.Generator(device=self._device).manual_seed(int(seed))
+        self.state = MapState(*self._init_state(self._generator))
+        self._keyframe_count = 0
+        self._runner_cache: Dict[tuple, Any] = {}
+        self._scan_pool = DeviceScanPool(self._device)
+        self.last_losses: Optional[np.ndarray] = None
+        self.last_depth_eps: Optional[np.ndarray] = None
+
+    def _init_state(self, generator: torch.Generator):
+        field_params = init_field_params(generator, self._field_cfg, self._device)
+        occ = (init_proposal_params(generator, self._cfg.proposal, self._device)
+               if self._cfg.samples_strategy == "PROPOSAL" else None)
+        return field_params, occ
+
+    def restore(self, field_params, occ_state, global_step: int, keyframe_count: int) -> None:
+        """Seat the map state from numpy trees in the JAX package's layout (a
+        checkpoint's ``network_state_dict`` and ``occ_model_state_dict``). Adam
+        state is not restored: each schedule phase builds a fresh Adam."""
+        self.state.field_params = convert.field_params_from_jax(field_params, self._device)
+        if occ_state is not None:
+            self.state.occ_grid = convert.proposal_params_from_jax(occ_state, self._device)
+        self.state.global_step = int(global_step)
+        self._keyframe_count = int(keyframe_count)
+
+    # -- schedule ------------------------------------------------------------
+    def _select_schedule(self) -> List[PhaseSettings]:
+        """The iteration schedule for the current keyframe count."""
+        cumulative = 0
+        schedule = self._keyframe_schedule[-1]["iteration_schedule"]
+        for item in self._keyframe_schedule:
+            cumulative += item["num_keyframes"]
+            if cumulative >= self._keyframe_count + 1 or item["num_keyframes"] == -1:
+                schedule = item["iteration_schedule"]
+                break
+        phases = [PhaseSettings.from_dict(p) for p in schedule]
+        if len(phases) > 1 and self._skip_pose_refinement:
+            phases = phases[1:]
+        return phases
+
+    def _effective_phase(self, phase: PhaseSettings) -> PhaseSettings:
+        freeze = phase.freeze_poses or self._freeze_poses or self._use_gt_poses
+        return replace(phase, freeze_poses=freeze)
+
+    def _get_runner(self, phase: PhaseSettings, w: int, p: int, ps: int):
+        # num_iterations is an argument of the runner, not part of its key.
+        cache_key = (replace(phase, num_iterations=0), w, p, ps)
+        if cache_key not in self._runner_cache:
+            self._runner_cache[cache_key] = make_phase_runner(
+                self._cfg, self._field_cfg, phase, w, p, ps, self._device)
+        return self._runner_cache[cache_key]
+
+    def _window_classes_for_item(self, first_kf: int, last_kf: Optional[int]) -> set:
+        """Window sizes a schedule item can run at: KF#k optimises a window of
+        min(k, W) keyframes, so only the item covering KF#1 sees the
+        1-keyframe (bootstrap) class; every later one runs the full width."""
+        classes = set()
+        if first_kf == 1:
+            classes.add(1)
+        if last_kf is None or last_kf >= 2:
+            classes.add(self._cfg.window_size)
+        return classes
+
+    def warm_up(self, n_points: int) -> float:
+        """Build the CUDA kernels (on a CUDA device) and run one iteration of
+        every phase runner the keyframe schedule can reach, on dummy state:
+        kernels, cuBLAS handles and the allocator are then ready before the
+        first keyframe. Returns the seconds spent."""
+        t0 = time.time()
+        if self._device.type == "cuda" and self._field_cfg.sigma_kernel == "fused":
+            from loner_tpu_torch.ops import fourier_mlp
+
+            fourier_mlp._lib()
+        rng = np.random.default_rng(0)
+        d = rng.normal(size=(3, max(int(n_points), 1))).astype(np.float32)
+        d /= np.linalg.norm(d, axis=0, keepdims=True) + 1e-9
+        lo, hi = sorted(self._cfg.ray_range)
+        depths = rng.uniform(lo + 0.1, hi - 0.1, d.shape[1]).astype(np.float32)
+
+        needed: Dict[tuple, PhaseSettings] = {}
+        first_kf = 1
+        for item in self._keyframe_schedule:
+            nk = int(item["num_keyframes"])
+            last_kf = None if nk == -1 else first_kf + nk - 1
+            classes = self._window_classes_for_item(first_kf, last_kf)
+            first_kf = first_kf if last_kf is None else last_kf + 1
+            phases = [PhaseSettings.from_dict(ph) for ph in item["iteration_schedule"]]
+            if len(phases) > 1 and self._skip_pose_refinement:
+                phases = phases[1:]
+            for phase in phases:
+                eff = self._effective_phase(phase)
+                for w in classes:
+                    needed[(replace(eff, num_iterations=0), w)] = eff
+
+        dummy = torch.Generator(device=self._device).manual_seed(17)
+        field_params, occ = self._init_state(dummy)
+        losses = []
+        for (_, w), eff in needed.items():
+            buffers = build_window_buffers([d] * w, [depths] * w, [None] * w, w,
+                                           device=self._device)
+            runner = self._get_runner(eff, w, buffers.dirs.shape[1], buffers.sky_dirs.shape[1])
+            out = runner(field_params, occ, torch.zeros((w, 6), device=self._device), buffers,
+                         torch.ones((w,), device=self._device), self._world_scale,
+                         self._world_shift, 0, dummy, num_iterations=1)
+            losses.append(out[3])
+        if losses:
+            torch.cat(losses).cpu()  # waits for the device
+        return time.time() - t0
+
+    # -- main entry ------------------------------------------------------------
+    def iterate_optimizer(self, window: list) -> float:
+        """Run the iteration schedule on a window of keyframes
+        (``mapping.keyframe.KeyFrame``) and write the optimised poses back into
+        them. Returns the last iteration's mapping loss."""
+        from loner_tpu_torch.runtime.profiling import optimizer_trace
+
+        start_time = time.time()
+        if len(window) == 1:
+            window[0].is_anchored = True
+        phases = self._select_schedule()
+        num_its = sum(p.num_iterations for p in phases)
+
+        m = len(window)
+        # A 1-keyframe window (the KF#1 bootstrap) runs a W = 1 runner: the
+        # full width would spend all but one slot on masked-out replicas.
+        w = 1 if m == 1 else self._cfg.window_size
+        buffers = self._scan_pool.build_window(window, w, self._cfg.rays_strategy == "MASK")
+        p, ps = buffers.dirs.shape[1], buffers.sky_dirs.shape[1]
+
+        twists = np.zeros((w, 6), np.float32)
+        anchored = np.zeros((w,), np.float32)
+        for i in range(w):
+            j = min(i, m - 1)
+            twists[i] = window[j].pose_twist(self._use_gt_poses)
+            anchored[i] = 1.0 if (window[j].is_anchored or i >= m) else 0.0
+        twists = torch.from_numpy(twists).to(self._device)
+
+        all_losses, all_eps = [], []
+        with optimizer_trace(self._log_directory, self._profile_optimizer, self._keyframe_count):
+            for phase in phases:
+                eff = self._effective_phase(phase)
+                pose_mask = 1.0 - anchored
+                if eff.latest_kf_only:
+                    latest_only = np.zeros_like(pose_mask)
+                    latest_only[m - 1] = 1.0
+                    pose_mask = pose_mask * latest_only
+                runner = self._get_runner(eff, w, p, ps)
+                (self.state.field_params, self.state.occ_grid, twists, losses, eps) = runner(
+                    self.state.field_params, self.state.occ_grid, twists, buffers,
+                    torch.from_numpy(pose_mask).to(self._device), self._world_scale,
+                    self._world_shift, self.state.global_step, self._generator,
+                    num_iterations=eff.num_iterations,
+                )
+                self.state.global_step += eff.num_iterations
+                all_losses.append(losses)
+                all_eps.append(eps)
+
+        # One copy to the host for the poses and the phase's loss logs.
+        host = torch.cat([twists.reshape(-1)] + all_losses + all_eps).cpu().numpy()
+        twists_np = host[: w * 6].reshape(w, 6)
+        n_log = sum(int(x.numel()) for x in all_losses)
+        self.last_losses = host[w * 6 : w * 6 + n_log]
+        self.last_depth_eps = host[w * 6 + n_log :]
+        if not np.isfinite(twists_np).all():
+            raise RuntimeError("Fatal: Encountered invalid pose tensor.")
+        if not np.isfinite(self.last_losses).all():
+            raise RuntimeError("NaN Loss Encountered")
+
+        if not self._use_gt_poses:
+            for i, kf in enumerate(window):
+                kf.set_pose_twist(twists_np[i])
+
+        elapsed = time.time() - start_time
+        if self._log_directory is not None:
+            with open(f"{self._log_directory}/timing.csv", "a+") as f:
+                f.write(f"{num_its},{elapsed}\n")
+        self._keyframe_count += 1
+        return float(self.last_losses[-1]) if self.last_losses.size else float("nan")

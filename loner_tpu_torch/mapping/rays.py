@@ -150,3 +150,64 @@ def sample_and_build_rays(buffers: WindowBuffers, twists: torch.Tensor,
     valid = valid & (far > near + 1.0 / world_scale)
     valid = valid & (origins.abs().max(dim=-1).values <= 1.0)
     return pack_rays(origins, dirs_w, near, far), depths_cube, valid
+
+
+class DeviceScanPool:
+    """Per-keyframe scans resident on the device.
+
+    Counterpart of ``loner_tpu/mapping/rays.py::DeviceScanPool``. Each
+    keyframe's padded scan is uploaded once, when it first enters a window, and
+    windows are assembled on the device with ``torch.stack``: a keyframe moves
+    about 1 MB to the device once, where a host-built window would ship all its
+    slots every time. All scans pad to one shared power-of-two size, so a
+    window matches ``build_window_buffers`` bit for bit; a scan beyond the
+    current size re-pads the pool on the device.
+
+    Entries are keyed by the keyframe's monotonic ``uid`` and never evicted
+    (keyframes are never culled). ``uploads`` counts host-to-device uploads.
+    """
+
+    def __init__(self, device: torch.device, sky_pad: int = 4096) -> None:
+        self._device = torch.device(device)
+        self._entries: dict = {}
+        self._p: Optional[int] = None
+        self._sky_pad = sky_pad
+        self.uploads = 0
+
+    def _pack(self, kf, use_mask: bool) -> dict:
+        d, z = kf.scan_dirs(use_mask), kf.scan_depths(use_mask)
+        n = d.shape[1]
+        if self._p is None or n > self._p:
+            new_p = _pad_pow2(n)
+            for e in self._entries.values():  # re-pad: pad rows repeat point 0
+                pad = new_p - e["dirs"].shape[0]
+                e["dirs"] = torch.cat([e["dirs"], e["dirs"][:1].expand(pad, 3)])
+                e["depths"] = torch.cat([e["depths"], e["depths"].new_zeros(pad)])
+            self._p = new_p
+        dirs, depths, count, sdirs, ns = pack_scan_slot(d, z, kf.sky_dirs(), self._p, self._sky_pad)
+        self.uploads += 1
+        return {"dirs": torch.from_numpy(dirs).to(self._device),
+                "depths": torch.from_numpy(depths).to(self._device), "count": count,
+                "sky_dirs": torch.from_numpy(sdirs).to(self._device), "sky_count": ns}
+
+    def build_window(self, window: list, window_size: int, use_mask: bool) -> WindowBuffers:
+        """WindowBuffers for a keyframe window; uploads only unseen scans.
+        Empty slots replicate the last keyframe's scan and are masked invalid,
+        as in ``build_window_buffers``."""
+        w, m = window_size, len(window)
+        if not 1 <= m <= w:
+            raise ValueError(f"{m} keyframes for a window of {w}")
+        entries = []
+        for kf in window:
+            key = (kf.uid, use_mask)
+            if key not in self._entries:
+                self._entries[key] = self._pack(kf, use_mask)
+            entries.append(self._entries[key])
+        slots = [entries[min(i, m - 1)] for i in range(w)]
+        small = torch.from_numpy(np.asarray(
+            [[e["count"] for e in slots], [e["sky_count"] for e in slots], [i < m for i in range(w)]],
+            np.int32)).to(self._device)
+        return WindowBuffers(
+            torch.stack([e["dirs"] for e in slots]), torch.stack([e["depths"] for e in slots]),
+            small[0], torch.stack([e["sky_dirs"] for e in slots]), small[1], small[2].bool(),
+        )

@@ -8,9 +8,10 @@
   gets the draws JAX made, re-derived from its per-step keys. Tolerances: loss
   trajectory rtol 2e-5, parameters and twists atol 5e-6 (three Adam steps of
   lr <= 5e-3 on f32 gradients that differ in summation order).
-- The import boundary: the port runs a step, and renders a map cloud from a
-  checkpoint it wrote, with jax, optax, yaml (and matplotlib) unimportable, and
-  pulls in nothing of ``loner_tpu``.
+- The import boundary: the port runs a step, renders a map cloud from a
+  checkpoint it wrote, and runs a tiny single-threaded SLAM trial through
+  ``run_trial`` (at chip_smoke.py's settings, cut down), with jax, optax, yaml
+  (and matplotlib) unimportable, and pulls in nothing of ``loner_tpu``.
 """
 import os
 import subprocess
@@ -308,4 +309,73 @@ def test_port_renders_without_jax_optax_yaml_matplotlib_or_loner_tpu(tmp_path):
     proc = subprocess.run([sys.executable, "-c", script, str(tmp_path / "exp")], cwd=REPO,
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0 and "render boundary ok" in proc.stdout, (
+        proc.stdout + proc.stderr)
+
+
+def test_port_runs_slam_without_jax_optax_yaml_or_loner_tpu(tmp_path):
+    script = textwrap.dedent("""
+        import importlib.abc, os, sys
+        BLOCKED = ("jax", "optax", "yaml", "matplotlib")
+
+        class Absent(importlib.abc.MetaPathFinder):
+            # As on a machine without them (sys.modules[m] = None would trip
+            # scipy's own probe for jax arrays).
+            def find_spec(self, name, path, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"{name} is not installed")
+                return None
+
+        sys.meta_path.insert(0, Absent())
+        import torch
+        import chip_smoke
+        from loner_tpu_torch.common.settings import Settings
+        from loner_tpu_torch.datasets.scan_stream import ScanStreamWriter
+        from loner_tpu_torch.datasets.synthetic import VirtualLidar, generate_sequence
+        from loner_tpu_torch.run_loner import run_trial
+
+        torch.set_num_threads(1)
+        root = sys.argv[1]
+        scans, poses, ts, _, _ = generate_sequence(
+            num_scans=12, lidar=VirtualLidar(num_channels=16, num_columns=64), rate_hz=5.0)
+        writer = ScanStreamWriter(os.path.join(root, "ds"))
+        for s in scans:
+            writer.add_scan(s)
+        writer.write_gt(poses, ts)
+        # The smoke test's flagship settings, single-threaded and cut to a CPU size.
+        settings = Settings(chip_smoke.flagship_slam_settings(os.path.join(root, "out")))
+        settings.augment({
+            "system": {"single_threaded": True},
+            "tracker": {"frame_synthesis": {"frame_decimation_rate_hz": 2.5},
+                        "icp": {"downsample": {"target_uniform_point_count": 500}}},
+            "mapper": {
+                "keyframe_manager": {"keyframe_selection": {"temporal": {"time_diff_seconds": 1.0}},
+                                     "window_selection": {"window_size": 2}},
+                "optimizer": {
+                    "num_samples": {"lidar": 16},
+                    "keyframe_schedule": [
+                        {"num_keyframes": 1, "iteration_schedule": [
+                            {"num_iterations": 3, "freeze_poses": True}]},
+                        {"num_keyframes": -1, "iteration_schedule": [{"num_iterations": 2}]}],
+                    "model_config": {"model": {
+                        "render": {"N_samples_train": 16},
+                        "nerf_config": {"fourier_sigma": {"n_freqs": 8},
+                                        "sigma_network": {"n_neurons": 32}},
+                        "occ_model": {"prop_n_ctrl": 5,
+                                      "proposal": {"n_freqs": 8, "n_neurons": 16}}}}}},
+        })
+        log_dir = run_trial(settings, os.path.join(root, "ds"), experiment_name="boundary",
+                            device="cpu")
+        for f in ("checkpoints/final.tar", "trajectory/estimated_trajectory.txt",
+                  "full_config.yaml", "world_cube.yaml", "runtime.txt"):
+            assert os.path.exists(os.path.join(log_dir, f)), f
+        bad = sorted(m for m in sys.modules
+                     if m == "loner_tpu" or m.startswith("loner_tpu."))
+        assert not bad, bad
+        assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        print("slam boundary ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and "slam boundary ok" in proc.stdout, (
         proc.stdout + proc.stderr)
