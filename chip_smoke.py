@@ -8,11 +8,17 @@ nothing of JAX. Phases, each of which raises on failure:
 
 1. Device: no CUDA card, no run. Prints the card's name and power limit.
 2. Build: compiles the CUDA sources of loner_tpu_torch/csrc into build/, one
-   nvcc process per source, all started together.
+   nvcc process per source, all started together; counts each kernel's
+   HGMMA (wgmma) and UBLKCP / UTMALDG (bulk / tensor copies) instructions in
+   the built SASS (cuobjdump), and fails if a Fourier-MLP kernel has no HGMMA.
 3. Kernels: the fused Fourier-MLP forward and backward kernels against their
    plain PyTorch version on the card, at the flagship shapes (2,097,152
    points, 48 frequencies, 99 -> 256 -> 256 -> 1, bf16), each timed with CUDA
-   events beside the plain version.
+   events beside the plain version, the least time the card could take
+   (bound_ms) and the library yardstick (library_ms: the same MLP as bf16
+   torch.addmm products with PyTorch ops between them, and its
+   torch.autograd.grad; a composition, timed here only); then both kernels
+   at the W=1 bootstrap's 262,144 points.
 4. Slice: the mapper's joint pose+map iteration at the flagship configuration
    (8 keyframes x 512 rays x 512 samples) through ``make_phase_runner``, with
    the kernels' launch counts; then one iteration's loss and twist gradient
@@ -94,6 +100,18 @@ FLAGSHIP_NERF = {
 }
 
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): bf16
+# tensor cores and HBM3. bound_ms is the larger of operations over the first and
+# bytes (each input read once, each output written once) over the second.
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
+
+
+def bound(flops: float, nbytes: float):
+    t_ops, t_bytes = 1e3 * flops / PEAK_BF16_FLOPS, 1e3 * nbytes / PEAK_HBM_BYTES
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def device_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -115,6 +133,40 @@ def cuda_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def sass_counts() -> dict:
+    """HGMMA and bulk / tensor-copy instructions of each kernel in the built
+    libraries (cuobjdump -sass). Fails if a Fourier-MLP kernel has no HGMMA."""
+    import re
+    import shutil
+
+    from loner_tpu_torch.ops.build import _target
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    for lib in ("fourier_mlp", "composite"):
+        sass = subprocess.run([tool, "-sass", str(_target(lib))], capture_output=True, text=True,
+                              check=True, timeout=300).stdout
+        func = None
+        for line in sass.splitlines():
+            m = re.match(r"\s+Function : (\S+)", line)
+            if m:
+                # The kernel's name and template argument, e.g. fwd_kernel<256>.
+                d = re.search(r"(\d+)([a-z_]+kernel)(?:ILi(\d+)E)?", m.group(1))
+                func = d.group(2) + (f"<{d.group(3)}>" if d.group(3) else "")
+                counts[func] = {"HGMMA": 0, "UBLKCP": 0, "UTMALDG": 0}
+                continue
+            m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+            if m and func and m.group(1) in counts[func]:
+                counts[func][m.group(1)] += 1
+    for name, c in sorted(counts.items()):
+        print(f"SASS {name}: HGMMA {c['HGMMA']}, UBLKCP {c['UBLKCP']}, UTMALDG {c['UTMALDG']}",
+              flush=True)
+    for name, c in counts.items():
+        if name.split("<")[0] in ("fwd_kernel", "bwd_tile_kernel", "dw_kernel") and not c["HGMMA"]:
+            raise RuntimeError(f"{name} has no HGMMA (wgmma) instruction")
+    return counts
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -192,22 +244,79 @@ def check_kernels(dev, field_cfg) -> list:
         if not rel <= GRAD_REL_L2:
             raise RuntimeError(f"backward kernel disagrees with its plain version on {name}: {rel}")
 
+    again = fm.fourier_mlp_bwd_cuda(ws, bs, bmat, pts01, dout, bf)
+    if not all(torch.equal(a, b) for a, b in zip(dws_k + dbs_k + [dpts_k],
+                                                 again[0] + again[1] + [again[2]])):
+        raise RuntimeError("backward kernel: two calls differ (it must be deterministic)")
+
     times = {
         "fwd": cuda_ms(lambda: fm.fourier_mlp_fwd_cuda(ws, bs, bmat, pts01, bf)),
         "fwd_plain": cuda_ms(lambda: fm.fourier_mlp_fwd_plain(ws, bs, bmat, pts01, bf)),
         "bwd": cuda_ms(lambda: fm.fourier_mlp_bwd_cuda(ws, bs, bmat, pts01, dout, bf)),
         "bwd_plain": cuda_ms(lambda: fm.fourier_mlp_bwd_plain(ws, bs, bmat, pts01, dout, bf)),
+        **library_ms(ws, bs, bmat, pts01, dout),
     }
     print(f"kernel times at N={n} (median of 5, ms): " + json.dumps(times), flush=True)
+    # Every product's multiply-adds (2 FLOP each): the forward once; the backward
+    # recomputes it and forms dX and dW of every layer. Bytes: points and dout in,
+    # sigma or dpts out, the parameters in (and their gradients out).
+    macs = sum(w.shape[0] * w.shape[1] for w in ws)
+    params = 4 * sum(w.numel() for w in ws) + 4 * sum(b.numel() for b in bs) + bmat.numel() * 4
+    fwd_bound = bound(2 * n * macs, 16 * n + params)
+    bwd_bound = bound(6 * n * macs, 28 * n + 2 * params)
+    for name, b, ms, lib in (("fwd", fwd_bound, times["fwd"], times["fwd_library"]),
+                             ("bwd", bwd_bound, times["bwd"], times["bwd_library"])):
+        print(f"kernel fourier_mlp_{name}: {ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
+              f"{100 * b[0] / ms:.1f}% of the bound; library composition {lib:.4f} ms", flush=True)
+    # The W=1 bootstrap's call size.
+    small = 512 * 512
+    sub = (pts01[:small].contiguous(), dout[:small].contiguous())
+    t_small = {"fwd": cuda_ms(lambda: fm.fourier_mlp_fwd_cuda(ws, bs, bmat, sub[0], bf)),
+               "bwd": cuda_ms(lambda: fm.fourier_mlp_bwd_cuda(ws, bs, bmat, sub[0], sub[1], bf))}
+    print(f"kernel times at N={small} (median of 5, ms): " + json.dumps(t_small), flush=True)
     src = "loner_tpu_torch/csrc/fourier_mlp.cu"
     return [
         {"name": "fourier_mlp_fwd", "route": "cuda", "source": src,
          "replaces": "loner_tpu/ops/pallas/fourier_mlp.py:52", "launches": 0,
-         "max_abs_err": fwd_err, "ms": times["fwd"], "plain_ms": times["fwd_plain"]},
+         "max_abs_err": fwd_err, "ms": times["fwd"], "plain_ms": times["fwd_plain"],
+         "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": times["fwd_library"]},
         {"name": "fourier_mlp_bwd", "route": "cuda", "source": src,
          "replaces": "loner_tpu/ops/pallas/fourier_mlp.py:80", "launches": 0,
-         "max_abs_err": bwd_err, "ms": times["bwd"], "plain_ms": times["bwd_plain"]},
+         "max_abs_err": bwd_err, "ms": times["bwd"], "plain_ms": times["bwd_plain"],
+         "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": times["bwd_library"]},
     ]
+
+
+def library_ms(ws, bs, bmat, pts01, dout) -> dict:
+    """The yardstick: the same MLP as bf16 torch.addmm products with sin, cos,
+    concatenation and ReLU as PyTorch ops (a composition of library calls; no
+    single call computes it), and torch.autograd.grad of it with respect to the
+    weights, biases and points. Timed here only; the port never calls it."""
+    bf = torch.bfloat16
+
+    def forward(wsb, bsb, pts):
+        proj = pts[:, 0:1] * bmat[0] + pts[:, 1:2] * bmat[1] + pts[:, 2:3] * bmat[2]
+        h = torch.cat([torch.sin(proj), torch.cos(proj), pts], dim=-1).to(bf)
+        for w, b in zip(wsb[:-1], bsb[:-1]):
+            h = torch.relu(torch.addmm(b, h, w))
+        return torch.addmm(bsb[-1], h, wsb[-1]).float()
+
+    wsb = [w.to(bf).requires_grad_(True) for w in ws]
+    bsb = [b.to(bf).requires_grad_(True) for b in bs]
+    pts = pts01.clone().requires_grad_(True)
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: forward(wsb, bsb, pts01))
+    times = []
+    for _ in range(6):  # the first is a warm-up
+        out = forward(wsb, bsb, pts)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.autograd.grad(out, wsb + bsb + [pts], dout)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return {"fwd_library": fwd, "bwd_library": float(np.median(times[1:]))}
 
 
 def run_slice(dev, cfg, field_cfg, n_iters: int = 20, w: int = WINDOW) -> dict:
@@ -332,9 +441,15 @@ def check_composite(dev) -> dict:
                     cuda_ms(lambda: cp.composite_plain(z, sigma, far_t, dnorm, True)))
         print(f"kernel composite times at {b} x {s}, softplus (median of 5, ms): "
               f"kernel {times[s][0]:.4f}, plain {times[s][1]:.4f}", flush=True)
+    # Bytes: sigma and z in, weights out (12 B per sample); far and dnorm in, depth,
+    # opacity and variance out (20 B per ray). No single PyTorch call composites.
+    b_ms, b_by = bound(0.0, 12 * b * 1024 + 20 * b)
+    print(f"kernel composite at {b} x 1024: bound {b_ms:.4f} ms ({b_by}), "
+          f"{100 * b_ms / times[1024][0]:.1f}% of the bound", flush=True)
     return {"name": "composite", "route": "cuda", "source": "loner_tpu_torch/csrc/composite.cu",
             "replaces": "loner_tpu/ops/pallas/composite.py:27", "launches": 0,
-            "max_abs_err": worst, "ms": times[1024][0], "plain_ms": times[1024][1]}
+            "max_abs_err": worst, "ms": times[1024][0], "plain_ms": times[1024][1],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def write_experiment(log_dir: str, field, prop, field_cfg, seed: int = 3) -> None:
@@ -839,6 +954,7 @@ def main() -> int:
     fm._lib()
     cp._lib()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+    sass_counts()
 
     cfg, field_cfg = flagship_configs()
     kernels = check_kernels(dev, field_cfg)

@@ -23,8 +23,6 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-TILE = 64  # points per tile in csrc/fourier_mlp.cu
-
 
 class LaunchCounts:
     """Kernel launches made by the wrappers of this module."""
@@ -92,8 +90,150 @@ def fourier_mlp_bwd_plain(ws, bs, bmat, pts01, dout, dtype):
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernels
+# CUDA kernels: shapes, the packed weight image and the backward's workspace
 # ---------------------------------------------------------------------------
+
+WIDTHS = (32, 64, 128, 192, 256)  # hidden widths the kernels are built for
+MAX_LAYERS = 8  # linear layers, the last (H -> 1) included
+CHUNK_ROWS = 64  # packed input rows per weight chunk
+MAX_CHUNKS = 40  # chunks of layers 0 .. L-2, and 128-row weight-gradient tiles
+MAX_TILE_PAIRS = 2 ** 31 - 1  # the kernels count a CTA's 128-point tile pairs in 32 bits
+
+
+def padded_freqs(f: int) -> int:
+    """Frequencies padded to a multiple of 16 (zero columns of B, zero rows of W_0)."""
+    return -(-f // 16) * 16
+
+
+def layer0_rows(f: int) -> torch.Tensor:
+    """Row of W_0 ([sin | cos | pts] order) held by each packed layer-0 row, -1 for a
+    row of zeros. The kernels take the features as [16 sin | 16 cos] per 16
+    frequencies, then [pts | 13 zeros]: 2 Fp + 16 rows."""
+    idx: List[int] = []
+    for s in range(0, padded_freqs(f), 16):
+        idx += [j if j < f else -1 for j in range(s, s + 16)]
+        idx += [f + j if j < f else -1 for j in range(s, s + 16)]
+    idx += [2 * f, 2 * f + 1, 2 * f + 2] + [-1] * 13
+    return torch.tensor(idx, dtype=torch.long)
+
+
+def _chunk_rows(rows: int) -> List[Tuple[int, int]]:
+    return [(r, min(CHUNK_ROWS, rows - r)) for r in range(0, rows, CHUNK_ROWS)]
+
+
+def pack_weights(ws, f: int) -> torch.Tensor:
+    """The kernels' image of W_0 .. W_{L-2}, bf16, flat: each layer (W_0's rows in
+    ``layer0_rows`` order) in chunks of 64 input rows; a chunk of R rows x H outputs
+    as 8 x 8 core matrices, core (o // 8, i // 8) at ((o // 8) * R / 8 + i // 8) * 64,
+    element (o % 8) * 8 + i % 8 (``csrc/fourier_mlp.cu::Plan``)."""
+    h, dev = ws[0].shape[1], ws[0].device
+    flat = torch.cat([w.reshape(-1) for w in ws[:-1]] + [ws[0].new_zeros(1)]).to(torch.bfloat16)
+    return flat[_pack_index(f, h, len(ws), dev)]
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_index(f: int, h: int, n_layers: int, device: torch.device) -> torch.Tensor:
+    """For each element of the image, its position in W_0 .. W_{L-2} flattened and
+    concatenated, or the position after them (a zero) for W_0's padding rows: one
+    gather packs a call's weights."""
+    idx = layer0_rows(f)
+    sizes = [(2 * f + 3) * h] + [h * h] * (n_layers - 2)
+    w0 = torch.arange(sizes[0]).reshape(2 * f + 3, h)
+    w0 = torch.where(idx[:, None] >= 0, w0[idx.clamp_min(0)], sum(sizes))
+    mats = [w0] + [torch.arange(h * h).reshape(h, h) + sum(sizes[: i + 1]) for i in range(n_layers - 2)]
+    parts = []
+    for m in mats:
+        for r0, rows in _chunk_rows(m.shape[0]):
+            c = m[r0 : r0 + rows]
+            parts.append(c.reshape(rows // 8, 8, h // 8, 8).permute(2, 0, 3, 1).reshape(-1))
+    return torch.cat(parts).to(device)
+
+
+def unpack_weights(img: torch.Tensor, f: int, h: int, n_layers: int) -> List[torch.Tensor]:
+    """Inverse of ``pack_weights``: W_0 (2F + 3, H), W_1 .. W_{L-2} (H, H)."""
+    idx = layer0_rows(f).to(img.device)
+    mats, o = [], 0
+    for rows in [len(idx)] + [h] * (n_layers - 2):
+        blocks = []
+        for _, r in _chunk_rows(rows):
+            c = img[o : o + r * h].reshape(h // 8, r // 8, 8, 8).permute(1, 3, 0, 2)
+            blocks.append(c.reshape(r, h))
+            o += r * h
+        mats.append(torch.cat(blocks))
+    keep = idx >= 0
+    w0 = mats[0].new_empty((2 * f + 3, h))
+    w0[idx[keep]] = mats[0][keep]
+    return [w0] + mats[1:]
+
+
+def core_layout(mat: torch.Tensor) -> torch.Tensor:
+    """An (N, C) matrix (N a multiple of 64, C of 8) in the workspace's core-matrix
+    order, flat: 64-point block, 8-column group, 8-point group, then the 8 x 8 core."""
+    n, c = mat.shape
+    return mat.reshape(n // 64, 8, 8, c // 8, 8).permute(0, 3, 1, 2, 4).reshape(-1)
+
+
+def from_core_layout(flat: torch.Tensor, n: int, c: int) -> torch.Tensor:
+    return flat.reshape(n // 64, c // 8, 8, 8, 8).permute(0, 2, 3, 1, 4).reshape(n, c)
+
+
+def check_shape(f: int, h: int, n_layers: int) -> None:
+    """Raise ValueError, before any launch, for a shape the kernels do not take."""
+    if h not in WIDTHS:
+        raise ValueError(f"the CUDA Fourier-MLP kernels take hidden widths {WIDTHS}, got {h}")
+    if not 2 <= n_layers <= MAX_LAYERS:
+        raise ValueError(f"the CUDA Fourier-MLP kernels take 2..{MAX_LAYERS} layers, got {n_layers}")
+    k0 = 2 * padded_freqs(f) + 16
+    chunks = len(_chunk_rows(k0)) + (n_layers - 2) * len(_chunk_rows(h))
+    tiles = -(-k0 // 128) + (n_layers - 2) * -(-h // 128)
+    if f < 1 or chunks > MAX_CHUNKS or tiles > MAX_CHUNKS:
+        raise ValueError(f"the CUDA Fourier-MLP kernels take at most {MAX_CHUNKS} weight chunks "
+                         f"and gradient tiles; F = {f}, {n_layers} layers of {h} need {chunks}, {tiles}")
+
+
+def check_point_count(n: int) -> None:
+    """The kernels index points, the workspace and the partials in 64 bits; a CTA
+    counts its 128-point tile pairs in 32 bits (``csrc/fourier_mlp.cu::tile_pairs``)."""
+    if -(-n // 128) > MAX_TILE_PAIRS:
+        raise ValueError(
+            f"{n} points: the Fourier-MLP kernels take at most {128 * MAX_TILE_PAIRS} per "
+            "call (32-bit tile-pair counts); split the call"
+        )
+
+
+class BackwardPlan:
+    """Sizes of the backward's buffers and its fixed order of summation.
+
+    ``features_kernel`` writes x (K0 columns; column 2 Fp + 3 is ones) to ``work``
+    (bf16, ``np`` points in core-matrix order); ``bwd_tile_kernel`` runs ``grid`` CTAs
+    over the 128-point tile pairs (CTA b takes pairs b, b + grid, ...), adds h_0 ..
+    h_{L-3} and G_0 .. G_{L-2} (H columns each) to it, and writes one f32 partial of
+    [db_0 .. db_{L-2} | dW_L | db_L] (``count_b`` values, rows ``stride_b`` apart; the
+    db_0 slot stays 0: db_0 is dW_0's row for x's column of ones) per CTA.
+    ``dw_kernel`` runs (split, tile) CTAs: ``tiles`` lists the (layer, m) of each
+    128-row tile of dW_0 .. dW_{L-2}, and split s sums the 64-point blocks
+    ``split_blocks(s)`` in order into one f32 partial (``tiles`` x 128 x H).
+    ``reduce_kernel`` adds the partials in split, then CTA, order. No step depends on
+    timing, so every call sums in the same order."""
+
+    def __init__(self, n: int, f: int, h: int, n_layers: int, sms: int) -> None:
+        self.k0 = 2 * padded_freqs(f) + 16
+        pairs = max(1, -(-n // 128))
+        self.np = 128 * pairs
+        self.grid = max(1, min(sms, pairs))
+        self.work_elems = (self.k0 + (n_layers - 2) * h + (n_layers - 1) * h) * self.np
+        self.tiles = [(0, m) for m in range(-(-self.k0 // 128))] + [
+            (layer, m) for layer in range(1, n_layers - 1) for m in range(-(-h // 128))
+        ]
+        self.splits = max(1, min(sms // len(self.tiles), self.np // 64))
+        self.count_b = n_layers * h + 1
+        self.stride_b = -(-self.count_b // 64) * 64
+        self.count_w = len(self.tiles) * 128 * h
+
+    def split_blocks(self, s: int) -> Tuple[int, int]:
+        nb = self.np // 64
+        return s * nb // self.splits, (s + 1) * nb // self.splits
+
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
@@ -102,12 +242,11 @@ def _lib() -> ctypes.CDLL:
     from loner_tpu_torch.ops.build import load_library
 
     lib = load_library("fourier_mlp")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    ip = ctypes.POINTER(ctypes.c_int)
-    lib.lt_fourier_mlp_fwd.argtypes = [p, p, i, i, i, i, p, p, p, p, p, p]
-    lib.lt_fourier_mlp_bwd.argtypes = [p, p, i, i, i, i, p, p, p, p, p, p, p, i, p, p]
-    lib.lt_fourier_mlp_bwd_layout.argtypes = [i, i, i, ip, ip, ip]
-    for fn in (lib.lt_fourier_mlp_fwd, lib.lt_fourier_mlp_bwd, lib.lt_fourier_mlp_bwd_layout):
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.lt_fourier_mlp_fwd.argtypes = [p, p, ll, i, i, i, p, p, p, p, i, p]
+    lib.lt_fourier_mlp_bwd.argtypes = [p, p, ll, i, i, i, p, p, p, p, p, p, p, i, p, i, p, p, p]
+    lib.lt_wgmma_selftest.argtypes = [p] * 8
+    for fn in (lib.lt_fourier_mlp_fwd, lib.lt_fourier_mlp_bwd, lib.lt_wgmma_selftest):
         fn.restype = ctypes.c_int
     return lib
 
@@ -117,38 +256,21 @@ def _check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} failed with CUDA error {rc}")
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_layout(f: int, h: int, n_layers: int, device_index: int) -> Tuple[int, int, int]:
-    stride, count, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    with torch.cuda.device(device_index):
-        _check(
-            _lib().lt_fourier_mlp_bwd_layout(
-                f, h, n_layers, ctypes.byref(stride), ctypes.byref(count), ctypes.byref(per_sm)
-            ),
-            "lt_fourier_mlp_bwd_layout",
-        )
-    if per_sm.value < 1:
-        raise RuntimeError("the Fourier-MLP backward kernel does not fit on one SM")
-    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return stride.value, count.value, per_sm.value * sms
-
-
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def check_point_count(n: int) -> None:
-    """The kernels index points and position gradients as ``int 3 * p``
-    (``csrc/fourier_mlp.cu:195-197,210,417``), which overflows at 3 N >= 2^31."""
-    if 3 * n >= 2 ** 31:
-        raise ValueError(
-            f"{n} points: the Fourier-MLP kernels take at most {(2 ** 31 - 1) // 3} "
-            "per call (32-bit point offsets); split the call"
-        )
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _cuda_args(ws, bs, bmat, pts01, dtype):
-    """Validate the operands and pack the weights as the kernels take them."""
+    """Validate the operands and pack them as the kernels take them."""
     if dtype != torch.bfloat16:
         raise ValueError("the CUDA Fourier-MLP kernels compute in bfloat16 only")
     dev = pts01.device
@@ -162,35 +284,29 @@ def _cuda_args(ws, bs, bmat, pts01, dtype):
         raise ValueError("bmat must be (3, F) float32 on the points' device")
     if k0 != 2 * f + 3:
         raise ValueError(f"w0 has {k0} rows; the kernel needs 2F + 3 = {2 * f + 3} (include_input)")
-    if n_layers < 2 or h % 16 or not 16 <= h <= 256:
-        raise ValueError(f"the kernel takes >= 2 layers of width 16..256 in steps of 16, got {h}")
+    check_shape(f, h, n_layers)
     for i, w in enumerate(ws):
         want = (k0, h) if i == 0 else (h, 1) if i == n_layers - 1 else (h, h)
         if tuple(w.shape) != want or w.device != dev:
             raise ValueError(f"w{i} must be {want} on {dev}, got {tuple(w.shape)} on {w.device}")
-    k0p = -(-k0 // 16) * 16
-    w0p = torch.zeros((k0p, h), dtype=torch.bfloat16, device=dev)
-    w0p[:k0] = ws[0]
-    wh = (
-        torch.stack([w.to(torch.bfloat16) for w in ws[1:-1]]).contiguous()
-        if n_layers > 2
-        else torch.empty((0,), dtype=torch.bfloat16, device=dev)
-    )
+    bpad = torch.nn.functional.pad(bmat, (0, padded_freqs(f) - f))
     wl = ws[-1].reshape(h).to(torch.bfloat16).contiguous()
     bias = torch.cat([b.reshape(-1).to(torch.float32) for b in bs]).contiguous()
-    return (pts01.contiguous(), bmat.contiguous(), w0p, wh, wl, bias, f, h, n_layers)
+    return pts01.contiguous(), bpad, pack_weights(ws, f), wl, bias, f, h, n_layers
 
 
 def fourier_mlp_fwd_cuda(ws, bs, bmat, pts01, dtype) -> torch.Tensor:
-    pts, bm, w0p, wh, wl, bias, f, h, n_layers = _cuda_args(ws, bs, bmat, pts01, dtype)
+    pts, bpad, wimg, wl, bias, f, h, n_layers = _cuda_args(ws, bs, bmat, pts01, dtype)
     n = pts.shape[0]
     out = torch.empty((n, 1), dtype=torch.float32, device=pts.device)
+    if n == 0:
+        return out
+    grid = max(1, min(_sms(pts.device), -(-n // 128)))
     with torch.cuda.device(pts.device):
-        stream = torch.cuda.current_stream().cuda_stream
         _check(
             _lib().lt_fourier_mlp_fwd(
-                _ptr(pts), _ptr(bm), n, f, h, n_layers, _ptr(w0p), _ptr(wh), _ptr(wl),
-                _ptr(bias), _ptr(out), ctypes.c_void_p(stream),
+                _ptr(pts), _ptr(bpad), n, f, h, n_layers, _ptr(wimg), _ptr(wl), _ptr(bias),
+                _ptr(out), grid, _stream(pts.device),
             ),
             "lt_fourier_mlp_fwd",
         )
@@ -198,39 +314,72 @@ def fourier_mlp_fwd_cuda(ws, bs, bmat, pts01, dtype) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _layer0_positions(f: int, device: torch.device) -> torch.Tensor:
+    """Packed row of each W_0 row, on the device."""
+    idx = layer0_rows(f)
+    keep = torch.nonzero(idx >= 0).reshape(-1)
+    pos = torch.empty(2 * f + 3, dtype=torch.long)
+    pos[idx[keep]] = keep
+    return pos.to(device)
+
+
 def fourier_mlp_bwd_cuda(ws, bs, bmat, pts01, dout, dtype):
-    pts, bm, w0p, wh, wl, bias, f, h, n_layers = _cuda_args(ws, bs, bmat, pts01, dtype)
-    n = pts.shape[0]
-    if dout.shape != (n, 1) or dout.device != pts.device:
-        raise ValueError(f"dout must be ({n}, 1) on {pts.device}, got {tuple(dout.shape)}")
+    pts, bpad, wimg, wl, bias, f, h, n_layers = _cuda_args(ws, bs, bmat, pts01, dtype)
+    n, dev = pts.shape[0], pts.device
+    if dout.shape != (n, 1) or dout.device != dev:
+        raise ValueError(f"dout must be ({n}, 1) on {dev}, got {tuple(dout.shape)}")
+    if n == 0:
+        return ([torch.zeros_like(w, dtype=torch.float32) for w in ws],
+                [torch.zeros(b.numel(), dtype=torch.float32, device=dev) for b in bs],
+                torch.zeros((0, 3), dtype=torch.float32, device=dev))
     dout = dout.to(torch.float32).contiguous()
-    stride, count, max_blocks = _bwd_layout(f, h, n_layers, pts.device.index)
-    nblocks = max(1, min(-(-n // TILE), max_blocks))
-    partials = torch.empty((nblocks * stride,), dtype=torch.float32, device=pts.device)
-    grads = torch.empty((count,), dtype=torch.float32, device=pts.device)
-    dpts = torch.empty((n, 3), dtype=torch.float32, device=pts.device)
-    with torch.cuda.device(pts.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    plan = BackwardPlan(n, f, h, n_layers, _sms(dev))
+    work = torch.empty((plan.work_elems,), dtype=torch.bfloat16, device=dev)
+    sizes = [plan.grid * plan.stride_b, plan.splits * plan.count_w, plan.count_w, plan.count_b,
+             3 * n]
+    part_b, part_w, grads_w, grads_b, dpts = torch.empty(
+        (sum(sizes),), dtype=torch.float32, device=dev).split(sizes)
+    grads_w, dpts = grads_w.view(len(plan.tiles), 128, h), dpts.view(n, 3)
+    with torch.cuda.device(dev):
         _check(
             _lib().lt_fourier_mlp_bwd(
-                _ptr(pts), _ptr(bm), n, f, h, n_layers, _ptr(w0p), _ptr(wh), _ptr(wl),
-                _ptr(bias), _ptr(dout), _ptr(dpts), _ptr(partials), nblocks, _ptr(grads),
-                ctypes.c_void_p(stream),
+                _ptr(pts), _ptr(bpad), n, f, h, n_layers, _ptr(wimg), _ptr(wl), _ptr(bias),
+                _ptr(dout), _ptr(dpts), _ptr(work), _ptr(part_b), plan.grid, _ptr(part_w),
+                plan.splits, _ptr(grads_w), _ptr(grads_b), _stream(dev),
             ),
             "lt_fourier_mlp_bwd",
         )
     counts.bwd_launches += 1
-    # Unpack [dW_0 (k0p x H) | dW_1..dW_{L-2} | dW_L (H) | db_0..db_{L-2} (H each), db_L].
-    k0p = w0p.shape[0]
-    dws, o = [grads[: k0p * h].view(k0p, h)[: 2 * f + 3]], k0p * h
-    for _ in range(n_layers - 2):
-        dws.append(grads[o : o + h * h].view(h, h))
-        o += h * h
-    dws.append(grads[o : o + h].view(h, 1))
-    o += h
-    dbs = [grads[o + i * h : o + (i + 1) * h] for i in range(n_layers - 1)]
-    dbs.append(grads[o + (n_layers - 1) * h :].view(1))
+    # grads_w: the 128-row tiles of dW_0 (packed rows) .. dW_{L-2}, in layer order.
+    per = [-(-plan.k0 // 128)] + [-(-h // 128)] * (n_layers - 2)
+    dws, t = [], 0
+    for layer, k in enumerate(per):
+        rows = plan.k0 if layer == 0 else h
+        dws.append(grads_w[t : t + k].reshape(k * 128, h)[:rows])
+        t += k
+    # x's column 2 Fp + 3 is all ones, so dW_0's packed row for it is db_0.
+    db0 = dws[0][2 * padded_freqs(f) + 3]
+    dws[0] = dws[0][_layer0_positions(f, dev)]
+    dws.append(grads_b[(n_layers - 1) * h : n_layers * h].view(h, 1))
+    dbs = [db0] + [grads_b[i * h : (i + 1) * h] for i in range(1, n_layers - 1)]
+    dbs.append(grads_b[n_layers * h :].view(1))
     return dws, dbs, dpts
+
+
+def wgmma_selftest(w: torch.Tensor, a: torch.Tensor, x: torch.Tensor, g: torch.Tensor):
+    """The kernels' three operand forms on 64 x 64 bf16 matrices on the card:
+    (A W, A W^T, X^T G), each through ``csrc/fourier_mlp.cu::selftest_kernel``."""
+    dev = a.device
+    # One 64-row chunk of W, as pack_weights packs a hidden layer.
+    wimg = w.to(torch.bfloat16).reshape(8, 8, 8, 8).permute(2, 0, 3, 1).reshape(-1).contiguous()
+    outs = [torch.empty((64, 64), dtype=torch.float32, device=dev) for _ in range(3)]
+    args = [wimg, a.to(torch.bfloat16).contiguous(), core_layout(x.to(torch.bfloat16)).contiguous(),
+            core_layout(g.to(torch.bfloat16)).contiguous()]
+    with torch.cuda.device(dev):
+        _check(_lib().lt_wgmma_selftest(*[_ptr(t) for t in args + outs], _stream(dev)),
+               "lt_wgmma_selftest")
+    return outs
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@ that has only PyTorch and the CUDA toolkit:
 
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
-Without a card the card tests skip. Tolerances, Fourier MLP (bf16, kernel and
+Without a card the card tests skip; the packing, planning and guard tests run
+anywhere. Tolerances, Fourier MLP (bf16, kernel and
 plain version differ only in f32 summation order): forward max abs 5e-2 on
 O(1)-O(10) sigma; gradients relative L2 1e-2, since a rare flipped ReLU mask
 moves single points' gradients. Compositing (f32; the kernel's warp scan
@@ -47,8 +48,15 @@ def _operands(f: int, h: int, n_hidden: int, n: int, device):
     return ws, bs, bmat, pts, dout
 
 
+# The sigma shapes of cfg/ as (F, H, hidden layers), at ragged point counts; the
+# first three are the earlier cases.
+KERNEL_CASES = [(8, 32, 2, 300), (16, 64, 1, 777), (48, 256, 2, 5000), (48, 256, 2, 3001),
+                (96, 256, 2, 2000), (128, 256, 2, 2000), (48, 192, 2, 1500), (32, 128, 3, 1500),
+                (64, 256, 4, 1000), (32, 64, 2, 999), (24, 64, 2, 700)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("f,h,n_hidden,n", [(8, 32, 2, 300), (16, 64, 1, 777), (48, 256, 2, 5000)])
+@pytest.mark.parametrize("f,h,n_hidden,n", KERNEL_CASES)
 def test_fourier_mlp_kernels_match_plain(cuda_device, f, h, n_hidden, n):
     ws, bs, bmat, pts, dout = _operands(f, h, n_hidden, n, cuda_device)
     bf = torch.bfloat16
@@ -62,9 +70,51 @@ def test_fourier_mlp_kernels_match_plain(cuda_device, f, h, n_hidden, n):
         b = b.reshape(a.shape)
         assert float(torch.linalg.norm(a - b) / torch.linalg.norm(b)) <= 1e-2
     assert (tfm.counts.fwd_launches, tfm.counts.bwd_launches) == (before[0] + 1, before[1] + 1)
-    # Deterministic: the dW partials are summed in a fixed order, no atomics.
-    again = tfm.fourier_mlp_bwd_cuda(ws, bs, bmat, pts, dout, bf)
-    assert all(torch.equal(x, y) for x, y in zip(dws_k + dbs_k, again[0] + again[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,h,n_hidden,n", [(48, 256, 2, 70000), (96, 256, 2, 5000), (8, 32, 2, 300)])
+def test_backward_is_deterministic(cuda_device, f, h, n_hidden, n):
+    # Split-K and per-CTA partials summed in a fixed order, no float atomics.
+    ws, bs, bmat, pts, dout = _operands(f, h, n_hidden, n, cuda_device)
+    first = tfm.fourier_mlp_bwd_cuda(ws, bs, bmat, pts, dout, torch.bfloat16)
+    again = tfm.fourier_mlp_bwd_cuda(ws, bs, bmat, pts, dout, torch.bfloat16)
+    for x, y in zip(first[0] + first[1] + [first[2]], again[0] + again[1] + [again[2]]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 63, 129])
+def test_tiny_and_ragged_point_counts(cuda_device, n):
+    ws, bs, bmat, pts, dout = _operands(48, 256, 2, n, cuda_device)
+    bf = torch.bfloat16
+    before = (tfm.counts.fwd_launches, tfm.counts.bwd_launches)
+    out_k = tfm.fourier_mlp_fwd_cuda(ws, bs, bmat, pts, bf)
+    dws_k, dbs_k, dpts_k = tfm.fourier_mlp_bwd_cuda(ws, bs, bmat, pts, dout, bf)
+    dws_p, dbs_p, dpts_p = tfm.fourier_mlp_bwd_plain(ws, bs, bmat, pts, dout, bf)
+    def amax(x):
+        return float(x.abs().max()) if x.numel() else 0.0
+
+    assert out_k.shape == (n, 1) and dpts_k.shape == (n, 3)
+    assert amax(out_k - tfm.fourier_mlp_fwd_plain(ws, bs, bmat, pts, bf)) <= 5e-2
+    for a, b in zip(dws_k + dbs_k + [dpts_k], dws_p + dbs_p + [dpts_p]):
+        b = b.reshape(a.shape)
+        assert amax(a - b) <= 1e-2 * max(amax(b), 1e-3)
+    launched = int(n > 0)
+    assert (tfm.counts.fwd_launches, tfm.counts.bwd_launches) == (before[0] + launched,
+                                                                  before[1] + launched)
+
+
+@pytest.mark.cuda
+def test_wgmma_operand_forms(cuda_device):
+    # The three shared-memory operand layouts the kernels read, on 64 x 64 matrices.
+    g = torch.Generator().manual_seed(0)
+    w, a, x, gg = (torch.randn(64, 64, generator=g).to(torch.bfloat16).to(cuda_device) for _ in range(4))
+    out_f, out_b, out_w = tfm.wgmma_selftest(w, a, x, gg)
+    torch.cuda.synchronize()
+    for got, want in ((out_f, a.float() @ w.float()), (out_b, a.float() @ w.float().T),
+                      (out_w, x.float().T @ gg.float())):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.cuda
@@ -80,6 +130,98 @@ def test_autograd_through_the_kernels(cuda_device):
         _, _, dpts_p = tfm.fourier_mlp_bwd_plain(ws, bs, bmat, pts, dout, torch.bfloat16)
     assert float(torch.linalg.norm(pts.grad - dpts_p) / torch.linalg.norm(dpts_p)) <= 1e-2
     assert all(v.grad is not None and torch.isfinite(v.grad).all() for v in mlp.values())
+
+
+def _meta(tensors):
+    return [t.to(torch.device("meta")) for t in tensors]
+
+
+@pytest.mark.parametrize("case", ["width 48", "width 512", "width 16", "one layer", "nine layers",
+                                  "float32", "no include_input"])
+def test_shape_guards_raise_before_any_launch(case):
+    # Meta tensors hold no data: a wrapper that got past its guards would fail on them.
+    f, h, n_hidden = 8, 32, 2
+    if case.startswith("width"):
+        h = int(case.split()[1])
+    if case == "one layer":
+        n_hidden = 0
+    if case == "nine layers":
+        n_hidden = 8
+    ws, bs, bmat, pts, dout = _operands(f, h, n_hidden, 64, torch.device("cpu"))
+    ws, bs, (bmat, pts, dout) = _meta(ws), _meta(bs), _meta([bmat, pts, dout])
+    if case == "no include_input":
+        ws[0] = ws[0][:-3]
+    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    before = (tfm.counts.fwd_launches, tfm.counts.bwd_launches)
+    with pytest.raises(ValueError):
+        tfm.fourier_mlp_fwd_cuda(ws, bs, bmat, pts, dtype)
+    with pytest.raises(ValueError):
+        tfm.fourier_mlp_bwd_cuda(ws, bs, bmat, pts, dout, dtype)
+    assert (tfm.counts.fwd_launches, tfm.counts.bwd_launches) == before
+
+
+@pytest.mark.parametrize("f,h,n_layers", [(48, 256, 3), (8, 32, 3), (16, 64, 2), (96, 256, 3),
+                                          (64, 256, 5), (33, 192, 4)])
+def test_pack_weights_round_trips(f, h, n_layers):
+    rng = np.random.default_rng(1)
+    dims = [2 * f + 3] + [h] * (n_layers - 1) + [1]
+    ws = [torch.tensor(rng.normal(size=(a, b)).astype(np.float32)) for a, b in zip(dims[:-1], dims[1:])]
+    img = tfm.pack_weights(ws, f)
+    k0 = 2 * tfm.padded_freqs(f) + 16
+    assert img.dtype == torch.bfloat16 and img.numel() == (k0 + (n_layers - 2) * h) * h
+    back = tfm.unpack_weights(img, f, h, n_layers)
+    assert [tuple(w.shape) for w in back] == [tuple(w.shape) for w in ws[:-1]]
+    for got, want in zip(back, ws[:-1]):
+        assert torch.equal(got, want.to(torch.bfloat16))
+    # Chunk 0 of W_1 (after W_0's rows, R = min(64, H) input rows): element (input i,
+    # output o) at ((o // 8) * R / 8 + i // 8) * 64 + (o % 8) * 8 + i % 8.
+    if n_layers > 2:
+        w1, r = img[k0 * h:], min(64, h)
+        for i, o in ((0, 0), (5, 3), (9, 17), (r - 1, h - 1)):
+            at = ((o // 8) * (r // 8) + i // 8) * 64 + (o % 8) * 8 + i % 8
+            assert w1[at] == ws[1][i, o].to(torch.bfloat16)
+
+
+def test_layer0_rows_order():
+    rows = tfm.layer0_rows(20).tolist()  # 20 frequencies, padded to 32
+    assert len(rows) == 2 * 32 + 16
+    assert rows[:16] == list(range(16)) and rows[16:32] == list(range(20, 36))
+    assert rows[32:36] == [16, 17, 18, 19] and rows[36:48] == [-1] * 12
+    assert rows[48:52] == [36, 37, 38, 39] and rows[52:64] == [-1] * 12
+    assert rows[64:67] == [40, 41, 42] and rows[67:] == [-1] * 13
+
+
+def test_core_layout_round_trips():
+    mat = torch.arange(128 * 24, dtype=torch.float32).reshape(128, 24)
+    flat = tfm.core_layout(mat)
+    assert torch.equal(tfm.from_core_layout(flat, 128, 24), mat)
+    for p, f in ((0, 0), (7, 7), (9, 3), (70, 23), (127, 8)):
+        at = ((p // 64 * 3 + f // 8) * 8 + (p // 8) % 8) * 64 + (p % 8) * 8 + f % 8
+        assert flat[at] == mat[p, f]
+
+
+@pytest.mark.parametrize("n,f,h,n_layers,sms", [(2097152, 48, 256, 3, 132), (262144, 48, 256, 3, 132),
+                                               (1, 8, 32, 3, 132), (5000, 64, 256, 5, 132),
+                                               (777, 16, 64, 2, 8)])
+def test_backward_plan_sizes_and_split_order(n, f, h, n_layers, sms):
+    plan = tfm.BackwardPlan(n, f, h, n_layers, sms)
+    k0 = 2 * tfm.padded_freqs(f) + 16
+    assert plan.np % 128 == 0 and n <= plan.np < n + 128
+    assert 1 <= plan.grid <= min(sms, plan.np // 128)
+    assert plan.work_elems == (k0 + (n_layers - 2) * h + (n_layers - 1) * h) * plan.np
+    want_tiles = [(0, m) for m in range(-(-k0 // 128))] + [
+        (layer, m) for layer in range(1, n_layers - 1) for m in range(-(-h // 128))]
+    assert plan.tiles == want_tiles
+    assert plan.count_w == len(want_tiles) * 128 * h
+    assert plan.count_b == n_layers * h + 1 and plan.stride_b % 64 == 0
+    assert plan.stride_b >= plan.count_b
+    # Splits: contiguous, in order, none empty, covering every 64-point block once.
+    assert 1 <= plan.splits * len(plan.tiles) <= max(sms, len(plan.tiles))
+    edges = [plan.split_blocks(s) for s in range(plan.splits)]
+    assert edges[0][0] == 0 and edges[-1][1] == plan.np // 64
+    assert all(a < b for a, b in edges) and all(edges[i][1] == edges[i + 1][0] for i in range(len(edges) - 1))
+    if n == 2097152:  # the flagship: 3.69 GB of bf16 workspace, 44 splits x 3 tiles
+        assert (plan.work_elems * 2, plan.splits, len(plan.tiles)) == (3690987520, 44, 3)
 
 
 @pytest.mark.cuda
@@ -101,18 +243,20 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_point_count_guard_raises_before_any_launch():
-    # 3 N >= 2^31 overflows the kernels' int point offsets; meta tensors hold no data.
+    # The kernels offset points in 64 bits and count a CTA's 128-point tile pairs in
+    # 32 bits; meta tensors hold no data.
     ws, bs, bmat, _, _ = _operands(8, 32, 2, 4, torch.device("cpu"))
     meta = torch.device("meta")
     ws, bs, bmat = [w.to(meta) for w in ws], [b.to(meta) for b in bs], bmat.to(meta)
-    n_max = (2 ** 31 - 1) // 3
+    n_max = 128 * tfm.MAX_TILE_PAIRS
     tfm.check_point_count(n_max)
+    tfm.check_point_count(16384 * 2048 * 32)  # past the earlier 32-bit offset limit
     before = (tfm.counts.fwd_launches, tfm.counts.bwd_launches)
-    for n in (n_max + 1, 16384 * 2048 * 32):
+    for n in (n_max + 1, 2 ** 40):
         pts = torch.empty((n, 3), dtype=torch.float32, device=meta)
-        with pytest.raises(ValueError, match="32-bit point offsets"):
+        with pytest.raises(ValueError, match="32-bit tile-pair counts"):
             tfm.fourier_mlp_fwd_cuda(ws, bs, bmat, pts, torch.bfloat16)
-        with pytest.raises(ValueError, match="32-bit point offsets"):
+        with pytest.raises(ValueError, match="32-bit tile-pair counts"):
             tfm.fourier_mlp_bwd_cuda(ws, bs, bmat, pts, torch.empty((n, 1), device=meta),
                                      torch.bfloat16)
     assert (tfm.counts.fwd_launches, tfm.counts.bwd_launches) == before

@@ -178,8 +178,10 @@ def test_synchronous_emit_waits_for_the_consumer_and_aborts():
     slot = sig.register()
     got = []
     consumer = threading.Thread(target=lambda: (time.sleep(0.3), got.append(slot.get_value())))
-    consumer.start()
+    # The clock starts before the consumer's sleep does, so the wait it reads
+    # is at least the sleep, however the threads are scheduled.
     t0 = time.perf_counter()
+    consumer.start()
     sig.emit(1)
     assert time.perf_counter() - t0 >= 0.3 and not slot.has_value()
     consumer.join()
