@@ -24,8 +24,11 @@ nothing of JAX. Phases, each of which raises on failure:
    the kernels' launch counts; then one iteration's loss and twist gradient
    through the kernels against the plain sigma path, on the same draws.
 5. Composite kernel: the fused alpha-compositing kernel against its plain
-   version at 16384 rays x 1024 and 2048 samples (relu, softplus, an opaque
-   wall), each timed with CUDA events beside the plain version.
+   version (relu, softplus, an opaque wall) at 16384 rays x 1024 and 2048
+   samples, at the render chunks' 2048 x 1024 and 2048, and at ragged ray and
+   sample counts; two calls must give the same bits. At the first four shapes,
+   the kernel alone (back-to-back launches through its C entry), the wrapper
+   and the plain version, timed with CUDA events beside the bound.
 6. Experiment: a temporary experiment directory (full_config.pkl with the
    flagship settings, checkpoints/final.tar from the port's save_checkpoint)
    holding the slice's trained field and proposal and 8 keyframe poses.
@@ -68,7 +71,7 @@ FWD_MAX_ABS = 5e-2  # sigma is O(1)-O(10); 5e-2 is ~2 bf16 ulps at 8
 GRAD_REL_L2 = 1e-2  # ||kernel - plain|| / ||plain|| for dW, db and dpts
 LOSS_RTOL = 1e-3  # the slice's loss, kernel vs plain sigma path
 TWIST_GRAD_REL_L2 = 2e-2  # the slice's twist gradient, kernel vs plain
-# Composite kernel against its plain version, f32 (the warp scan multiplies in
+# Composite kernel against its plain version, f32 (the block scan multiplies in
 # another order than cumprod): (rtol, atol), the tolerances of
 # tests/test_pallas_ops.py:31-34.
 COMPOSITE_TOL = {"depth": (2e-4, 2e-4), "opacity": (2e-4, 2e-4), "var": (1e-3, 2e-4),
@@ -152,9 +155,11 @@ def sass_counts() -> dict:
         for line in sass.splitlines():
             m = re.match(r"\s+Function : (\S+)", line)
             if m:
-                # The kernel's name and template argument, e.g. fwd_kernel<256>.
-                d = re.search(r"(\d+)([a-z_]+kernel)(?:ILi(\d+)E)?", m.group(1))
-                func = d.group(2) + (f"<{d.group(3)}>" if d.group(3) else "")
+                # The kernel's name and template arguments, e.g. fwd_kernel<256>,
+                # composite_kernel<1,8,1>.
+                d = re.search(r"(\d+)([a-z_]+kernel)(?:I((?:L[a-z]\d+E)+)E)?", m.group(1))
+                args = re.findall(r"L[a-z](\d+)E", d.group(3) or "")
+                func = d.group(2) + (f"<{','.join(args)}>" if args else "")
                 counts[func] = {"HGMMA": 0, "UBLKCP": 0, "UTMALDG": 0}
                 continue
             m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
@@ -405,20 +410,22 @@ def run_slice(dev, cfg, field_cfg, n_iters: int = 20, w: int = WINDOW) -> dict:
     return launches, new_field, new_prop
 
 
+# Beside ab_compare.COMPOSITE_SHAPES (timed), ragged counts checked but not timed:
+# B = 1 and 2047; S = 1, 33 and 1030, not multiples of 4; 5000 over three tiles.
+COMPOSITE_RAGGED = ((1, 1024), (2047, 1024), (2047, 1), (2047, 33), (3, 1030), (5, 5000))
+
+
 def check_composite(dev) -> dict:
+    from loner_tpu_torch.analysis.ab_compare import (
+        COMPOSITE_SHAPES, composite_bound_ms, composite_inputs, composite_launcher, kernel_ms,
+    )
     from loner_tpu_torch.ops import composite as cp
 
-    b, near, far = 16384, RAY_RANGE[0] / 12.0, RAY_RANGE[1] / 12.0
-    gen = torch.Generator(device=dev).manual_seed(21)
     worst, times = 0.0, {}
-    for s in (1024, 2048):
-        u = torch.rand((b, s), generator=gen, device=dev)
-        z = torch.sort(near + (far - near) * u, dim=1).values
-        sigma = 3.0 * torch.randn((b, s), generator=gen, device=dev)
+    for b, s in COMPOSITE_SHAPES + COMPOSITE_RAGGED:
+        z, sigma, far_t, dnorm = composite_inputs(b, s, dev)
         wall = torch.zeros_like(sigma)
         wall[: b // 2, s // 2] = 1e8  # half the rays hit an opaque wall mid-ray
-        far_t = torch.full((b,), far, device=dev)
-        dnorm = 0.9 + 0.2 * torch.rand((b,), generator=gen, device=dev)
         for case, sig, softplus in (("relu", sigma, False), ("softplus", sigma, True),
                                     ("wall", wall, False)):
             out_k = cp.composite_cuda(z, sig, far_t, dnorm, softplus)
@@ -434,22 +441,35 @@ def check_composite(dev) -> dict:
                 worst = max(worst, err)
                 if not torch.allclose(a, p, rtol=rtol, atol=atol):
                     raise RuntimeError(f"composite kernel disagrees with its plain version: "
-                                       f"S={s} {case} {name}, max |err| {err}")
-            print(f"kernel composite S={s} {case}: max |kernel - plain| " + ", ".join(errs),
+                                       f"{b} x {s} {case} {name}, max |err| {err}")
+            print(f"kernel composite {b} x {s} {case}: max |kernel - plain| " + ", ".join(errs),
                   flush=True)
-        times[s] = (cuda_ms(lambda: cp.composite_cuda(z, sigma, far_t, dnorm, True)),
-                    cuda_ms(lambda: cp.composite_plain(z, sigma, far_t, dnorm, True)))
-        print(f"kernel composite times at {b} x {s}, softplus (median of 5, ms): "
-              f"kernel {times[s][0]:.4f}, plain {times[s][1]:.4f}", flush=True)
-    # Bytes: sigma and z in, weights out (12 B per sample); far and dnorm in, depth,
-    # opacity and variance out (20 B per ray). No single PyTorch call composites.
-    b_ms, b_by = bound(0.0, 12 * b * 1024 + 20 * b)
-    print(f"kernel composite at {b} x 1024: bound {b_ms:.4f} ms ({b_by}), "
-          f"{100 * b_ms / times[1024][0]:.1f}% of the bound", flush=True)
+        again = cp.composite_cuda(z, sigma, far_t, dnorm, True)
+        if not all(torch.equal(x, y) for x, y in zip(again, cp.composite_cuda(z, sigma, far_t,
+                                                                               dnorm, True))):
+            raise RuntimeError(f"composite kernel: two calls differ at {b} x {s}")
+        if (b, s) in COMPOSITE_SHAPES:
+            # Kernel alone (back-to-back launches through the C entry), through the
+            # wrapper, and the plain version; softplus, as the flagship renders.
+            t = {"kernel": kernel_ms(composite_launcher(cp, z, sigma, far_t, dnorm)),
+                 "wrapper": cuda_ms(lambda: cp.composite_cuda(z, sigma, far_t, dnorm, True)),
+                 "plain": cuda_ms(lambda: cp.composite_plain(z, sigma, far_t, dnorm, True)),
+                 "bound": composite_bound_ms(b, s)}
+            times[(b, s)] = t
+            print(f"kernel composite times at {b} x {s}, softplus (median of 5, ms): kernel "
+                  f"alone {t['kernel']:.5f}, wrapper {t['wrapper']:.5f}, plain {t['plain']:.5f}; "
+                  f"bound {t['bound']:.5f} (bytes: 12 B/sample + 20 B/ray), kernel alone "
+                  f"{100 * t['bound'] / t['kernel']:.1f}% of the bound, wrapper "
+                  f"{100 * t['bound'] / t['wrapper']:.1f}%", flush=True)
+        del z, sigma, far_t, dnorm, wall
+    # No single PyTorch call composites.
+    main, chunk = times[(16384, 1024)], times[(2048, 1024)]
     return {"name": "composite", "route": "cuda", "source": "loner_tpu_torch/csrc/composite.cu",
             "replaces": "loner_tpu/ops/pallas/composite.py:27", "launches": 0,
-            "max_abs_err": worst, "ms": times[1024][0], "plain_ms": times[1024][1],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "max_abs_err": worst, "ms": main["wrapper"], "plain_ms": main["plain"],
+            "bound_ms": main["bound"], "bound_by": "bytes", "library_ms": None,
+            "kernel_ms": main["kernel"], "render_chunk_ms": chunk["wrapper"],
+            "render_chunk_kernel_ms": chunk["kernel"], "render_chunk_bound_ms": chunk["bound"]}
 
 
 def write_experiment(log_dir: str, field, prop, field_cfg, seed: int = 3) -> None:
@@ -489,12 +509,15 @@ def write_experiment(log_dir: str, field, prop, field_cfg, seed: int = 3) -> Non
 
 
 def render_layers(model) -> dict:
-    """Device ms of one 2048-ray x 1024-sample chunk's layers (CUDA events)."""
+    """Device ms of one 2048-ray x 1024-sample chunk's layers (CUDA events); the
+    composite kernel also alone, on the chunk's own z and sigma."""
     from loner_tpu_torch.analysis._render_impl import get_chunk_renderer
+    from loner_tpu_torch.analysis.ab_compare import composite_launcher, kernel_ms
     from loner_tpu_torch.analysis.renderer_lidar import build_lidar_ray_directions
     from loner_tpu_torch.mapping.rays import get_far_val
     from loner_tpu_torch.models.field import query_field
     from loner_tpu_torch.models.rendering import make_sampler, pack_rays
+    from loner_tpu_torch.ops import composite as cp
     from loner_tpu_torch.ops.composite import composite_rays
 
     dev, cube = model.device, model.world_cube
@@ -515,6 +538,7 @@ def render_layers(model) -> dict:
             "sigma_fwd": cuda_ms(lambda: query_field(model.field_params, pts, None,
                                                      model.field_cfg, sigma_only=True)),
             "composite": cuda_ms(lambda: composite_rays(z, sig, far, dn, softplus=True)),
+            "composite_kernel": kernel_ms(composite_launcher(cp, z, sig, far, dn)),
             "chunk": cuda_ms(lambda: chunk(rays, model.field_params, model.occ_grid)),
         }
 

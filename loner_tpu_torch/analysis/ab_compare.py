@@ -12,7 +12,10 @@ other, so drift on the card shows as a difference between the two runs of a side
   ``fourier_mlp_bwd_cuda``, whose signatures both sides share) at the flagship
   shapes (F = 48, 99 -> 256 -> 256 -> 1, bf16) and N = 2,097,152 and 262,144
   points: median of 5 by CUDA events after a warm-up, and the kernels' own time
-  from ``torch.profiler`` (no host packing). One JSON line per run.
+  from ``torch.profiler`` (no host packing). The composite kernel at
+  ``COMPOSITE_SHAPES`` (softplus): the kernel alone through the side's C entry
+  (``kernel_ms``) and the wrapper ``composite_cuda`` (median of 5 by CUDA
+  events), beside the HBM bound. One JSON line per run.
 * ``--smoke``: each side's ``chip_smoke.py``, whole; the logs go to ``--out``.
 
 Needs a CUDA card; prints the card's name and power limit first.
@@ -20,6 +23,7 @@ Needs a CUDA card; prints the card's name and power limit first.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import re
@@ -27,6 +31,111 @@ import subprocess
 import sys
 
 SIZES = (2_097_152, 262_144)
+# (rays, samples): the kernel table's two shapes, then a virtual scan's render chunk
+# and a depth frame's.
+COMPOSITE_SHAPES = ((16384, 1024), (16384, 2048), (2048, 1024), (2048, 2048))
+PEAK_HBM_BYTES = 3.35e12  # H100 SXM, NVIDIA's data sheet
+
+
+def composite_bound_ms(b: int, s: int) -> float:
+    """z and sigma in, weights out (12 B a sample); far and |d| in, depth, opacity
+    and variance out (20 B a ray), over the HBM rate."""
+    return 1e3 * (12 * b * s + 20 * b) / PEAK_HBM_BYTES
+
+
+def kernel_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Device ms of one launch of ``fn``: the median over ``reps`` of CUDA events
+    around ``n`` back-to-back launches, divided by ``n``. A spin kernel
+    (``torch.cuda._sleep``) holds the card while the host enqueues them, so the
+    host's time per launch does not show."""
+    import numpy as np
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(4_000_000)  # ~2 ms at the H100's clock
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return float(np.median(times))
+
+
+def wrapper_ms(fn, reps: int = 5) -> float:
+    """Median ms of one call of ``fn`` by CUDA events, after a warm-up."""
+    import numpy as np
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def composite_inputs(b: int, s: int, dev, seed: int = 21):
+    """Sorted z in the flagship's cube-scaled range, raw sigma ~ 3 N(0, 1), far and |d|."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    near, far = 1.0 / 12.0, 10.0 / 12.0
+    z = torch.sort(near + (far - near) * torch.rand((b, s), generator=gen, device=dev), dim=1).values
+    sigma = 3.0 * torch.randn((b, s), generator=gen, device=dev)
+    far_t = torch.full((b,), far, device=dev)
+    dnorm = 0.9 + 0.2 * torch.rand((b,), generator=gen, device=dev)
+    return z, sigma, far_t, dnorm
+
+
+def composite_launcher(cp, z, sigma, far, dnorm):
+    """A function that launches the side's composite kernel once (softplus) through
+    its C entry, into outputs made here; no allocation or operand checks in the call.
+    ``cp`` is the side's ``loner_tpu_torch.ops.composite``; a checkout whose wrapper
+    has no launch plan (no ``launch``) has the older C entry lt_composite(z, sigma,
+    far, dnorm, B, S, softplus, depth, opacity, var, weights, stream)."""
+    import torch
+
+    b, s = z.shape
+    outs = [torch.empty((b,), device=z.device) for _ in range(3)] + [torch.empty_like(z)]
+    if hasattr(cp, "launch"):
+        return lambda: cp.launch(z, sigma, far, dnorm, True, *outs)
+    lib = cp._lib()
+    ins = [ctypes.c_void_p(t.data_ptr()) for t in (z, sigma, far, dnorm)]
+    outp = [ctypes.c_void_p(t.data_ptr()) for t in outs]
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def run():
+        if lib.lt_composite(*ins, b, s, 1, *outp, stream) != 0:
+            raise RuntimeError("lt_composite failed")
+    return run
+
+
+def time_composite() -> dict:
+    """Runs inside a side's process: its composite kernel at COMPOSITE_SHAPES."""
+    import torch
+
+    from loner_tpu_torch.ops import composite as cp
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    for b, s in COMPOSITE_SHAPES:
+        z, sigma, far, dnorm = composite_inputs(b, s, dev)
+        row = {"bound_ms": composite_bound_ms(b, s),
+               "kernel_ms": kernel_ms(composite_launcher(cp, z, sigma, far, dnorm)),
+               "wrapper_ms": wrapper_ms(lambda: cp.composite_cuda(z, sigma, far, dnorm, True))}
+        out[f"composite_{b}x{s}"] = row
+        del z, sigma, far, dnorm
+    return out
 
 
 def time_kernels() -> dict:
@@ -76,6 +185,7 @@ def time_kernels() -> dict:
         torch.cuda.synchronize()
         out[f"peak_gb_{n}"] = torch.cuda.max_memory_allocated(dev) / 1e9
         torch.cuda.reset_peak_memory_stats(dev)
+    out.update(time_composite())
     return out
 
 

@@ -18,18 +18,13 @@ import numpy as np
 import torch
 
 from loner_tpu_torch import convert
+from loner_tpu_torch.common.device import resolve_device
 from loner_tpu_torch.common.pose import Pose
 from loner_tpu_torch.common.settings import Settings
 from loner_tpu_torch.common.world_cube import WorldCube
 from loner_tpu_torch.mapping.rays import get_far_val
 from loner_tpu_torch.models.field import FieldConfig
 from loner_tpu_torch.models.rendering import pack_rays
-
-
-def default_device() -> torch.device:
-    """The CUDA card when there is one, else the CPU (where the kernels'
-    plain versions run)."""
-    return torch.device("cuda") if torch.cuda.is_available() else torch.device("cpu")
 
 
 @dataclass
@@ -51,10 +46,11 @@ class LoadedModel:
 def load_experiment(log_dir: str, ckpt_name: str = "final.tar",
                     device: Union[torch.device, str, None] = None) -> LoadedModel:
     """Load full_config.pkl + a checkpoint from an experiment directory onto
-    ``device`` (default: ``default_device()``)."""
+    ``device`` (default ``cuda``; without a card, raises unless ``device="cpu"``,
+    where the kernels' plain versions run)."""
     from loner_tpu_torch.analysis._render_impl import configured_compositor
 
-    device = default_device() if device is None else torch.device(device)
+    device = resolve_device(device)
     with open(os.path.join(log_dir, "full_config.pkl"), "rb") as f:
         settings = Settings(pickle.load(f))
     with open(os.path.join(log_dir, "checkpoints", ckpt_name), "rb") as f:

@@ -105,8 +105,8 @@ def render_full_map(
 
     ``translation_noise`` perturbs render poses (map-quality robustness
     probing). The virtual-scan vertical FOV defaults to the experiment
-    config's ``lidar_vertical_fov``. ``device`` defaults to the CUDA card
-    when there is one."""
+    config's ``lidar_vertical_fov``. ``device`` defaults to ``cuda`` and raises
+    without a card: pass ``device="cpu"`` for the plain versions."""
     model = load_experiment(log_dir, ckpt_name, device=device)
     mats, _ = kf_pose_matrices(model, use_gt=use_gt_poses)
     if translation_noise > 0:
@@ -154,8 +154,8 @@ if __name__ == "__main__":
         help="virtual-scan vertical FOV in degrees "
         "(default: the experiment config's lidar_vertical_fov)",
     )
-    p.add_argument("--device", default=None,
-                   help="torch device (default: the CUDA card when there is one)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default: cuda; raises without a card, ask for cpu)")
     args = p.parse_args()
     ckpt = args.ckpt_id if args.ckpt_id.endswith(".tar") else f"{args.ckpt_id}.tar"
     if not ckpt.startswith("ckpt_") and not ckpt.startswith("final"):

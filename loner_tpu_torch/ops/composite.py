@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
@@ -61,6 +62,30 @@ def composite_plain(z_vals: torch.Tensor, sigmas: torch.Tensor, far: torch.Tenso
 # CUDA kernel
 # ---------------------------------------------------------------------------
 
+MAX_THREADS = 256  # a block's threads (csrc/composite.cu::kMaxThreads)
+
+
+@dataclass(frozen=True)
+class CompositePlan:
+    """How ``lt_composite`` covers a (B, S) call: one block of ``threads`` per ray,
+    ``v`` consecutive samples per thread, ``tiles`` per row (threads * v * tiles >=
+    S); ``vec`` for 16-byte accesses (S % 4 == 0 and rows 16-byte aligned)."""
+
+    threads: int
+    v: int
+    tiles: int
+    vec: bool
+
+
+def composite_plan(s: int, aligned: bool = True) -> CompositePlan:
+    """The launch plan for rows of S samples (``aligned``: z, sigma and the weights
+    start on 16 bytes). One tile up to S = 2048 (128 x 8 at 1024, 256 x 8 at 2048),
+    so that a row is read once into registers."""
+    v = 8 if s >= 256 else 4
+    threads = min(MAX_THREADS, 32 * -(-s // (32 * v)))
+    return CompositePlan(threads, v, -(-s // (threads * v)), aligned and s % 4 == 0)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """The built kernel, with its C signature declared (pointers and the stream
@@ -69,7 +94,7 @@ def _lib() -> ctypes.CDLL:
 
     lib = load_library("composite")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lt_composite.argtypes = [p, p, p, p, i, i, i, p, p, p, p, p]
+    lib.lt_composite.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p]
     lib.lt_composite.restype = ctypes.c_int
     return lib
 
@@ -92,9 +117,30 @@ def check_operands(z_vals, sigmas, far, rays_d_norm) -> Tuple[int, int]:
         if t.requires_grad and torch.is_grad_enabled():
             raise ValueError("the composite kernel is forward only; use composite_plain "
                              "where a gradient is needed")
-    if max(b, s) >= 2 ** 31:
-        raise ValueError(f"({b}, {s}): the kernel takes ray and sample counts below 2^31")
+    # Sample indices of a row's last tile stay below 2^31.
+    if b >= 2 ** 31 or s > 2 ** 31 - 8 * MAX_THREADS:
+        raise ValueError(f"({b}, {s}): the kernel takes fewer than 2^31 rays and "
+                         f"{2 ** 31 - 8 * MAX_THREADS} samples")
     return b, s
+
+
+def launch(z_vals, sigmas, far, rays_d_norm, softplus: bool, depth, opacity, var,
+           weights) -> None:
+    """One launch of the kernel on the current stream, into the given outputs, for
+    operands that ``check_operands`` passed with B, S > 0."""
+    b, s = z_vals.shape
+    plan = composite_plan(s, all(t.data_ptr() % 16 == 0 for t in (z_vals, sigmas, weights)))
+    with torch.cuda.device(z_vals.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().lt_composite(
+            *(ctypes.c_void_p(t.data_ptr()) for t in (z_vals, sigmas, far, rays_d_norm)),
+            b, s, int(softplus), plan.threads, plan.v, plan.tiles, int(plan.vec),
+            *(ctypes.c_void_p(t.data_ptr()) for t in (depth, opacity, var, weights)),
+            ctypes.c_void_p(stream),
+        )
+    if rc != 0:
+        raise RuntimeError(f"lt_composite failed with CUDA error {rc}")
+    counts.composite_launches += 1
 
 
 def composite_cuda(z_vals, sigmas, far, rays_d_norm, softplus: bool = False) -> Outputs:
@@ -106,17 +152,7 @@ def composite_cuda(z_vals, sigmas, far, rays_d_norm, softplus: bool = False) -> 
     weights = torch.empty((b, s), dtype=torch.float32, device=dev)
     if b == 0 or s == 0:
         return depth, opacity, var, weights
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().lt_composite(
-            *(ctypes.c_void_p(t.data_ptr()) for t in (z_vals, sigmas, far, rays_d_norm)),
-            b, s, int(softplus),
-            *(ctypes.c_void_p(t.data_ptr()) for t in (depth, opacity, var, weights)),
-            ctypes.c_void_p(stream),
-        )
-    if rc != 0:
-        raise RuntimeError(f"lt_composite failed with CUDA error {rc}")
-    counts.composite_launches += 1
+    launch(z_vals, sigmas, far, rays_d_norm, softplus, depth, opacity, var, weights)
     return depth, opacity, var, weights
 
 

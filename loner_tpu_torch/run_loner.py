@@ -23,18 +23,10 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from loner_tpu_torch.common.device import resolve_device
 from loner_tpu_torch.common.settings import Settings, load_config
 from loner_tpu_torch.datasets.scan_stream import ScanStreamReader, apply_fov_mask
 from loner_tpu_torch.runtime.loner import Loner
-
-
-def resolve_device(device: Union[torch.device, str]) -> torch.device:
-    """The torch device asked for; a CUDA device without a card raises."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} asked for, but no CUDA device is available; "
-                           "pass device='cpu' to run on the CPU")
-    return device
 
 
 def run_trial(

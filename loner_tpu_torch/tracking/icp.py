@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from loner_tpu_torch.common import se3
+from loner_tpu_torch.common.device import resolve_device
 
 
 class ICPResult(NamedTuple):
@@ -224,12 +225,13 @@ def run_icp_schedule(
 
     ``init`` is a (4, 4) host array, or the device tensor of a previous
     result (the tracker's chained velocity init). ``device`` defaults to the
-    init tensor's device, else the CPU. The clouds, their masks and a host
+    init tensor's device, else ``cuda``, which raises without a card (pass
+    ``device="cpu"``). The clouds, their masks and a host
     init go up in one copy (pinned, asynchronous on a CUDA device); the result
     stays on the device."""
-    if device is None:
-        device = init.device if isinstance(init, torch.Tensor) else torch.device("cpu")
-    device = torch.device(device)
+    if device is None and isinstance(init, torch.Tensor):
+        device = init.device
+    device = resolve_device(device)
     src, src_valid = pad_cloud(np.asarray(source, np.float32), pad_size)
     tgt, tgt_valid = pad_cloud(np.asarray(target, np.float32), pad_size)
     host_init = None if isinstance(init, torch.Tensor) else (

@@ -31,6 +31,7 @@ torch.set_num_threads(1)
 SCHEDULE = [{"threshold": 1.5, "max_iterations": 10}, {"threshold": 0.125, "max_iterations": 10}]
 TRANSFORM_TOL = 1e-4
 STAT_TOL = 1e-5
+CPU = torch.device("cpu")
 
 
 def _scan_pair(seed: int, n: int, noise: float = 0.003):
@@ -133,7 +134,7 @@ def test_run_icp_schedule_matches_jax(n, pad, seed):
     src, tgt, t_true = _scan_pair(seed, n)
     init = np.eye(4)
     init[:3, 3] = [0.05, 0.0, 0.0]
-    res_t = ticp.run_icp_schedule(src, tgt, SCHEDULE, pad_size=pad, init=init)
+    res_t = ticp.run_icp_schedule(src, tgt, SCHEDULE, pad_size=pad, init=init, device=CPU)
     res_j = jicp.run_icp_schedule(src, tgt, SCHEDULE, pad_size=pad, init=init)
     _check_result(res_t, res_j)
     assert res_t.transformation.device.type == "cpu"
@@ -146,18 +147,30 @@ def test_run_icp_schedule_matches_jax(n, pad, seed):
                                    res_t.transformation.numpy(), atol=TRANSFORM_TOL)
 
 
+def test_run_icp_schedule_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    # Given neither a device nor a device tensor init, it takes cuda: no silent fallback.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    src, tgt, _ = _scan_pair(6, 300)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ticp.run_icp_schedule(src, tgt, SCHEDULE, pad_size=320)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ticp.run_icp_schedule(src, tgt, SCHEDULE, pad_size=320, init=np.eye(4))
+    res = ticp.run_icp_schedule(src, tgt, SCHEDULE, pad_size=320, init=torch.eye(4))
+    assert res.transformation.device == CPU
+
+
 def test_row_blocked_path_matches_single_tile(monkeypatch):
     src, tgt, _ = _scan_pair(4, 1000)
     s, sv = ticp.pad_cloud(src, 1000)
     t, tv = ticp.pad_cloud(tgt, 1000)
     args = [torch.from_numpy(x) for x in (s, t, sv, tv)]
     single_normals = ticp.estimate_normals(args[1], args[3])
-    single = ticp.run_icp_schedule(src, tgt, SCHEDULE, pad_size=1000)
+    single = ticp.run_icp_schedule(src, tgt, SCHEDULE, pad_size=1000, device=CPU)
     monkeypatch.setattr(ticp, "_SINGLE_TILE_ELEMS", 1 << 16)
     monkeypatch.setattr(ticp, "_BLOCK_BUDGET_ELEMS", 1 << 15)
     assert ticp._row_block(1000, 1000) == 256  # 4 blocks, the last one ragged
     blocked_normals = ticp.estimate_normals(args[1], args[3])
-    blocked = ticp.run_icp_schedule(src, tgt, SCHEDULE, pad_size=1000)
+    blocked = ticp.run_icp_schedule(src, tgt, SCHEDULE, pad_size=1000, device=CPU)
     np.testing.assert_array_equal(blocked_normals.numpy(), single_normals.numpy())
     np.testing.assert_allclose(blocked.transformation.numpy(), single.transformation.numpy(),
                                atol=1e-6)
@@ -166,11 +179,11 @@ def test_row_blocked_path_matches_single_tile(monkeypatch):
 
 def test_transform_ignores_the_callers_matmul_precision():
     src, tgt, _ = _scan_pair(5, 1500)
-    highest = ticp.run_icp_schedule(src, tgt, SCHEDULE, pad_size=1536)
+    highest = ticp.run_icp_schedule(src, tgt, SCHEDULE, pad_size=1536, device=CPU)
     before = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("medium")
     try:
-        medium = ticp.run_icp_schedule(src, tgt, SCHEDULE, pad_size=1536)
+        medium = ticp.run_icp_schedule(src, tgt, SCHEDULE, pad_size=1536, device=CPU)
     finally:
         torch.set_float32_matmul_precision(before)
     np.testing.assert_array_equal(medium.transformation.numpy(), highest.transformation.numpy())

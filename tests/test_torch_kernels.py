@@ -9,7 +9,7 @@ Without a card the card tests skip; the packing, planning and guard tests run
 anywhere. Tolerances, Fourier MLP (bf16, kernel and
 plain version differ only in f32 summation order): forward max abs 5e-2 on
 O(1)-O(10) sigma; gradients relative L2 1e-2, since a rare flipped ReLU mask
-moves single points' gradients. Compositing (f32; the kernel's warp scan
+moves single points' gradients. Compositing (f32; the kernel's block scan
 multiplies in another order than cumprod): the tolerances of
 tests/test_pallas_ops.py, depth and opacity rtol/atol 2e-4, weights rtol 5e-3
 atol 2e-4, variance rtol 1e-3 atol 2e-4.
@@ -278,11 +278,22 @@ def _composite_case(b, s, seed, wall=False):
     return z, sigma, far, dnorm
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,s,softplus,wall", [
+# (B, S, softplus, opaque wall): the earlier cases; the kernel table's shapes
+# (16384 x 1024 and 2048), a virtual scan's and a depth frame's render chunks
+# (2048 x 1024 and 2048); ragged B and S (S = 1; 33 and 1030, not multiples of
+# 4; S = 5000 over three tiles).
+COMPOSITE_CASES = [
     (300, 128, False, False), (1000, 1000, True, False), (17, 33, True, False),
     (256, 2048, False, True), (5, 1, True, False),
-])
+    (16384, 1024, True, False), (16384, 2048, False, True), (2048, 1024, True, True),
+    (2048, 2048, True, False), (1, 1024, False, False), (2047, 1024, True, False),
+    (2047, 33, False, True), (2047, 1, False, False), (3, 1030, True, True),
+    (7, 1030, False, False), (5, 5000, True, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,softplus,wall", COMPOSITE_CASES)
 def test_composite_kernel_matches_plain(cuda_device, b, s, softplus, wall):
     args = [torch.tensor(a, device=cuda_device) for a in _composite_case(b, s, 2, wall)]
     before = tc.counts.composite_launches
@@ -310,3 +321,54 @@ def test_composite_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         tc.composite_cuda(z, sigma, far.cpu(), dnorm)
     with pytest.raises(ValueError):
         tc.composite_cuda(z, sigma.clone().requires_grad_(True), far, dnorm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", [(2048, 1024), (16384, 2048), (7, 1030), (5, 5000)])
+def test_composite_kernel_is_deterministic(cuda_device, b, s):
+    # Scans and sums in a fixed order, no atomics: two calls give the same bits.
+    args = [torch.tensor(a, device=cuda_device) for a in _composite_case(b, s, 6, True)]
+    first = tc.composite_cuda(*args, softplus=True)
+    again = tc.composite_cuda(*args, softplus=True)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_composite_kernel_takes_misaligned_rows(cuda_device):
+    # Rows that do not start on 16 bytes take the scalar path.
+    b, s = 64, 1024
+    z, sigma, far, dnorm = [torch.tensor(a, device=cuda_device) for a in _composite_case(b, s, 7)]
+    z_off = torch.empty(b * s + 1, device=cuda_device)[1:].view(b, s)
+    z_off.copy_(z)
+    assert z_off.is_contiguous() and z_off.data_ptr() % 16
+    out = tc.composite_cuda(z_off, sigma, far, dnorm, softplus=True)
+    assert all(torch.equal(x, y) for x, y in zip(out, tc.composite_cuda(z, sigma, far, dnorm,
+                                                                        softplus=True)))
+
+
+@pytest.mark.parametrize("s", [1, 3, 4, 33, 128, 255, 256, 1000, 1024, 1030, 2048, 2049, 5000,
+                               100_000])
+def test_composite_plan_covers_each_row_once(s):
+    for aligned in (True, False):
+        plan = tc.composite_plan(s, aligned)
+        assert plan.threads % 32 == 0 and 32 <= plan.threads <= tc.MAX_THREADS
+        assert plan.v in (4, 8) and plan.v == (8 if s >= 256 else 4)
+        tile = plan.threads * plan.v
+        assert plan.tiles * tile >= s > (plan.tiles - 1) * tile
+        assert plan.vec == (aligned and s % 4 == 0)
+        # A row of up to 2048 samples is one tile, read once into registers.
+        assert (plan.tiles == 1) == (s <= 2048)
+    assert tc.composite_plan(1024) == tc.CompositePlan(128, 8, 1, True)
+    assert tc.composite_plan(2048) == tc.CompositePlan(256, 8, 1, True)
+
+
+def test_composite_plan_fields_and_guard():
+    assert [f for f in tc.CompositePlan.__dataclass_fields__] == ["threads", "v", "tiles", "vec"]
+    meta = torch.device("meta")
+    far = torch.empty(2, device=meta)
+    for s in (2 ** 31 - 8 * tc.MAX_THREADS + 1, 2 ** 31):
+        z = torch.empty((2, s), device=meta)
+        with pytest.raises(ValueError, match="samples"):
+            tc.check_operands(z, z, far, far)
+    z = torch.empty((2, 2 ** 31 - 8 * tc.MAX_THREADS), device=meta)
+    assert tc.check_operands(z, z, far, far) == (2, 2 ** 31 - 8 * tc.MAX_THREADS)

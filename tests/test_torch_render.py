@@ -17,6 +17,8 @@ Depth, variance and opacity are compared on finite rays with depth in
 """
 import os
 import pickle
+import runpy
+import sys
 from dataclasses import replace
 from pathlib import Path
 
@@ -335,6 +337,27 @@ def test_what_is_not_ported_raises(jax_dirs, tmp_path):
     with pytest.raises(NotImplementedError):
         tru.load_experiment(str(tmp_path), device=CPU)
     assert os.path.exists(tmp_path / "full_config.pkl")
+
+
+@pytest.mark.parametrize("entry", ["load_experiment", "render_full_map", "renderer_lidar CLI",
+                                   "load_experiment on the CPU"])
+def test_renderer_entry_points_run_on_the_card_unless_asked_for_the_cpu(jax_dirs, tmp_path,
+                                                                        monkeypatch, entry):
+    # No silent fallback: without a card, the default device raises and names the CPU.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    log_dir = str(jax_dirs["float32"])
+    if entry == "load_experiment on the CPU":
+        assert tru.load_experiment(log_dir, device="cpu").device == CPU
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if entry == "load_experiment":
+            tru.load_experiment(log_dir)
+        elif entry == "render_full_map":
+            trl.render_full_map(log_dir, out_dir=str(tmp_path))
+        else:
+            monkeypatch.setattr(sys, "argv", ["renderer_lidar", log_dir])
+            runpy.run_path(trl.__file__, run_name="__main__")
+    assert not os.listdir(tmp_path)
 
 
 @pytest.mark.parametrize("n", [0, 1, 50])
