@@ -10,7 +10,8 @@ nothing of JAX. Phases, each of which raises on failure:
 2. Build: compiles the CUDA sources of loner_tpu_torch/csrc into build/, one
    nvcc process per source, all started together; counts each kernel's
    HGMMA (wgmma) and UBLKCP / UTMALDG (bulk / tensor copies) instructions in
-   the built SASS (cuobjdump), and fails if a Fourier-MLP kernel has no HGMMA.
+   the built SASS (cuobjdump), and fails if a Fourier-MLP kernel has no HGMMA
+   (the composite and hash kernels use none).
 3. Kernels: the fused Fourier-MLP forward and backward kernels against their
    plain PyTorch version on the card, at the flagship shapes (2,097,152
    points, 48 frequencies, 99 -> 256 -> 256 -> 1, bf16), each timed with CUDA
@@ -47,9 +48,17 @@ nothing of JAX. Phases, each of which raises on failure:
    scan of ``render_full_map`` at the first keyframe) against the analytic
    raycast of the scene; the ICP of one frame pair on the card against the
    CPU, with no host synchronisation in a dispatch.
+10. Hash kernels: the hash-grid encode's forward and backward kernels against
+   their plain version at the reference's grid (16 levels x 2 features at
+   2^18) and the mapping path's 2,097,152 and 262,144 points, in bf16 and f32;
+   timed beside the plain version and the bound.
+11. SLAM at the reference's configuration: the same sequence and checks at
+   cfg/synthetic/box_room.yaml (hash sigma field through the hash kernels, OGM
+   sampler), with the hash kernels' launches.
 
-The second-to-last line of output is a JSON record of the kernels; the last is
-``{"ok": true, "device": {...}}``.
+Each path sets every launch count to 0 just before it runs and reads them just
+after. The second-to-last line of output is a JSON record of the kernels; the
+last is ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
@@ -103,16 +112,48 @@ FLAGSHIP_NERF = {
 }
 
 
+# Hash-grid encode, kernel against plain version on the card. Both take the same
+# rounded f32 operations in the same order (no FMA contraction), so the forward
+# and the position gradient are expected to agree to the bit; the bounds leave one
+# rounding flipped: a bf16 ulp (2^-8 relative) of a bf16-mode feature, two f32
+# ulps of an f32 one, and 1e-6 relative L2 on dpos. The table gradient is summed
+# by float atomics in an order that changes from run to run (up to ~10^4 terms an
+# entry on the coarse levels at 2.1 M points): relative L2 1e-5.
+HASH_FWD_REL = {torch.bfloat16: 2.0 ** -8, torch.float32: 2.0 ** -22}
+HASH_DPOS_REL_L2 = 1e-6
+HASH_DTABLE_REL_L2 = 1e-5
+
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): bf16
-# tensor cores and HBM3. bound_ms is the larger of operations over the first and
-# bytes (each input read once, each output written once) over the second.
+# tensor cores, f32 outside the tensor cores, and HBM3. bound_ms is the larger of
+# operations over the peak of their type and bytes (each input read once, each
+# output written once) over the HBM rate.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = 1e3 * flops / PEAK_BF16_FLOPS, 1e3 * nbytes / PEAK_HBM_BYTES
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = 1e3 * flops / peak_flops, 1e3 * nbytes / PEAK_HBM_BYTES
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from loner_tpu_torch.ops import composite, fourier_mlp, hash_grid
+
+    for module in (composite, fourier_mlp, hash_grid):
+        module.counts.reset()
+
+
+def read_counts() -> dict:
+    """Every kernel's launches since the last ``reset_counts``, by name."""
+    from loner_tpu_torch.ops import composite, fourier_mlp, hash_grid
+
+    return {"fourier_mlp_fwd": fourier_mlp.counts.fwd_launches,
+            "fourier_mlp_bwd": fourier_mlp.counts.bwd_launches,
+            "composite": composite.counts.composite_launches,
+            "hash_encode_fwd": hash_grid.counts.fwd_launches,
+            "hash_encode_bwd": hash_grid.counts.bwd_launches}
 
 
 def device_line() -> str:
@@ -140,7 +181,8 @@ def cuda_ms(fn, reps: int = 5) -> float:
 
 def sass_counts() -> dict:
     """HGMMA and bulk / tensor-copy instructions of each kernel in the built
-    libraries (cuobjdump -sass). Fails if a Fourier-MLP kernel has no HGMMA."""
+    libraries (cuobjdump -sass). Fails if a Fourier-MLP kernel has no HGMMA (the
+    composite and hash kernels use none, by design)."""
     import re
     import shutil
 
@@ -148,7 +190,7 @@ def sass_counts() -> dict:
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     counts = {}
-    for lib in ("fourier_mlp", "composite"):
+    for lib in ("fourier_mlp", "composite", "hash_grid"):
         sass = subprocess.run([tool, "-sass", str(_target(lib))], capture_output=True, text=True,
                               check=True, timeout=300).stdout
         func = None
@@ -472,6 +514,94 @@ def check_composite(dev) -> dict:
             "render_chunk_kernel_ms": chunk["kernel"], "render_chunk_bound_ms": chunk["bound"]}
 
 
+HASH_POINTS = (8 * 512 * 512, 512 * 512)  # a W=8 iteration's field points, the W=1 bootstrap's
+
+
+def hash_cost(n: int, cfg) -> dict:
+    """Operations and bytes of one forward and one backward at n points: f32
+    operations counted from csrc/hash_grid.cu per (point, level) (corners 25:
+    scale, frac, 1 - frac and the 8 weights; forward 32 more for the 8 weighted
+    feature pairs; backward 40 for the atomics' terms and the corner dot
+    products, 48 for the frac gradients, 6 for the level sum, 16 atomic adds);
+    bytes: points, features or their gradient, dpos and the table (its gradient)
+    each once."""
+    nl, table = n * cfg.n_levels, 8 * cfg.total_table_size
+    return {"fwd": (57 * nl, 12 * n + 4 * cfg.output_dim * n + table),
+            "bwd": (135 * nl, 12 * n + 4 * cfg.output_dim * n + 12 * n + 2 * table)}
+
+
+def check_hash_kernels(dev) -> list:
+    """The hash-grid encode kernels against their plain version at the reference's
+    grid (16 levels x 2 features at 2^18) and the mapping path's point counts, in
+    bf16 (training) and f32 (renders); timed beside the plain version and the
+    bound. No single PyTorch call computes the function: library_ms is null."""
+    from loner_tpu_torch.models.hash_encoding import HashEncodingConfig
+    from loner_tpu_torch.ops import hash_grid as hg
+
+    cfg = HashEncodingConfig()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    table = torch.rand((cfg.total_table_size, 2), generator=gen, device=dev) * 2e-2 - 1e-2
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    times = {}
+    for n in HASH_POINTS:
+        # Points over the unit cube and a little past it, some exactly on its faces.
+        pos = torch.rand((n, 3), generator=gen, device=dev) * 1.02 - 0.01
+        pos[:64] = 0.0
+        pos[64:128] = 1.0
+        dout = torch.randn((n, cfg.output_dim), generator=gen, device=dev) / n ** 0.5
+        for dtype in (torch.bfloat16, torch.float32):
+            out_k = hg.hash_encode_fwd_cuda(table, pos, cfg, dtype)
+            out_p = hg.hash_encode_fwd_plain(table, pos, cfg, dtype)
+            dtab_k, dpos_k = hg.hash_encode_bwd_cuda(table, pos, dout, cfg, dtype)
+            dtab_p, dpos_p = hg.hash_encode_bwd_plain(table, pos, dout, cfg, dtype)
+            torch.cuda.synchronize()
+            for name, t in (("features", out_k), ("dtable", dtab_k), ("dpos", dpos_k)):
+                if not torch.isfinite(t).all():
+                    raise RuntimeError(f"hash kernel: non-finite {name} at {n} points, {dtype}")
+            fwd_err = float((out_k - out_p).abs().max())
+            fwd_ok = bool(((out_k - out_p).abs() <= HASH_FWD_REL[dtype] * out_p.abs()).all())
+            rel_t, rel_p = rel_l2(dtab_k, dtab_p), rel_l2(dpos_k, dpos_p)
+            bwd_err = max(float((dtab_k - dtab_p).abs().max()), float((dpos_k - dpos_p).abs().max()))
+            worst["fwd"], worst["bwd"] = max(worst["fwd"], fwd_err), max(worst["bwd"], bwd_err)
+            print(f"kernel hash_encode {n} points {str(dtype)[6:]}: features max |kernel - plain| "
+                  f"{fwd_err:.3e} ({int((out_k != out_p).sum())} of {out_k.numel()} differ; bound "
+                  f"{HASH_FWD_REL[dtype]:.1e} relative); dtable rel L2 {rel_t:.3e} (tolerance "
+                  f"{HASH_DTABLE_REL_L2}); dpos rel L2 {rel_p:.3e} (tolerance {HASH_DPOS_REL_L2}), "
+                  f"{int((dpos_k != dpos_p).sum())} of {dpos_k.numel()} differ", flush=True)
+            if not (fwd_ok and rel_t <= HASH_DTABLE_REL_L2 and rel_p <= HASH_DPOS_REL_L2):
+                raise RuntimeError(f"hash kernels disagree with their plain version at {n} "
+                                   f"points, {dtype}")
+            t = {"fwd": cuda_ms(lambda: hg.hash_encode_fwd_cuda(table, pos, cfg, dtype)),
+                 "bwd": cuda_ms(lambda: hg.hash_encode_bwd_cuda(table, pos, dout, cfg, dtype))}
+            if n == HASH_POINTS[0] and dtype == torch.bfloat16:
+                t["fwd_plain"] = cuda_ms(lambda: hg.hash_encode_fwd_plain(table, pos, cfg, dtype), 3)
+                t["bwd_plain"] = cuda_ms(
+                    lambda: hg.hash_encode_bwd_plain(table, pos, dout, cfg, dtype), 3)
+            times[(n, dtype)] = t
+            del out_k, out_p, dtab_k, dtab_p, dpos_k, dpos_p
+            cost = hash_cost(n, cfg)
+            shares = {k: bound(*cost[k], peak_flops=PEAK_F32_FLOPS) for k in ("fwd", "bwd")}
+            print(f"kernel hash_encode times at {n} points, {str(dtype)[6:]} (ms, median of 5): "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in t.items()) + "; bound "
+                  + ", ".join(f"{k} {b[0]:.4f} ({b[1]}, {100 * b[0] / t[k]:.1f}%)"
+                              for k, b in shares.items()), flush=True)
+    main = times[(HASH_POINTS[0], torch.bfloat16)]
+    cost = hash_cost(HASH_POINTS[0], cfg)
+    src = "loner_tpu_torch/csrc/hash_grid.cu"
+    note = "not a TPU kernel: the JAX package computes this function in XLA"
+    records = []
+    for name, line in (("fwd", 170), ("bwd", 221)):
+        b = bound(*cost[name], peak_flops=PEAK_F32_FLOPS)
+        records.append({
+            "name": f"hash_encode_{name}", "route": "cuda", "source": src,
+            "replaces": f"loner_tpu/models/hash_encoding.py:{line}", "note": note, "launches": 0,
+            "max_abs_err": worst[name], "ms": main[name], "plain_ms": main[f"{name}_plain"],
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+            "f32_ms": times[(HASH_POINTS[0], torch.float32)][name],
+            "bootstrap_ms": times[(HASH_POINTS[1], torch.bfloat16)][name]})
+    return records
+
+
 def write_experiment(log_dir: str, field, prop, field_cfg, seed: int = 3) -> None:
     """An experiment directory as a run of the system leaves it: the flagship
     settings in full_config.pkl and checkpoints/final.tar in Mapper.build_ckpt's
@@ -663,19 +793,30 @@ MAP_DEPTH_MEDIAN_MAX = 0.3  # m, |rendered - analytic depth| median of the map c
 ICP_CARD_CPU_TOL = 1e-4  # transform entries, ICP on the card against the CPU
 
 
-def flagship_slam_settings(log_prefix: str) -> dict:
-    """cfg/synthetic/box_room_tpu_rt_r4.yaml over cfg/defaults.yaml as a plain
-    dict (the card's machine has no PyYAML). On purpose it differs in the log
-    prefix, ``system.precompile`` (kernels built and every program run once
-    before the clock starts, as the JAX drives ran with --precompile) and the
-    test-render compositor (the fused one, as cfg/model_config/
-    tpu_native_model_config.yaml has it; mapping does not read it).
-    tests/test_torch_slam.py holds the rest equal to the YAML."""
+def merged(base: dict, changes: dict) -> dict:
+    """``base`` with ``changes`` laid over it, key by key (a sequence config's
+    ``changes:`` overlay)."""
+    out = dict(base)
+    for k, v in changes.items():
+        out[k] = merged(out[k], v) if isinstance(v, dict) and isinstance(out.get(k), dict) else v
+    return out
+
+
+def box_room_settings(log_prefix: str) -> dict:
+    """cfg/synthetic/box_room.yaml (a bare ``!include ../defaults.yaml``: the
+    reference's model, hash sigma field and OGM sampler) as a plain dict (the
+    card's machine has no PyYAML). On purpose it differs in the log prefix and
+    ``system.precompile`` (kernels built and every program run once before the
+    clock starts). tests/test_torch_slam.py holds the rest equal to the YAML."""
     schedule_item = lambda n, **kw: {"num_iterations": n, "freeze_poses": False,  # noqa: E731
                                      **kw, "freeze_rgb_mlp": True}
     sync = {"enabled": True, "min_buffer_size": 2, "max_time_delta": 3}
     icp_stage = lambda t: {"threshold": t, "max_iterations": 10, "relative_fitness": 1e-08,  # noqa: E731
                            "relative_rmse": 1e-08}
+    hash_grid = lambda log2: {"base_resolution": 16, "log2_hashmap_size": log2,  # noqa: E731
+                              "n_features_per_level": 2, "n_levels": 16, "otype": "HashGrid"}
+    mlp = lambda layers: {"activation": "ReLU", "n_hidden_layers": layers,  # noqa: E731
+                          "n_neurons": 64, "otype": "MLP", "output_activation": "None"}
     return {
         "calibration": {
             "lidar_to_camera": {"xyz": [0, 0, 0], "orientation": [0, 0, 0, 1]},
@@ -690,7 +831,7 @@ def flagship_slam_settings(log_prefix: str) -> dict:
         "mapper": {
             "data_prep_on_cpu": True, "log_level": "DISABLED",
             "keyframe_manager": {
-                "keyframe_selection": {"strategy": "TEMPORAL", "temporal": {"time_diff_seconds": 3.0},
+                "keyframe_selection": {"strategy": "TEMPORAL", "temporal": {"time_diff_seconds": 3},
                                        "motion": {"translation_threshold_m": 0.5,
                                                   "rotation_threshold_deg": 22.5}},
                 "window_selection": {"strategy": "HYBRID", "hybrid_settings": {"num_recent_frames": 1},
@@ -699,9 +840,9 @@ def flagship_slam_settings(log_prefix: str) -> dict:
             "optimizer": {
                 "freeze_poses": False, "enabled": True, "seed": 0, "detach_rgb_from_poses": True,
                 "detach_rgb_from_sigma": False, "skip_pose_refinement": True,
-                "num_samples": {"lidar": 512, "sky": 0, "camera": 0},
+                "num_samples": {"lidar": 512, "sky": 64, "camera": 0},
                 "rays_selection": {"strategy": "RANDOM"},
-                "samples_selection": {"strategy": "PROPOSAL"},
+                "samples_selection": {"strategy": "OGM"},
                 "keyframe_schedule": [
                     {"num_keyframes": 1, "iteration_schedule": [
                         {"num_iterations": 1000, "freeze_poses": True, "freeze_sigma_mlp": False,
@@ -711,33 +852,27 @@ def flagship_slam_settings(log_prefix: str) -> dict:
                         schedule_item(50, freeze_sigma_mlp=False)]},
                 ],
                 "model_config": {
-                    "data": {"ray_range": [0.5, 14.0]},
+                    "data": {"ray_range": [1, 10]},
                     "model": {
                         "num_colors": 3, "model_type": "nerf_decoupled",
                         "nerf_config": {
-                            **{k: v for k, v in FLAGSHIP_NERF.items()
-                               if k not in ("sigma_kernel", "fourier_sigma")},
-                            "fourier_sigma": {"n_freqs": 48, "scale": 6.0, "include_input": True},
-                            "pos_encoding_sigma": {"base_resolution": 16, "log2_hashmap_size": 18,
-                                                   "n_features_per_level": 2, "n_levels": 16,
-                                                   "otype": "HashGrid"},
+                            "enable_view_dependence": True,
+                            "dir_encoding_intensity": {"degree": 4, "otype": "SphericalHarmonics"},
+                            "intensity_network": mlp(4),
+                            "pos_encoding_intensity": hash_grid(19),
+                            "pos_encoding_sigma": hash_grid(18),
+                            "sigma_network": mlp(1),
                         },
-                        "ray_range": [0.5, 14.0],
-                        "render": {"N_samples_train": 512, "N_samples_test": 1024, "retraw": True,
+                        "ray_range": [1, 10],
+                        "render": {"N_samples_train": 512, "N_samples_test": 2048, "retraw": True,
                                    "lindisp": False, "perturb": 1.0, "white_bkgd": False,
-                                   "raw_noise_std": 1.0, "chunk": 16384, "netchunk": 0,
-                                   "compositor": "pallas"},
-                        "occ_model": {"voxel_size": 100, "lr": 0.0001, "N_iters_acc": 10,
-                                      "prop_lr": 0.001, "prop_n_ctrl": 33,
-                                      "proposal": {"n_freqs": 16, "scale": 3.0, "n_neurons": 64,
-                                                   "n_hidden_layers": 2},
-                                      "prop_train_subsample": 8},
+                                   "raw_noise_std": 1.0, "chunk": 16384, "netchunk": 0},
+                        "occ_model": {"voxel_size": 100, "lr": 0.0001, "N_iters_acc": 10},
                     },
-                    "train": {"lrate_sigma_mlp": 0.005, "lrate_rgb": 0.01, "lrate_pose": 0.001,
+                    "train": {"lrate_sigma_mlp": 0.01, "lrate_rgb": 0.01, "lrate_pose": 0.001,
                               "encode_impl": "vjp_bf16", "lrate_gamma": 1.0, "decay_rate": 0.001,
                               "pose_lrate_gamma": 1.0, "rgb_weight_decay": 1e-05,
-                              "sigma_weight_decay": 0.0, "steps_per_dispatch": 3,
-                              "max_inflight_dispatches": 1, "point_chunk": 0},
+                              "sigma_weight_decay": 0.0},
                     "loss": {"loss_selection": "L1_JS",
                              "JS_loss": {"min_js_score": 1.0, "max_js_score": 10.0, "alpha": 1.0},
                              "decay_los_lambda": False, "los_lambda": 1000.0,
@@ -762,7 +897,7 @@ def flagship_slam_settings(log_prefix: str) -> dict:
             "synchronization": dict(sync),
             "frame_synthesis": {"strategy": None, "sky_removal": None,
                                 "frame_decimation_rate_hz": 5, "frame_match_tolerance": 0.01,
-                                "frame_delta_t_sec_tolerance": 0.02, "decimate_on_load": False},
+                                "frame_delta_t_sec_tolerance": 0.02, "decimate_on_load": True},
             "icp": {"scan_duration": 0.9, "schedule": [icp_stage(1.5), icp_stage(0.125)],
                     "downsample": {"type": "UNIFORM", "target_uniform_point_count": 5000,
                                    "voxel_downsample_size": 0.1}},
@@ -770,6 +905,43 @@ def flagship_slam_settings(log_prefix: str) -> dict:
             "compute_sky_rays": False,
         },
     }
+
+
+def flagship_slam_settings(log_prefix: str) -> dict:
+    """cfg/synthetic/box_room_tpu_rt_r4.yaml (box_room_settings with the
+    flagship's changes: Fourier field, proposal sampler) as a plain dict. On
+    purpose it also differs in the test-render compositor (the fused one, as
+    cfg/model_config/tpu_native_model_config.yaml has it; mapping does not read
+    it). tests/test_torch_slam.py holds the rest equal to the YAML."""
+    ray_range = [0.5, 14.0]
+    return merged(box_room_settings(log_prefix), {
+        "mapper": {
+            "keyframe_manager": {"keyframe_selection": {"temporal": {"time_diff_seconds": 3.0}}},
+            "optimizer": {
+                "num_samples": {"sky": 0},
+                "samples_selection": {"strategy": "PROPOSAL"},
+                "model_config": {
+                    "data": {"ray_range": ray_range},
+                    "model": {
+                        "nerf_config": {
+                            "encoding_sigma": "fourier", "compute_dtype": "bfloat16",
+                            "fourier_sigma": {"n_freqs": 48, "scale": 6.0, "include_input": True},
+                            "sigma_network": {"n_hidden_layers": 2, "n_neurons": 256},
+                        },
+                        "ray_range": ray_range,
+                        "render": {"N_samples_test": 1024, "compositor": "pallas"},
+                        "occ_model": {"prop_lr": 0.001, "prop_n_ctrl": 33,
+                                      "proposal": {"n_freqs": 16, "scale": 3.0, "n_neurons": 64,
+                                                   "n_hidden_layers": 2},
+                                      "prop_train_subsample": 8},
+                    },
+                    "train": {"lrate_sigma_mlp": 0.005, "steps_per_dispatch": 3,
+                              "max_inflight_dispatches": 1, "point_chunk": 0},
+                },
+            },
+        },
+        "tracker": {"frame_synthesis": {"decimate_on_load": False}},
+    })
 
 
 def write_slam_dataset(root: str):
@@ -833,24 +1005,22 @@ def check_icp_card_against_cpu(dev, dataset: str) -> dict:
     return {"icp_card_cpu_err": err, "icp_host_ms": host_ms, "icp_device_ms": device_ms}
 
 
-def check_map_depth(dev, log_dir: str, scene, gt0: np.ndarray) -> int:
+def check_map_depth(dev, log_dir: str, scene, gt0: np.ndarray, kernels, compositor) -> dict:
     """render_full_map at the first keyframe (the anchored, identity pose of
     the SLAM frame; the ground-truth pose of scan 0 in the scene) through the
-    composite and Fourier forward kernels; each kept point's range against the
-    analytic raycast along its ray. Returns the composite kernel's launches."""
+    sampler, sigma and compositing of the run's configuration; each kept point's
+    range against the analytic raycast along its ray. Returns the launches of
+    ``kernels``, each of which must launch."""
     from loner_tpu_torch.analysis.render_utils import kf_pose_matrices, load_experiment
     from loner_tpu_torch.analysis.renderer_lidar import render_full_map
-    from loner_tpu_torch.ops import composite as cp
-    from loner_tpu_torch.ops import fourier_mlp as fm
 
     model = load_experiment(log_dir, device=dev)
     mats, _ = kf_pose_matrices(model)
-    if model.compositor != "pallas":
+    if model.compositor != compositor:
         raise RuntimeError(f"the SLAM run's config renders with compositor {model.compositor}")
-    cp.counts.reset()
-    fm.counts.reset()
+    reset_counts()
     cloud = render_full_map(log_dir, skip_step=len(mats), voxel_size=0.02, device=dev)
-    launches = {"composite": cp.counts.composite_launches, "fourier_mlp_fwd": fm.counts.fwd_launches}
+    launches = {k: read_counts()[k] for k in kernels}
     if cloud.shape[0] < 1000 or not np.isfinite(cloud).all():
         raise RuntimeError(f"map check: {cloud.shape[0]} points kept")
     # The SLAM frame is the ground truth zeroed at scan 0: scene = gt0 @ SLAM.
@@ -869,25 +1039,61 @@ def check_map_depth(dev, log_dir: str, scene, gt0: np.ndarray) -> int:
             raise RuntimeError(f"map check: {name} was not launched")
     if not med <= MAP_DEPTH_MEDIAN_MAX:
         raise RuntimeError(f"map check: median depth error {med} m")
-    return launches["composite"]
+    return {"map_median_m": med, "launches": launches}
 
 
-def run_slam(dev) -> dict:
-    """Phase 9: the threaded flagship SLAM run through run_trial on ``dev``."""
+def test_chunk_memory(dev, log_dir: str) -> None:
+    """One test-render chunk at the configuration's sizes (model.render: chunk
+    rays x N_samples_test samples, 16384 x 2048 = 33.5 M field points at
+    box_room.yaml): its device time and peak device memory, the field evaluated
+    in blocks of render_rays.POINT_BLOCK points."""
+    from loner_tpu_torch.analysis.render_utils import (
+        kf_pose_matrices, load_experiment, render_depth_chunked,
+    )
+    from loner_tpu_torch.analysis.renderer_lidar import build_lidar_ray_directions
+
+    model = load_experiment(log_dir, device=dev)
+    render = model.settings.mapper.optimizer.model_config.model.render
+    rays, samples = int(render["chunk"]), int(render["N_samples_test"])
+    pose = kf_pose_matrices(model)[0][0]
+    dirs = build_lidar_ray_directions()[:rays] @ pose[:3, :3].T
+    origins = np.broadcast_to(pose[:3, 3], dirs.shape)
+    ray_range = tuple(model.settings.mapper.optimizer.model_config["data"]["ray_range"])
+    render_depth_chunked(model, origins[:64], dirs[:64], ray_range, n_samples=samples, chunk=64)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = render_depth_chunked(model, origins, dirs, ray_range, n_samples=samples, chunk=rays)
+    ms = 1e3 * (time.perf_counter() - t0)
+    peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    if not np.isfinite(out["depth"]).all():
+        raise RuntimeError("test-render chunk: non-finite depth")
+    print(f"test-render chunk: {rays} rays x {samples} samples in one chunk: {ms:.3f} ms, peak "
+          f"device memory above the loaded model {peak_gb:.3f} GB", flush=True)
+
+
+def run_slam(dev, label: str, settings: dict, train_kernels, map_kernels, compositor: str,
+             check_icp: bool = False, measure_test_chunk: bool = False) -> dict:
+    """A threaded SLAM run through run_trial on ``dev`` at ``settings``: RTF,
+    ms per mapping iteration, tracking latency, peak memory, ATE of both
+    trajectories, the map check, and the launches of ``train_kernels`` (each at
+    least once per mapping iteration) and of ``map_kernels`` in the map check;
+    with ``check_icp`` the ICP card-vs-CPU check, with ``measure_test_chunk`` one
+    test-render chunk's time and memory."""
     import tempfile
 
     from loner_tpu_torch import run_loner
     from loner_tpu_torch.analysis.traj_metrics import evaluate_trajectory_files
-    from loner_tpu_torch.ops import fourier_mlp as fm
 
     with tempfile.TemporaryDirectory(prefix="loner_tpu_torch_slam_") as tmp:
         dataset = os.path.join(tmp, "dataset")
         t0 = time.perf_counter()
         scene, gt_poses, ts = write_slam_dataset(dataset)
-        print(f"SLAM dataset: {SLAM_SCANS} scans of {SLAM_LIDAR[0] * SLAM_LIDAR[1]} rays, "
-              f"{ts[-1] - ts[0] + 0.1:.1f} s of sequence, written in "
+        print(f"SLAM {label} dataset: {SLAM_SCANS} scans of {SLAM_LIDAR[0] * SLAM_LIDAR[1]} "
+              f"rays, {ts[-1] - ts[0] + 0.1:.1f} s of sequence, written in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
-        icp = check_icp_card_against_cpu(dev, dataset)
+        icp = check_icp_card_against_cpu(dev, dataset) if check_icp else {}
 
         loners = []
 
@@ -896,27 +1102,30 @@ def run_slam(dev) -> dict:
                 loners.append(self)
                 super().start()
 
-        settings = flagship_slam_settings(os.path.join(tmp, "outputs"))
+        settings["system"]["log_dir_prefix"] = os.path.join(tmp, "outputs")
         original, run_loner.Loner = run_loner.Loner, RecordingLoner
         try:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
-            fm.counts.reset()
+            reset_counts()
             t0 = time.perf_counter()
-            log_dir = run_loner.run_trial(settings, dataset, experiment_name="smoke_slam",
+            log_dir = run_loner.run_trial(settings, dataset, experiment_name=f"smoke_{label}",
                                           device=dev)
             wall = time.perf_counter() - t0
-            launches = {"fourier_mlp_fwd": fm.counts.fwd_launches,
-                        "fourier_mlp_bwd": fm.counts.bwd_launches}
+            launches = {k: read_counts()[k] for k in train_kernels}
         finally:
             run_loner.Loner = original
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
 
         (loner,) = loners
-        opt = loner.mapper.optimizer
-        placed = {"field": opt.state.field_params["sigma"]["mlp"]["w0"].device,
-                  "proposal": opt.state.occ_grid["w0"].device,
+        state = loner.mapper.optimizer.state
+        sigma = state.field_params["sigma"]
+        placed = {"field": sigma["mlp"]["w0"].device,
+                  "sampler state": (state.occ_grid["w0"] if isinstance(state.occ_grid, dict)
+                                    else state.occ_grid).device,
                   "icp": loner.tracker._last_relative_dev.device}
+        if "table" in sigma:
+            placed["hash table"] = sigma["table"].device
         if any(d != dev for d in placed.values()):
             raise RuntimeError(f"SLAM tensors not on {dev}: {placed}")
 
@@ -927,13 +1136,13 @@ def run_slam(dev) -> dict:
         its = int(timing[:, 0].sum())
         boot_ms = 1e3 * timing[0, 1] / timing[0, 0]
         win_ms = 1e3 * timing[1:, 1].sum() / max(timing[1:, 0].sum(), 1)
-        print(f"SLAM: {len(timing)} keyframes, {its} mapping iterations; per keyframe "
+        print(f"SLAM {label}: {len(timing)} keyframes, {its} mapping iterations; per keyframe "
               "(iterations, s): " + ", ".join(f"({int(n)}, {t:.3f})" for n, t in timing),
               flush=True)
-        print(f"SLAM: runtime {runtime:.3f} s for {seq_s:.1f} s of sequence, real-time factor "
-              f"{seq_s / runtime:.4f}; ms per mapping iteration: W=1 bootstrap {boot_ms:.3f}, "
-              f"W=8 windows {win_ms:.3f}; tracking latency ({len(track)} updates) median "
-              f"{1e3 * float(np.median(track[:, 0])):.3f} ms, p95 "
+        print(f"SLAM {label}: runtime {runtime:.3f} s for {seq_s:.1f} s of sequence, real-time "
+              f"factor {seq_s / runtime:.4f}; ms per mapping iteration: W=1 bootstrap "
+              f"{boot_ms:.3f}, W=8 windows {win_ms:.3f}; tracking latency ({len(track)} updates) "
+              f"median {1e3 * float(np.median(track[:, 0])):.3f} ms, p95 "
               f"{1e3 * float(np.quantile(track[:, 0], 0.95)):.3f} ms; peak device memory "
               f"{peak_gb:.3f} GB; run_trial {wall:.3f} s; launches {launches}; tensors on "
               f"{sorted({str(d) for d in placed.values()})}", flush=True)
@@ -947,13 +1156,16 @@ def run_slam(dev) -> dict:
                 os.path.join(log_dir, "trajectory", f"{name}.txt"),
                 os.path.join(log_dir, "trajectory", "groundtruth.txt"), delta_m=1.0)
             ate[name] = res["ate"]["rmse"]
-        print(f"SLAM ATE RMSE: estimated {ate['estimated_trajectory']:.4f} m, tracking only "
-              f"{ate['tracking_only']:.4f} m (bound {ATE_MAX})", flush=True)
+        print(f"SLAM {label} ATE RMSE: estimated {ate['estimated_trajectory']:.4f} m, tracking "
+              f"only {ate['tracking_only']:.4f} m (bound {ATE_MAX})", flush=True)
         if not all(v < ATE_MAX for v in ate.values()):
-            raise RuntimeError(f"SLAM ATE above {ATE_MAX} m: {ate}")
+            raise RuntimeError(f"SLAM {label} ATE above {ATE_MAX} m: {ate}")
 
-        composite = check_map_depth(dev, log_dir, scene, gt_poses[0])
-    return {"launches": {**launches, "composite": composite}, **icp}
+        mapped = check_map_depth(dev, log_dir, scene, gt_poses[0], map_kernels, compositor)
+        if measure_test_chunk:
+            test_chunk_memory(dev, log_dir)
+    return {"launches": launches, "map_launches": mapped["launches"], "rtf": seq_s / runtime,
+            "boot_ms": boot_ms, "win_ms": win_ms, "iterations": its, **icp}
 
 
 def main() -> int:
@@ -964,6 +1176,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from loner_tpu_torch.ops import composite as cp
     from loner_tpu_torch.ops import fourier_mlp as fm
+    from loner_tpu_torch.ops import hash_grid as hg
     from loner_tpu_torch.ops.build import build_all
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -977,6 +1190,7 @@ def main() -> int:
     build_all()
     fm._lib()
     cp._lib()
+    hg._lib()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     sass_counts()
 
@@ -988,10 +1202,22 @@ def main() -> int:
     composite = check_composite(dev)
     composite["launches"] = run_render(dev, field, prop, field_cfg)
     kernels.append(composite)
-    # The SLAM slice's main path: its launch counts go into the kernels' record.
-    slam = run_slam(dev)
+    # Each SLAM path's launches go into the kernels' record: the flagship run's
+    # for the Fourier pair and the composite (its map check), the reference
+    # configuration's for the hash pair.
+    slam = run_slam(dev, "flagship", flagship_slam_settings(""),
+                    ("fourier_mlp_fwd", "fourier_mlp_bwd"), ("composite", "fourier_mlp_fwd"),
+                    "pallas", check_icp=True)
     for k in kernels:
-        k["launches"] = slam["launches"][k["name"]]
+        k["launches"] = {**slam["map_launches"], **slam["launches"]}[k["name"]]
+    hash_kernels = check_hash_kernels(dev)
+    reference = run_slam(dev, "hash+OGM", box_room_settings(""),
+                         ("hash_encode_fwd", "hash_encode_bwd"), ("hash_encode_fwd",), "xla",
+                         measure_test_chunk=True)
+    for k in hash_kernels:
+        k["launches"] = reference["launches"][k["name"]]
+        k["map_check_launches"] = reference["map_launches"].get(k["name"], 0)
+    kernels += hash_kernels
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

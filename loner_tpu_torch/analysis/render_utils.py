@@ -12,7 +12,7 @@ from __future__ import annotations
 import os
 import pickle
 from dataclasses import dataclass, field
-from typing import Optional, Tuple, Union
+from typing import Any, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,7 +31,7 @@ from loner_tpu_torch.models.rendering import pack_rays
 class LoadedModel:
     field_params: dict
     field_cfg: FieldConfig
-    occ_grid: Optional[dict]  # proposal params, or None (uniform sampler)
+    occ_grid: Any  # the OGM grid, the proposal params, or None (uniform sampler)
     world_cube: WorldCube
     settings: Settings
     poses: list  # keyframe pose states
@@ -63,9 +63,7 @@ def load_experiment(log_dir: str, ckpt_name: str = "final.tar",
     )
     occ = ckpt.get("occ_model_state_dict")
     if occ is not None:
-        if not isinstance(occ, dict):
-            raise NotImplementedError("the occupancy-grid (OGM) sampler is not ported")
-        occ = convert.proposal_params_from_jax(occ, device)
+        occ = convert.occ_state_from_jax(occ, device)
     return LoadedModel(
         field_params=convert.field_params_from_jax(ckpt["network_state_dict"], device),
         field_cfg=field_cfg,

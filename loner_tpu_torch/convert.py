@@ -4,8 +4,9 @@ The JAX package's params are nested dicts of arrays (``np.asarray`` of each
 leaf gives the numpy form, which is what its checkpoints hold). The port keeps
 the same nesting and names, as float32 torch tensors on a device:
 
-  field:    {"sigma": {"mlp": {w0, b0, ...}}, "intensity": {"mlp": {...}, ["table"]}}
+  field:    {"sigma": {"mlp": {w0, b0, ...}, ["table"]}, "intensity": {"mlp": {...}, ["table"]}}
   proposal: {"bmat", "w0", "w1", ...}
+  OGM grid: (V, V, V) logits
   twists:   (W, 6)
 
 ``*_from_jax`` go from numpy trees to the port; ``*_to_jax`` go back, to numpy
@@ -29,11 +30,10 @@ def _tree(d: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
 
 
 def field_params_from_jax(params: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
-    """Field params: the sigma MLP and the intensity head (MLP and hash table)."""
+    """Field params: the sigma head (MLP and, for the hash field, its table) and the
+    intensity head (MLP and hash table)."""
     if set(params) != {"sigma", "intensity"} or "mlp" not in params["sigma"]:
         raise ValueError(f"not a field param tree: top-level keys {sorted(params)}")
-    if "table" in params["sigma"]:
-        raise NotImplementedError("the hash sigma field is not ported")
     return _tree(params, device)
 
 
@@ -42,6 +42,22 @@ def proposal_params_from_jax(params: Dict[str, Any], device: torch.device) -> Di
     if "bmat" not in params or "w0" not in params:
         raise ValueError(f"not a proposal param tree: keys {sorted(params)}")
     return _tree(params, device)
+
+
+def occ_grid_from_jax(grid, device: torch.device) -> torch.Tensor:
+    """The OGM logit grid: a (V, V, V) array."""
+    t = _tensor(grid, device)
+    if t.dim() != 3 or len(set(t.shape)) != 1:
+        raise ValueError(f"an occupancy grid is (V, V, V), got {tuple(t.shape)}")
+    return t
+
+
+def occ_state_from_jax(state, device: torch.device):
+    """A checkpoint's ``occ_model_state_dict``: proposal params (a dict) or the
+    OGM grid (an array)."""
+    if isinstance(state, dict):
+        return proposal_params_from_jax(state, device)
+    return occ_grid_from_jax(state, device)
 
 
 def twists_from_jax(twists, device: torch.device) -> torch.Tensor:
@@ -74,3 +90,10 @@ def proposal_params_to_jax(params: Dict[str, Any]) -> Dict[str, Any]:
     if "bmat" not in params or "w0" not in params:
         raise ValueError(f"not a proposal param tree: keys {sorted(params)}")
     return tree_to_numpy(params)
+
+
+def occ_grid_to_jax(grid: torch.Tensor) -> np.ndarray:
+    """The port's OGM grid as the JAX package's (V, V, V) f32 array."""
+    if grid.dim() != 3 or len(set(grid.shape)) != 1:
+        raise ValueError(f"an occupancy grid is (V, V, V), got {tuple(grid.shape)}")
+    return tree_to_numpy(grid)

@@ -2,7 +2,7 @@
 or decayed-epsilon LOS) + opacity regularizer.
 
 Counterpart of ``loner_tpu/mapping/loss.py`` (LiDAR loss). Invalid rays are
-weighted out, not filtered; the sampler jitter and sigma noise are inputs.
+weighted out, not filtered; the sampler's draws and the sigma noise are inputs.
 """
 from __future__ import annotations
 
@@ -64,9 +64,11 @@ def compute_lidar_loss(rays, depths_cube, valid, field_params, field_cfg, sample
                        cfg: LossConfig, world_scale, n_samples: int, perturb: float,
                        raw_noise_std: float, iteration_idx: float, global_step: float,
                        jitter: Optional[torch.Tensor] = None,
-                       noise: Optional[torch.Tensor] = None
+                       noise: Optional[torch.Tensor] = None,
+                       pdf_u: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Render the batch and assemble the total loss. Returns (loss, aux)."""
+    """Render the batch and assemble the total loss. Returns (loss, aux).
+    ``jitter`` and ``pdf_u`` are the sampler's draws, ``noise`` the sigma noise."""
     far = rays[:, 10]
     depths_gt_m = depths_cube * world_scale  # meters
     transparent = depths_cube > far
@@ -75,6 +77,7 @@ def compute_lidar_loss(rays, depths_cube, valid, field_params, field_cfg, sample
     result = render_rays(
         rays, field_params, field_cfg, sampler, n_samples=n_samples, perturb=perturb,
         raw_noise_std=raw_noise_std, occ_state=occ_state, jitter=jitter, noise=noise,
+        pdf_u=pdf_u,
     )
     z_m = result["z_vals"] * world_scale  # (B, S) meters
     w_pred = result["weights"]

@@ -23,6 +23,7 @@ from loner_tpu_torch.common.signals import SharedState, Signal, StopSignal
 from loner_tpu_torch.common.world_cube import WorldCube
 from loner_tpu_torch.convert import (  # noqa: F401  (tree_to_numpy: the public name)
     field_params_to_jax,
+    occ_grid_to_jax,
     proposal_params_to_jax,
     tree_to_numpy,
 )
@@ -38,11 +39,12 @@ def load_checkpoint(path: str) -> dict:
         return pickle.load(f)
 
 
-def build_ckpt(field_params: Dict[str, Any], occ_state: Optional[Dict[str, Any]],
-               poses: List[dict], world_cube: WorldCube, global_step: int) -> dict:
+def build_ckpt(field_params: Dict[str, Any], occ_state: Any, poses: List[dict],
+               world_cube: WorldCube, global_step: int) -> dict:
     """A full checkpoint from the port's state. ``poses`` are keyframe pose
-    states (``timestamp``, ``lidar_pose`` twist, ...); ``occ_state`` is the
-    proposal params, or None for the uniform sampler."""
+    states (``timestamp``, ``lidar_pose`` twist, ...); ``occ_state`` is the OGM
+    grid (written as the (V, V, V) f32 array), the proposal params, or None for
+    the uniform sampler."""
     ckpt = {
         "global_step": int(global_step),
         "network_state_dict": field_params_to_jax(field_params),
@@ -50,7 +52,9 @@ def build_ckpt(field_params: Dict[str, Any], occ_state: Optional[Dict[str, Any]]
         "world_cube": world_cube.as_dict(),
     }
     if occ_state is not None:
-        ckpt["occ_model_state_dict"] = proposal_params_to_jax(occ_state)
+        ckpt["occ_model_state_dict"] = (proposal_params_to_jax(occ_state)
+                                        if isinstance(occ_state, dict)
+                                        else occ_grid_to_jax(occ_state))
     return ckpt
 
 

@@ -2,12 +2,13 @@
 
 Counterpart of ``loner_tpu/mapping/optimizer.py``. ``make_phase_runner``: one
 iteration samples rays from the device-resident keyframe buffers, builds them
-through the pose twists, draws samples with the proposal (or uniform) sampler,
-evaluates the Fourier sigma field, composites, takes the JS dynamic-margin loss
-plus the proposal's linear loss, and makes one masked multi-LR Adam step over
-the sigma, proposal and twist parameters. ``Optimizer``: the host-side loop that
-runs a keyframe window through the iteration schedule and writes the
-optimised poses back.
+through the pose twists, draws samples with the occupancy-grid (OGM), proposal
+or uniform sampler, evaluates the sigma field (hash grid or Fourier), composites,
+takes the JS dynamic-margin loss (plus the proposal's linear loss), and makes
+one masked multi-LR Adam step over the sigma (MLP and hash table), proposal and
+twist parameters; every ``occ_update_every`` global steps the OGM grid then
+takes one SGD step. ``Optimizer``: the host-side loop that runs a keyframe
+window through the iteration schedule and writes the optimised poses back.
 
 Freeze flags are gradient masks, and each phase builds a fresh Adam, as in the
 JAX package. The loop is plain Python; ``steps_per_dispatch`` and
@@ -29,10 +30,15 @@ from loner_tpu_torch.mapping.rays import (
 )
 from loner_tpu_torch.models.field import FieldConfig, init_field_params
 from loner_tpu_torch.models.losses import get_logits_grad
+from loner_tpu_torch.models.occupancy_grid import init_occ_grid, occ_grid_update
 from loner_tpu_torch.models.proposal import (
     ProposalConfig, init_proposal_params, proposal_logits,
 )
-from loner_tpu_torch.models.rendering import ProposalRaySampler, UniformRaySampler
+from loner_tpu_torch.models.rendering import (
+    OccGridRaySampler, ProposalRaySampler, UniformRaySampler,
+)
+
+ENCODE_DTYPES = {"vjp_bf16": torch.bfloat16, "vjp_f32": torch.float32, "xla": torch.float32}
 
 
 @dataclass(frozen=True)
@@ -59,7 +65,7 @@ class PhaseSettings:
 @dataclass(frozen=True)
 class OptimizerConfig:
     """Hyper-parameters of the mapping optimization: the JAX package's fields
-    that the port's PROPOSAL / UNIFORM, LiDAR-only iteration reads."""
+    that the port's LiDAR-only iteration reads."""
 
     n_lidar_samples: int = 512
     n_sky_samples: int = 64
@@ -69,8 +75,11 @@ class OptimizerConfig:
     lr_sigma: float = 0.01
     lr_pose: float = 0.001
     lr_gamma: float = 1.0
-    samples_strategy: str = "OGM"
+    samples_strategy: str = "OGM"  # OGM, PROPOSAL or UNIFORM
     rays_strategy: str = "RANDOM"  # or MASK, FIXED
+    occ_voxel_size: int = 100
+    occ_lr: float = 1e-4
+    occ_update_every: int = 10
     prop_lr: float = 1e-3
     prop_n_ctrl: int = 0  # 0 = half the sample count
     prop_train_subsample: int = 4
@@ -79,6 +88,9 @@ class OptimizerConfig:
     # Keyframe slots of the full window class (the KF#1 bootstrap runs at 1).
     window_size: int = 8
     enable_sky: bool = False
+    # The hash training encode: vjp_bf16 takes the kernel pair in bf16; vjp_f32
+    # and xla (JAX's autodiff oracle of the same function) take it in f32.
+    encode_impl: str = "vjp_bf16"
     # Accepted for the JAX package's configs; the port's loop is plain Python.
     steps_per_dispatch: int = 10
     loss: LossConfig = LossConfig()
@@ -104,11 +116,15 @@ class OptimizerConfig:
             lr_gamma=float(train["lrate_gamma"]),
             samples_strategy=str(opt_settings["samples_selection"]["strategy"]),
             rays_strategy=rays_strategy,
+            occ_voxel_size=int(occ.get("voxel_size", 100)),
+            occ_lr=float(occ.get("lr", 1e-4)),
+            occ_update_every=int(occ.get("N_iters_acc", 10)),
             prop_lr=float(occ.get("prop_lr", 1e-3)),
             prop_n_ctrl=int(occ.get("prop_n_ctrl", 0)),
             prop_train_subsample=int(occ.get("prop_train_subsample", 4)),
             proposal=ProposalConfig.from_settings(occ.get("proposal", {})),
             ray_range=tuple(float(x) for x in model_cfg["model"]["ray_range"]),
+            encode_impl=str(train.get("encode_impl", "vjp_bf16")),
             steps_per_dispatch=int(train.get("steps_per_dispatch", 10)),
             loss=LossConfig.from_settings(model_cfg["loss"]),
         )
@@ -119,46 +135,67 @@ class StepDraws:
     """The random numbers of one iteration, in place of a generator.
 
     ray_u:  (W, n_lidar) uniforms that pick the ray indices
-    jitter: (B, S) uniforms, the sampler's stratified jitter (perturb > 0)
+    jitter: (B, S) uniforms, the sampler's stratified jitter (perturb > 0); (B, S/2)
+            for the OGM sampler, whose stratified half it jitters
     noise:  (B, S) standard normals, the sigma noise (raw_noise_std > 0)
+    pdf_u:  (B, S/2) uniforms of the OGM sampler's importance half
     """
 
     ray_u: torch.Tensor
     jitter: Optional[torch.Tensor] = None
     noise: Optional[torch.Tensor] = None
+    pdf_u: Optional[torch.Tensor] = None
 
 
 def draw_step(generator: torch.Generator, cfg: "OptimizerConfig", window_size: int,
               device: torch.device) -> StepDraws:
     """One iteration's draws from ``generator`` on ``device``."""
-    shape = (window_size * cfg.n_lidar_samples, cfg.n_samples_per_ray)
+    b, s = window_size * cfg.n_lidar_samples, cfg.n_samples_per_ray
+    ogm = cfg.samples_strategy == "OGM"
+    shape = (b, s // 2 if ogm else s)
     return StepDraws(
         ray_u=torch.rand((window_size, cfg.n_lidar_samples), generator=generator, device=device),
         jitter=torch.rand(shape, generator=generator, device=device) if cfg.perturb > 0 else None,
-        noise=torch.randn(shape, generator=generator, device=device)
+        noise=torch.randn((b, s), generator=generator, device=device)
         if cfg.raw_noise_std > 0 else None,
+        pdf_u=torch.rand((b, s // 2), generator=generator, device=device) if ogm else None,
     )
 
 
+def training_field_cfg(cfg: "OptimizerConfig", field_cfg: FieldConfig) -> FieldConfig:
+    """The field config a training iteration runs: the hash encode in the
+    compute dtype that ``cfg.encode_impl`` names."""
+    if cfg.encode_impl not in ENCODE_DTYPES:
+        raise RuntimeError(f"Unrecognized encode_impl '{cfg.encode_impl}' "
+                           "(expected xla, vjp_bf16, or vjp_f32)")
+    return replace(field_cfg, hash_encode_dtype=ENCODE_DTYPES[cfg.encode_impl])
+
+
 def iteration_loss(cfg: "OptimizerConfig", field_cfg: FieldConfig, sigma: Dict[str, Any],
-                   proposal: Optional[Dict[str, Any]], twists: torch.Tensor,
-                   intensity: Dict[str, Any], buffers: WindowBuffers, world_scale,
-                   world_shift: torch.Tensor, draws: StepDraws, it_idx: float = 0.0,
+                   occ_state, twists: torch.Tensor, intensity: Dict[str, Any],
+                   buffers: WindowBuffers, world_scale, world_shift: torch.Tensor,
+                   draws: StepDraws, it_idx: float = 0.0,
                    global_step: float = 0.0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One iteration's forward: rays, samples, field, compositing, the mapping
-    loss and (PROPOSAL) the proposal's linear loss. Returns (total, aux);
-    ``aux["loss"]`` is the mapping loss alone."""
+    loss and (PROPOSAL) the proposal's linear loss. ``occ_state`` is the OGM
+    grid or the proposal params. Returns (total, aux); ``aux["loss"]`` is the
+    mapping loss alone."""
     use_prop = cfg.samples_strategy == "PROPOSAL"
-    sampler = ProposalRaySampler(n_ctrl=cfg.prop_n_ctrl or None) if use_prop else UniformRaySampler()
+    if cfg.samples_strategy == "OGM":
+        sampler = OccGridRaySampler()
+    elif use_prop:
+        sampler = ProposalRaySampler(n_ctrl=cfg.prop_n_ctrl or None)
+    else:
+        sampler = UniformRaySampler()
     rays, depths_cube, valid = sample_and_build_rays(
         buffers, twists, world_scale, world_shift, cfg.ray_range, cfg.n_lidar_samples, 0,
         u=draws.ray_u, fixed_indices=cfg.rays_strategy == "FIXED",
     )
     loss, aux = compute_lidar_loss(
         rays, depths_cube, valid, {"sigma": sigma, "intensity": intensity}, field_cfg, sampler,
-        proposal if use_prop else None, cfg.loss, world_scale, cfg.n_samples_per_ray,
-        cfg.perturb, cfg.raw_noise_std, it_idx, global_step, jitter=draws.jitter,
-        noise=draws.noise,
+        occ_state, cfg.loss, world_scale, cfg.n_samples_per_ray, cfg.perturb,
+        cfg.raw_noise_std, it_idx, global_step, jitter=draws.jitter, noise=draws.noise,
+        pdf_u=draws.pdf_u,
     )
     if use_prop:
         # Proposal training: the linear loss mean(stop_grad(logits_grad) *
@@ -168,7 +205,7 @@ def iteration_loss(cfg: "OptimizerConfig", field_cfg: FieldConfig, sigma: Dict[s
         z_sub = aux["z_m"][:, ::sub].detach()
         logits_grad = get_logits_grad(z_sub, aux["depths_gt_m"][:, None].detach())
         logits_grad = logits_grad * aux["valid"][:, None]
-        logits = proposal_logits(proposal, aux["points"][:, ::sub].detach())
+        logits = proposal_logits(occ_state, aux["points"][:, ::sub].detach())
         denom = torch.clamp(aux["valid"].sum().to(logits.dtype) * z_sub.shape[1], min=1.0)
         loss = loss + (logits_grad * logits).sum() / denom
     return loss, aux
@@ -179,17 +216,16 @@ def make_phase_runner(cfg: OptimizerConfig, field_cfg: FieldConfig, phase: Phase
                       device: torch.device, extras_mode: str = "none"):
     """Build the runner of one optimization phase.
 
-    ``run_phase(field_params, proposal_params, twists, buffers, pose_mask,
-    world_scale, world_shift, global_step0, generator, num_iterations=None,
-    draws=None)`` returns ``(field_params, proposal_params, twists, losses,
-    depth_eps)``, the last two with one entry per iteration. ``draws`` is a
-    sequence of ``StepDraws``, one per iteration; without it the draws come
-    from ``generator`` on ``device``. ``point_pad`` and ``sky_pad`` are the
-    buffers' padded sizes, kept for the JAX package's signature.
+    ``run_phase(field_params, occ_state, twists, buffers, pose_mask, world_scale,
+    world_shift, global_step0, generator, num_iterations=None, draws=None)``
+    returns ``(field_params, occ_state, twists, losses, depth_eps)``, the last two
+    with one entry per iteration. ``occ_state`` is the OGM grid, the proposal
+    params or None (UNIFORM). ``draws`` is a sequence of ``StepDraws``, one per
+    iteration; without it the draws come from ``generator`` on ``device``.
+    ``point_pad`` and ``sky_pad`` are the buffers' padded sizes, kept for the JAX
+    package's signature.
     """
-    if cfg.samples_strategy == "OGM":
-        raise NotImplementedError("the OGM occupancy-grid sampler is not ported yet")
-    if cfg.samples_strategy not in ("PROPOSAL", "UNIFORM"):
+    if cfg.samples_strategy not in ("OGM", "PROPOSAL", "UNIFORM"):
         raise ValueError(f"unknown samples_strategy {cfg.samples_strategy!r}")
     if not phase.freeze_rgb_mlp:
         raise NotImplementedError("camera / intensity phases are not ported yet")
@@ -201,10 +237,12 @@ def make_phase_runner(cfg: OptimizerConfig, field_cfg: FieldConfig, phase: Phase
         raise RuntimeError(f"Can't find rays_selection strategy: {cfg.rays_strategy}")
 
     use_prop = cfg.samples_strategy == "PROPOSAL"
+    use_occ = cfg.samples_strategy == "OGM"
     optimize_poses = not phase.freeze_poses
     optimize_sigma = not phase.freeze_sigma_mlp
+    field_cfg = training_field_cfg(cfg, field_cfg)
 
-    def run_phase(field_params: Dict[str, Any], proposal_params: Optional[Dict[str, Any]],
+    def run_phase(field_params: Dict[str, Any], occ_state,
                   twists: torch.Tensor, buffers: WindowBuffers, pose_mask: torch.Tensor,
                   world_scale, world_shift: torch.Tensor, global_step0: int,
                   generator: Optional[torch.Generator], num_iterations: Optional[int] = None,
@@ -218,18 +256,21 @@ def make_phase_runner(cfg: OptimizerConfig, field_cfg: FieldConfig, phase: Phase
         def leaf(t: torch.Tensor) -> torch.Tensor:
             return t.detach().clone().requires_grad_(True)
 
+        # The sigma group: the MLP and, for the hash field, its table.
         sigma = {"mlp": {k: leaf(v) for k, v in field_params["sigma"]["mlp"].items()}}
+        if "table" in field_params["sigma"]:
+            sigma["table"] = leaf(field_params["sigma"]["table"])
+        sigma_params = list(sigma["mlp"].values()) + ([sigma["table"]] if "table" in sigma else [])
         tw = leaf(twists)
         groups = [
-            {"params": list(sigma["mlp"].values()), "lr": cfg.lr_sigma},
+            {"params": sigma_params, "lr": cfg.lr_sigma},
             {"params": [tw], "lr": cfg.lr_pose},
         ]
-        proposal = None
+        occ = occ_state
         if use_prop:
             # ``bmat`` is a fixed projection, never trained: it stays out of Adam.
-            proposal = {k: v.detach() if k == "bmat" else leaf(v)
-                        for k, v in proposal_params.items()}
-            groups.append({"params": [v for k, v in proposal.items() if k != "bmat"],
+            occ = {k: v.detach() if k == "bmat" else leaf(v) for k, v in occ_state.items()}
+            groups.append({"params": [v for k, v in occ.items() if k != "bmat"],
                            "lr": cfg.prop_lr})
         adam = torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
         schedule = None
@@ -246,9 +287,9 @@ def make_phase_runner(cfg: OptimizerConfig, field_cfg: FieldConfig, phase: Phase
             d = draws[i] if draws is not None else draw_step(generator, cfg, window_size, device)
             for p in params:
                 p.grad = None
-            total, aux = iteration_loss(cfg, field_cfg, sigma, proposal, tw,
-                                        field_params["intensity"], buffers, world_scale,
-                                        world_shift, d, float(i), float(step0 + i))
+            total, aux = iteration_loss(cfg, field_cfg, sigma, occ, tw, field_params["intensity"],
+                                        buffers, world_scale, world_shift, d, float(i),
+                                        float(step0 + i))
             total.backward()
             # Freezing is a gradient mask: every parameter gets a gradient (zero
             # where frozen), so Adam's moments move as the JAX package's do.
@@ -259,33 +300,42 @@ def make_phase_runner(cfg: OptimizerConfig, field_cfg: FieldConfig, phase: Phase
             if not optimize_poses:
                 tw.grad.zero_()
             if not optimize_sigma:
-                for p in sigma["mlp"].values():
+                for p in sigma_params:
                     p.grad.zero_()
             adam.step()
             if schedule is not None:
                 schedule.step()
+            if use_occ and (step0 + i) % cfg.occ_update_every == 0:
+                # After the Adam step, at the forward's sample points, as the JAX
+                # package updates its grid.
+                logits_grad = get_logits_grad(aux["z_m"].detach(),
+                                              aux["depths_gt_m"][:, None].detach())
+                occ = occ_grid_update(occ, aux["points"], logits_grad * aux["valid"][:, None],
+                                      cfg.occ_lr)
             # The mapping loss is reported, not the total with the proposal term.
             losses.append(aux["loss"].detach())
             eps_log.append(aux["depth_eps"].detach())
 
-        new_field = {
-            "sigma": {"mlp": {k: v.detach() for k, v in sigma["mlp"].items()}},
-            "intensity": field_params["intensity"],
-        }
-        new_prop = {k: v.detach() for k, v in proposal.items()} if use_prop else proposal_params
+        new_sigma = {"mlp": {k: v.detach() for k, v in sigma["mlp"].items()}}
+        if "table" in sigma:
+            new_sigma["table"] = sigma["table"].detach()
+        new_field = {"sigma": new_sigma, "intensity": field_params["intensity"]}
+        if use_prop:
+            occ = {k: v.detach() for k, v in occ.items()}
         stack = lambda xs: torch.stack(xs) if xs else torch.zeros((0,), device=device)  # noqa: E731
-        return new_field, new_prop, tw.detach(), stack(losses), stack(eps_log)
+        return new_field, occ, tw.detach(), stack(losses), stack(eps_log)
 
     return run_phase
 
 
 @dataclass
 class MapState:
-    """The optimiser's device state: field params, proposal params (None for
-    the uniform sampler) and the iteration count over the whole run."""
+    """The optimiser's device state: field params, the sampler's state (the OGM
+    logit grid, the proposal params, or None for the uniform sampler) and the
+    iteration count over the whole run."""
 
     field_params: Dict[str, Any]
-    occ_grid: Optional[Dict[str, Any]]
+    occ_grid: Any
     global_step: int = 0
 
 
@@ -346,17 +396,21 @@ class Optimizer:
 
     def _init_state(self, generator: torch.Generator):
         field_params = init_field_params(generator, self._field_cfg, self._device)
-        occ = (init_proposal_params(generator, self._cfg.proposal, self._device)
-               if self._cfg.samples_strategy == "PROPOSAL" else None)
+        occ = None
+        if self._cfg.samples_strategy == "PROPOSAL":
+            occ = init_proposal_params(generator, self._cfg.proposal, self._device)
+        elif self._cfg.samples_strategy == "OGM":
+            occ = init_occ_grid(self._cfg.occ_voxel_size, self._device)
         return field_params, occ
 
     def restore(self, field_params, occ_state, global_step: int, keyframe_count: int) -> None:
         """Seat the map state from numpy trees in the JAX package's layout (a
-        checkpoint's ``network_state_dict`` and ``occ_model_state_dict``). Adam
-        state is not restored: each schedule phase builds a fresh Adam."""
+        checkpoint's ``network_state_dict`` and ``occ_model_state_dict``: the OGM
+        grid array or the proposal params). Adam state is not restored: each
+        schedule phase builds a fresh Adam."""
         self.state.field_params = convert.field_params_from_jax(field_params, self._device)
         if occ_state is not None:
-            self.state.occ_grid = convert.proposal_params_from_jax(occ_state, self._device)
+            self.state.occ_grid = convert.occ_state_from_jax(occ_state, self._device)
         self.state.global_step = int(global_step)
         self._keyframe_count = int(keyframe_count)
 
@@ -405,9 +459,9 @@ class Optimizer:
         first keyframe. Returns the seconds spent."""
         t0 = time.time()
         if self._device.type == "cuda" and self._field_cfg.sigma_kernel == "fused":
-            from loner_tpu_torch.ops import fourier_mlp
+            from loner_tpu_torch.ops import fourier_mlp, hash_grid
 
-            fourier_mlp._lib()
+            (hash_grid if self._field_cfg.encoding_sigma == "hash" else fourier_mlp)._lib()
         rng = np.random.default_rng(0)
         d = rng.normal(size=(3, max(int(n_points), 1))).astype(np.float32)
         d /= np.linalg.norm(d, axis=0, keepdims=True) + 1e-9

@@ -1,12 +1,17 @@
-"""The neural scene field, Fourier sigma branch.
+"""The neural scene field: the sigma head, hash-grid or Fourier.
 
 Counterpart of ``loner_tpu/models/field.py``. The field is a function of a
 parameter dict; freezing a head is a gradient mask in the optimizer. Inputs
 arrive in [-1, 1]^3 (world cube) and are mapped to [0, 1].
 
-The sigma head is the fused Fourier-feature + MLP function of
-``ops/fourier_mlp.py`` (the JAX package's ``sigma_kernel: pallas`` path): the
-hand-written CUDA kernels on CUDA tensors, their plain version on the CPU.
+Two sigma heads:
+- ``hash`` (the reference's, cfg/nerf_config/default_nerf_hash.yaml): the
+  multiresolution hash encoding of ``models/hash_encoding.py`` (the hand-written
+  CUDA kernel pair on CUDA tensors, its plain version on the CPU) feeding a
+  bias-free ReLU MLP of plain ``torch`` matmuls, as the JAX package computes it
+  outside any kernel;
+- ``fourier``: the fused Fourier-feature + MLP function of
+  ``ops/fourier_mlp.py`` (the JAX package's ``sigma_kernel: pallas`` path).
 The intensity parameters are initialised and carried, not used: the camera
 branch is not ported yet.
 """
@@ -21,41 +26,10 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from loner_tpu_torch.models.hash_encoding import HashEncodingConfig, hash_encode, init_hash_table
 from loner_tpu_torch.ops.fourier_mlp import fourier_sigma_fused
 
 BMAT_FIXTURE = Path(__file__).resolve().parent / "fourier_bmats.npz"
-
-
-@dataclass(frozen=True)
-class HashEncodingConfig:
-    """Hash-grid encoding settings (config only: the hash field is not ported)."""
-
-    n_levels: int = 16
-    n_features_per_level: int = 2
-    log2_hashmap_size: int = 18
-    base_resolution: int = 16
-    per_level_scale: float = 2.0
-
-    @staticmethod
-    def from_settings(cfg: dict) -> "HashEncodingConfig":
-        return HashEncodingConfig(
-            n_levels=int(cfg.get("n_levels", 16)),
-            n_features_per_level=int(cfg.get("n_features_per_level", 2)),
-            log2_hashmap_size=int(cfg.get("log2_hashmap_size", 18)),
-            base_resolution=int(cfg.get("base_resolution", 16)),
-            per_level_scale=float(cfg.get("per_level_scale", 2.0)),
-        )
-
-    @property
-    def output_dim(self) -> int:
-        return self.n_levels * self.n_features_per_level
-
-    @property
-    def total_table_size(self) -> int:
-        res = np.floor(
-            self.base_resolution * self.per_level_scale ** np.arange(self.n_levels)
-        ).astype(np.int64)
-        return int(np.minimum((res + 1) ** 3, 2 ** self.log2_hashmap_size).sum())
 
 
 @dataclass(frozen=True)
@@ -117,7 +91,8 @@ class FieldConfig:
     num_colors: int = 3
     enable_view_dependence: bool = True
     sh_degree: int = 4
-    encoding_sigma: str = "hash"  # the port has "fourier" only
+    encoding_sigma: str = "hash"  # "hash" (the reference's) or "fourier"
+    pos_encoding_sigma: HashEncodingConfig = dc_field(default_factory=HashEncodingConfig)
     fourier_sigma: FourierConfig = dc_field(default_factory=FourierConfig)
     encoding_intensity: str = "hash"
     pos_encoding_intensity: HashEncodingConfig = dc_field(
@@ -137,10 +112,15 @@ class FieldConfig:
     # "plain": the plain version on every device (the reference the kernels are
     # checked against on the card).
     sigma_kernel: str = "fused"
+    # The hash encode's compute dtype. Renders encode in f32; the optimizer sets
+    # the training encode's (OptimizerConfig.encode_impl: vjp_bf16 -> bfloat16).
+    hash_encode_dtype: torch.dtype = torch.float32
 
     @property
     def sigma_input_dim(self) -> int:
-        return self.fourier_sigma.output_dim
+        if self.encoding_sigma == "fourier":
+            return self.fourier_sigma.output_dim
+        return self.pos_encoding_sigma.output_dim
 
     @property
     def intensity_pos_dim(self) -> int:
@@ -152,8 +132,8 @@ class FieldConfig:
     def from_settings(nerf_cfg: dict, num_colors: int = 3,
                       compute_dtype: torch.dtype = torch.float32) -> "FieldConfig":
         """Build from the nerf config dict (cfg/nerf_config/*.yaml). The JAX
-        package's ``sigma_kernel`` choice does not apply: the port has one
-        sigma path."""
+        package's ``sigma_kernel`` choice does not apply: the port has one path
+        for each sigma head."""
         encoding = str(nerf_cfg.get("encoding_sigma", "hash"))
         if encoding not in ("hash", "fourier"):
             raise ValueError(f"unknown encoding_sigma {encoding!r}")
@@ -168,6 +148,8 @@ class FieldConfig:
             enable_view_dependence=bool(nerf_cfg.get("enable_view_dependence", True)),
             sh_degree=int(nerf_cfg.get("dir_encoding_intensity", {}).get("degree", 4)),
             encoding_sigma=encoding,
+            pos_encoding_sigma=HashEncodingConfig.from_settings(
+                nerf_cfg.get("pos_encoding_sigma", {})),
             fourier_sigma=FourierConfig.from_settings(nerf_cfg.get("fourier_sigma", {})),
             encoding_intensity=encoding_intensity,
             pos_encoding_intensity=HashEncodingConfig.from_settings(
@@ -210,9 +192,7 @@ def _init_mlp(generator: torch.Generator, in_dim: int, cfg: MLPConfig, bias: boo
 
 def init_field_params(generator: torch.Generator, cfg: FieldConfig,
                       device: torch.device) -> Dict[str, Any]:
-    """{"sigma": {"mlp": ...}, "intensity": {"mlp": ..., ["table": ...]}}."""
-    if cfg.encoding_sigma != "fourier":
-        raise NotImplementedError("the port has the Fourier sigma field only")
+    """{"sigma": {"mlp": ..., ["table": ...]}, "intensity": {"mlp": ..., ["table": ...]}}."""
     intensity_in = cfg.intensity_pos_dim + (
         cfg.sh_degree ** 2 if cfg.enable_view_dependence else 0
     )
@@ -220,26 +200,44 @@ def init_field_params(generator: torch.Generator, cfg: FieldConfig,
         "mlp": _init_mlp(generator, intensity_in, cfg.intensity_mlp, False, device)
     }
     if cfg.encoding_intensity != "fourier":
-        size = (cfg.pos_encoding_intensity.total_table_size,
-                cfg.pos_encoding_intensity.n_features_per_level)
-        u = torch.rand(size, generator=generator, device=device)
-        intensity["table"] = u * 2e-4 - 1e-4
-    return {
-        "sigma": {"mlp": _init_mlp(generator, cfg.sigma_input_dim, cfg.sigma_mlp,
-                                   cfg.sigma_mlp_bias, device)},
-        "intensity": intensity,
+        intensity["table"] = init_hash_table(generator, cfg.pos_encoding_intensity, device)
+    sigma: Dict[str, Any] = {
+        "mlp": _init_mlp(generator, cfg.sigma_input_dim, cfg.sigma_mlp, cfg.sigma_mlp_bias, device)
     }
+    if cfg.encoding_sigma != "fourier":
+        sigma["table"] = init_hash_table(generator, cfg.pos_encoding_sigma, device)
+    return {"sigma": sigma, "intensity": intensity}
+
+
+def mlp_apply(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """ReLU MLP in f32, biases where the params have them (the JAX package's
+    ``_apply_mlp`` at ``compute_dtype`` float32)."""
+    n = sum(1 for k in params if k.startswith("w"))
+    h = x
+    for i in range(n):
+        h = h @ params[f"w{i}"]
+        if f"b{i}" in params:
+            h = h + params[f"b{i}"]
+        if i < n - 1:
+            h = torch.relu(h)
+    return h
 
 
 def query_sigma(params: Dict[str, Any], pos: torch.Tensor, cfg: FieldConfig) -> torch.Tensor:
     """Density head. pos: (N, 3) in [-1, 1]. Returns (N, 1) raw sigma (f32)."""
-    if cfg.encoding_sigma != "fourier" or not cfg.fourier_sigma.include_input:
-        raise NotImplementedError(
-            "the port's sigma head is the fused Fourier MLP with include_input"
-        )
     if cfg.sigma_kernel not in ("fused", "plain"):
         raise ValueError(f"sigma_kernel must be 'fused' or 'plain', got {cfg.sigma_kernel!r}")
     pos01 = (pos + 1.0) * 0.5
+    if cfg.encoding_sigma != "fourier":
+        if cfg.compute_dtype != torch.float32:
+            raise NotImplementedError("the hash field's MLP runs in float32: no config in cfg/ "
+                                      "sets another compute_dtype for it")
+        feats = hash_encode(params["sigma"]["table"], pos01, cfg.pos_encoding_sigma,
+                            cfg.hash_encode_dtype, plain=cfg.sigma_kernel == "plain")
+        return mlp_apply(params["sigma"]["mlp"], feats)
+    if not cfg.fourier_sigma.include_input:
+        raise NotImplementedError("the port's Fourier sigma head is the fused MLP with "
+                                  "include_input")
     return fourier_sigma_fused(
         params["sigma"]["mlp"],
         pos01,

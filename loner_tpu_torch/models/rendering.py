@@ -1,8 +1,10 @@
-"""Volume rendering: stratified and proposal-guided sampling, alpha compositing.
+"""Volume rendering: stratified, occupancy-grid and proposal-guided sampling,
+alpha compositing.
 
 Counterpart of ``loner_tpu/models/rendering.py`` on the sigma-only path.
-Random numbers are inputs: the stratified jitter and the sigma noise arrive as
-tensors, so a test can hand the port the draws the JAX package made.
+Random numbers are inputs: the stratified jitter, the importance sampler's
+uniforms and the sigma noise arrive as tensors, so a test can hand the port the
+draws the JAX package made.
 
 Ray format: each ray is 11 floats ``[origin(3), dir(3), viewdir(3), near, far]``.
 """
@@ -107,9 +109,33 @@ def raw2outputs(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
 class UniformRaySampler:
     """Stratified-uniform z sampling."""
 
-    def get_samples(self, rays, n_samples, perturb, occ_state=None, jitter=None):
+    def get_samples(self, rays, n_samples, perturb, occ_state=None, jitter=None, pdf_u=None):
         near, far = rays[:, 9:10], rays[:, 10:11]
         return stratified_z_vals(near, far, n_samples, perturb, jitter)
+
+
+class OccGridRaySampler:
+    """Half stratified, half occupancy-importance samples, merged and sorted (the
+    reference's OccGridRaySampler). ``jitter`` (B, S/2) jitters the stratified
+    half; ``pdf_u`` (B, S/2) are the inverse-CDF uniforms, the deterministic
+    linspace without them. The importance half carries no gradient."""
+
+    def get_samples(self, rays, n_samples, perturb, occ_state=None, jitter=None, pdf_u=None):
+        from loner_tpu_torch.models.occupancy_grid import interpolate_occ_logits
+
+        if occ_state is None:
+            return UniformRaySampler().get_samples(rays, n_samples, perturb, None, jitter)
+        rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
+        near, far = rays[:, 9:10], rays[:, 10:11]
+        n_half = n_samples // 2
+        z_vals = stratified_z_vals(near, far, n_half, perturb, jitter)
+        with torch.no_grad():
+            pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+            probs = torch.sigmoid(interpolate_occ_logits(occ_state, pts))
+            probs = 2.0 * (torch.clamp(probs, 0.5, 1.0) - 0.5)
+            z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
+            z_imp = sample_pdf(z_mid, probs[:, 1:-1], n_half, u=pdf_u)
+        return torch.sort(torch.cat([z_vals, z_imp], dim=-1), dim=-1).values
 
 
 class ProposalRaySampler:
@@ -121,7 +147,7 @@ class ProposalRaySampler:
     def __init__(self, n_ctrl: Optional[int] = None) -> None:
         self._n_ctrl = n_ctrl
 
-    def get_samples(self, rays, n_samples, perturb, occ_state=None, jitter=None):
+    def get_samples(self, rays, n_samples, perturb, occ_state=None, jitter=None, pdf_u=None):
         from loner_tpu_torch.models.proposal import proposal_logits
 
         if occ_state is None:
@@ -154,22 +180,30 @@ class ProposalRaySampler:
 
 def make_sampler(occ_state, n_ctrl: Optional[int] = None):
     """The sampler for an occupancy-slot state: None -> uniform, a dict of
-    proposal-MLP params -> proposal sampler with the trained ``n_ctrl``.
-    An occupancy-grid array (OGM) is not ported."""
+    proposal-MLP params -> proposal sampler with the trained ``n_ctrl``, a
+    (V, V, V) logit grid -> occupancy-grid sampler."""
     if occ_state is None:
         return UniformRaySampler()
     if isinstance(occ_state, dict):
         return ProposalRaySampler(n_ctrl=n_ctrl)
-    raise NotImplementedError("the occupancy-grid (OGM) sampler is not ported")
+    return OccGridRaySampler()
+
+
+POINT_BLOCK = 2 ** 22  # field points per sigma call: a render chunk is evaluated in blocks
 
 
 def render_rays(rays: torch.Tensor, field_params, field_cfg, sampler, n_samples: int,
                 perturb: float = 0.0, raw_noise_std: float = 0.0, occ_state=None,
                 ret_var: bool = False, jitter: Optional[torch.Tensor] = None,
-                noise: Optional[torch.Tensor] = None,
+                noise: Optional[torch.Tensor] = None, pdf_u: Optional[torch.Tensor] = None,
                 compositor: str = "xla") -> Dict[str, torch.Tensor]:
     """Render a batch of (N, 11) rays through the sigma field. Returns
     depth / weights / opacity [/ variance] / z_vals / points.
+
+    The field is evaluated in blocks of ``POINT_BLOCK`` points (the JAX package's
+    ``point_chunk``): the values do not change, and one test-render chunk of
+    16384 rays x 2048 samples (33.5 M points) stays inside the hash kernels' 32-bit
+    index space and a few GB of device memory.
 
     ``compositor="pallas"`` (the JAX package's config word) takes the fused
     compositor of ``ops/composite.py`` when it applies, by the JAX rule:
@@ -183,10 +217,13 @@ def render_rays(rays: torch.Tensor, field_params, field_cfg, sampler, n_samples:
         raise ValueError(f"compositor must be 'xla', 'pallas' or 'plain', got {compositor!r}")
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
     far = rays[:, 10:11]
-    z_vals = sampler.get_samples(rays, n_samples, perturb, occ_state, jitter)
+    z_vals = sampler.get_samples(rays, n_samples, perturb, occ_state, jitter, pdf_u)
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]  # (N, S, 3)
     n_rays, s = pts.shape[:2]
-    raw = query_field(field_params, pts.reshape(-1, 3), None, field_cfg, sigma_only=True)
+    flat = pts.reshape(-1, 3)
+    raw = torch.cat([query_field(field_params, flat[i : i + POINT_BLOCK], None, field_cfg,
+                                 sigma_only=True)
+                     for i in range(0, max(flat.shape[0], 1), POINT_BLOCK)])
     softplus = field_cfg.density_activation == "softplus"
     if compositor != "xla" and ret_var and (raw_noise_std == 0 or noise is None):
         from loner_tpu_torch.ops.composite import composite_rays

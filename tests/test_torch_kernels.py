@@ -12,14 +12,20 @@ O(1)-O(10) sigma; gradients relative L2 1e-2, since a rare flipped ReLU mask
 moves single points' gradients. Compositing (f32; the kernel's block scan
 multiplies in another order than cumprod): the tolerances of
 tests/test_pallas_ops.py, depth and opacity rtol/atol 2e-4, weights rtol 5e-3
-atol 2e-4, variance rtol 1e-3 atol 2e-4.
+atol 2e-4, variance rtol 1e-3 atol 2e-4. Hash-grid encode (the same rounded f32
+operations in the same order as the plain version): features and dpos equal;
+the table gradient, summed by float atomics in an order that changes per run
+over up to ~10^4 terms an entry (cancelling sums, so no elementwise bound
+fits), relative L2 1e-5, as chip_smoke.py holds it.
 """
 import numpy as np
 import pytest
 import torch
 
+from loner_tpu_torch.models.hash_encoding import HashEncodingConfig
 from loner_tpu_torch.ops import composite as tc
 from loner_tpu_torch.ops import fourier_mlp as tfm
+from loner_tpu_torch.ops import hash_grid as thg
 
 torch.set_num_threads(1)
 
@@ -372,3 +378,72 @@ def test_composite_plan_fields_and_guard():
             tc.check_operands(z, z, far, far)
     z = torch.empty((2, 2 ** 31 - 8 * tc.MAX_THREADS), device=meta)
     assert tc.check_operands(z, z, far, far) == (2, 2 ** 31 - 8 * tc.MAX_THREADS)
+
+
+HASH_CASES = [  # (grid, points): box_room_tiny's and the reference's
+    (dict(n_levels=6, log2_hashmap_size=14, per_level_scale=1.5), 1),
+    (dict(n_levels=6, log2_hashmap_size=14, per_level_scale=1.5), 70000),
+    (dict(), 1000),
+    (dict(), 262144),
+]
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.linalg.norm((a - b).double()) / torch.linalg.norm(b.double()))
+
+
+def _hash_operands(grid: dict, n: int, device, seed: int = 0):
+    cfg = HashEncodingConfig(**grid)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    table = torch.rand((cfg.total_table_size, 2), generator=gen, device=device) * 2 - 1
+    pos = torch.rand((n, 3), generator=gen, device=device) * 1.1 - 0.05
+    pos[: n // 8] = torch.round(pos[: n // 8])  # exact 0s and 1s, and some past them
+    dout = torch.randn((n, cfg.output_dim), generator=gen, device=device)
+    return cfg, table, pos, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grid,n", HASH_CASES)
+def test_hash_kernels_match_plain(cuda_device, grid, n, dtype):
+    cfg, table, pos, dout = _hash_operands(grid, n, cuda_device)
+    before = (thg.counts.fwd_launches, thg.counts.bwd_launches)
+    out = thg.hash_encode_fwd_cuda(table, pos, cfg, dtype)
+    dtable, dpos = thg.hash_encode_bwd_cuda(table, pos, dout, cfg, dtype)
+    assert (thg.counts.fwd_launches, thg.counts.bwd_launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(out, thg.hash_encode_fwd_plain(table, pos, cfg, dtype),
+                               rtol=0, atol=0)
+    dtable_p, dpos_p = thg.hash_encode_bwd_plain(table, pos, dout, cfg, dtype)
+    torch.testing.assert_close(dpos, dpos_p, rtol=0, atol=0)
+    assert _rel_l2(dtable, dtable_p) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_hash_autograd_takes_the_kernels_and_zero_points(cuda_device):
+    cfg, table, pos, dout = _hash_operands({}, 5000, cuda_device, seed=3)
+    table.requires_grad_(True)
+    pos.requires_grad_(True)
+    before = (thg.counts.fwd_launches, thg.counts.bwd_launches)
+    (thg.hash_encode(table, pos, cfg, torch.bfloat16) * dout).sum().backward()
+    assert (thg.counts.fwd_launches, thg.counts.bwd_launches) == (before[0] + 1, before[1] + 1)
+    dtable_p, dpos_p = thg.hash_encode_bwd_plain(table.detach(), pos.detach(), dout, cfg,
+                                                 torch.bfloat16)
+    assert _rel_l2(table.grad, dtable_p) <= 1e-5
+    torch.testing.assert_close(pos.grad, dpos_p, rtol=0, atol=0)
+    empty = torch.zeros((0, 3), device=cuda_device)
+    assert thg.hash_encode_fwd_cuda(table.detach(), empty, cfg, torch.float32).shape == (0, 32)
+
+
+@pytest.mark.cuda
+def test_hash_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    cfg, table, pos, dout = _hash_operands({}, 64, cuda_device)
+    with pytest.raises(ValueError):
+        thg.hash_encode_fwd_cuda(table, pos, cfg, torch.float16)
+    with pytest.raises(ValueError):
+        thg.hash_encode_fwd_cuda(table[:-1], pos, cfg, torch.float32)
+    with pytest.raises(ValueError):
+        thg.hash_encode_fwd_cuda(table, pos.double(), cfg, torch.float32)
+    with pytest.raises(ValueError):
+        thg.hash_encode_bwd_cuda(table, pos, dout[:, :8], cfg, torch.float32)
+    with pytest.raises(ValueError):
+        thg.hash_encode_fwd_cuda(table, pos.t().contiguous().t(), cfg, torch.float32)

@@ -14,6 +14,12 @@
   within rtol 2e-5, written-back twists within 1e-5 (twelve Adam steps of f32
   gradients summed in another order), equal ``global_step`` and checkpoint
   schema.
+- The same at the reference's configuration, OGM sampler + hash sigma field
+  (box_room_tiny's grid widths, f32 training encode), with perturb and sigma
+  noise on: the port's generator is replaced by the draws JAX made from its
+  per-phase keys, and the grid takes its SGD step at global steps 0 and 10.
+  Twists within 1e-5, the grid within 5e-5 and the checkpoint schema (the grid a
+  (V, V, V) f32 array) equal.
 """
 import jax
 import jax.numpy as jnp
@@ -43,6 +49,7 @@ from loner_tpu_torch.mapping import rays as trays
 from loner_tpu_torch.mapping.keyframe import KeyFrame as TKeyFrame
 from loner_tpu_torch.mapping.keyframe_manager import KeyFrameManager as TKFM
 from loner_tpu_torch.models import field as tfield
+from loner_tpu_torch.models.hash_encoding import HashEncodingConfig as THash
 from loner_tpu_torch.models.proposal import ProposalConfig as TProp
 
 torch.set_num_threads(1)
@@ -219,6 +226,82 @@ def test_iterate_optimizer_matches_jax():
         assert schema(ckpt_t[key]) == schema(ckpt_j[key]), key
     assert set(ckpt_t) == {"global_step", "network_state_dict", "poses", "world_cube",
                            "occ_model_state_dict"}
+
+
+def _schema(tree):
+    if isinstance(tree, dict):
+        return {k: _schema(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_schema(v) for v in tree]
+    if isinstance(tree, np.ndarray):
+        return (tree.shape, str(tree.dtype))
+    return type(tree).__name__
+
+
+def test_iterate_optimizer_at_ogm_and_hash_matches_jax(monkeypatch):
+    from test_torch_step import jax_step_draws
+
+    tiny = dict(n_levels=6, log2_hashmap_size=14, per_level_scale=1.5)
+    common = dict(n_lidar_samples=16, n_sky_samples=0, n_samples_per_ray=32,
+                  ray_range=(1.0, 10.0), samples_strategy="OGM", rays_strategy="RANDOM",
+                  lr_sigma=0.01, occ_voxel_size=16, occ_lr=0.5, occ_update_every=10,
+                  encode_impl="vjp_f32", window_size=2)
+    cfg_j = jopt.OptimizerConfig(**common, point_chunk=0, steps_per_dispatch=1)
+    cfg_t = topt.OptimizerConfig(**common)
+    fcfg_j = jfield.FieldConfig(pos_encoding_sigma=JHash(**tiny),
+                                sigma_mlp=jfield.MLPConfig(16, 1, 1),
+                                pos_encoding_intensity=JHash(n_levels=2, log2_hashmap_size=10))
+    fcfg_t = tfield.FieldConfig(pos_encoding_sigma=THash(**tiny),
+                                sigma_mlp=tfield.MLPConfig(16, 1, 1),
+                                pos_encoding_intensity=THash(n_levels=2, log2_hashmap_size=10))
+    opt_j = jopt.Optimizer(cfg_j, fcfg_j, 12.0, np.zeros(3), SCHEDULE,
+                           skip_pose_refinement=False, seed=4)
+    opt_t = topt.Optimizer(cfg_t, fcfg_t, 12.0, np.zeros(3), SCHEDULE, CPU,
+                           skip_pose_refinement=False, seed=4)
+    assert opt_t.state.occ_grid.shape == (16, 16, 16)
+    opt_t.restore(jax_tree_to_numpy(opt_j.state.field_params),
+                  np.asarray(opt_j.state.occ_grid), 0, 0)
+
+    # JAX's key schedule: Optimizer splits (field, proposal, rest), each phase
+    # takes a split of the rest, each single-step iteration fold_in(fold_in(k, i), 1).
+    keys = list(jax.random.split(jax.random.key(4), 3))
+    phases = [(1, 4), (2, 3), (2, 5)]  # (window slots, iterations) in schedule order
+    queue = []
+    k_rest = keys[2]
+    for w, n in phases:
+        k_rest, sub = jax.random.split(k_rest)
+        queue += [(w, jax.random.fold_in(jax.random.fold_in(sub, i), 1)) for i in range(n)]
+
+    def jax_draws(generator, cfg, window_size, device):
+        w, k_step = queue.pop(0)
+        assert w == window_size
+        return jax_step_draws(k_step, w, cfg.n_lidar_samples, cfg.n_samples_per_ray, ogm=True)
+
+    monkeypatch.setattr(topt, "draw_step", jax_draws)
+    frames_j, frames_t = _frames(2, n_points=200, seed=1)
+    kfs_j = [JKeyFrame(f) for f in frames_j]
+    kfs_t = [TKeyFrame(f) for f in frames_t]
+    for window in ([0], [0, 1]):
+        opt_j.iterate_optimizer([kfs_j[i] for i in window])
+        opt_t.iterate_optimizer([kfs_t[i] for i in window])
+        np.testing.assert_allclose(opt_t.last_losses, opt_j.last_losses, rtol=2e-5)
+        for kj, kt in zip(kfs_j, kfs_t):
+            np.testing.assert_allclose(kt.pose_twist(), kj.pose_twist(), atol=1e-5)
+    assert not queue and opt_t.state.global_step == opt_j.state.global_step == 12
+    grid_j = np.asarray(opt_j.state.occ_grid)
+    np.testing.assert_allclose(opt_t.state.occ_grid.numpy(), grid_j, atol=5e-5)
+    assert np.abs(grid_j).max() > 1e-3  # updated at global steps 0 and 10
+
+    cube = WorldCube(12.0, np.zeros(3))
+    ckpt_t = tmapper.build_ckpt(opt_t.state.field_params, opt_t.state.occ_grid,
+                                [k.get_pose_state() for k in kfs_t], cube,
+                                opt_t.state.global_step)
+    ckpt_j = {"network_state_dict": jax_tree_to_numpy(opt_j.state.field_params),
+              "occ_model_state_dict": jax_tree_to_numpy(opt_j.state.occ_grid),
+              "poses": [k.get_pose_state() for k in kfs_j]}
+    for key in ckpt_j:
+        assert _schema(ckpt_t[key]) == _schema(ckpt_j[key]), key
+    assert _schema(ckpt_t["occ_model_state_dict"]) == ((16, 16, 16), "float32")
 
 
 def test_optimizer_rejects_debug_dumps():

@@ -302,8 +302,7 @@ def test_render_rays_takes_the_fused_compositor_by_the_jax_rule(monkeypatch):
     sampler = trend.make_sampler(prop, n_ctrl=9)
     assert isinstance(sampler, trend.ProposalRaySampler)
     assert isinstance(trend.make_sampler(None), trend.UniformRaySampler)
-    with pytest.raises(NotImplementedError):
-        trend.make_sampler(torch.zeros(8, 8, 8))
+    assert isinstance(trend.make_sampler(torch.zeros(8, 8, 8)), trend.OccGridRaySampler)
 
     def render(compositor, **kw):
         with torch.inference_mode():
@@ -329,14 +328,78 @@ def test_what_is_not_ported_raises(jax_dirs, tmp_path):
     o, d = _scan_rays(np.eye(4))
     with pytest.raises(NotImplementedError):
         tru.render_depth_chunked(mt, o, d, RAY_RANGE, n_samples=8, with_intensity=True)
-    # An occupancy-grid checkpoint (OGM) is not ported.
+    # An occupancy-grid checkpoint (OGM) is ported: it loads as the grid and
+    # renders through the OGM sampler as the JAX package renders it.
     ckpt = tmapper.load_checkpoint(str(jax_dirs["float32"] / "checkpoints" / "final.tar"))
-    ckpt["occ_model_state_dict"] = np.zeros((8, 8, 8), np.float32)
+    ckpt["occ_model_state_dict"] = np.random.default_rng(1).uniform(
+        0.5, 4.0, (8, 8, 8)).astype(np.float32)
     _write_config(tmp_path, _model_settings("float32", "xla"))
     tmapper.save_checkpoint(str(tmp_path / "checkpoints" / "final.tar"), ckpt)
-    with pytest.raises(NotImplementedError):
-        tru.load_experiment(str(tmp_path), device=CPU)
-    assert os.path.exists(tmp_path / "full_config.pkl")
+    mt = tru.load_experiment(str(tmp_path), device=CPU)
+    assert isinstance(mt.occ_grid, torch.Tensor) and mt.occ_grid.shape == (8, 8, 8)
+    out_t = tru.render_depth_chunked(mt, o, d, RAY_RANGE, n_samples=N_SAMPLES, chunk=CHUNK)
+    out_j = jru.render_depth_chunked(jru.load_experiment(str(tmp_path)), o, d, RAY_RANGE,
+                                     n_samples=N_SAMPLES, chunk=CHUNK)
+    _assert_renders_match(out_t, out_j, RTOL["float32"])
+
+
+def _hash_model_settings() -> dict:
+    """The reference's model (cfg/model_config/default_model_config.yaml: hash
+    sigma field, OGM sampler) at box_room_tiny's grid widths."""
+    model = JSettings.load_from_file(
+        str(REPO / "cfg/model_config/default_model_config.yaml")).as_plain_dict()
+    nerf = model["model"]["nerf_config"]
+    nerf["pos_encoding_sigma"].update(n_levels=6, log2_hashmap_size=14, per_level_scale=1.5)
+    nerf["pos_encoding_intensity"].update(n_levels=2, log2_hashmap_size=10)
+    nerf["intensity_network"]["n_neurons"] = 16
+    model["model"]["occ_model"]["voxel_size"] = 16
+    assert "compositor" not in model["model"]["render"] and "encoding_sigma" not in nerf
+    return model
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_hash_ogm_experiment_renders_alike_in_both_packages(tmp_path, writer):
+    """A hash-field / OGM experiment written by either package renders the same
+    in the other. The grid's logits are positive, as a trained grid's are along
+    the surfaces: the sampler's 1e-5 pdf floor then never meets f32 rounding of
+    the interpolation (tests/test_torch_hash.py)."""
+    model = _hash_model_settings()
+    _write_config(tmp_path, model)
+    grid = np.random.default_rng(6).uniform(0.5, 4.0, (16, 16, 16)).astype(np.float32)
+    poses = [{**s, "lidar_pose": TPose.from_twist(s["lidar_pose"]).to_twist()}
+             for s in _pose_states(seed=5)]
+    if writer == "jax":
+        fcfg = jfield.FieldConfig.from_settings(model["model"]["nerf_config"], 3)
+        params = jfield.init_field_params(jax.random.key(1), fcfg)
+        # A table of O(1) features, as a trained one holds, so the field is not flat.
+        params["sigma"]["table"] = 2.0 * jax.random.normal(jax.random.key(2),
+                                                           params["sigma"]["table"].shape)
+        ckpt = {"global_step": 5, "network_state_dict": jax.tree.map(np.asarray, params),
+                "occ_model_state_dict": grid, "poses": poses, "world_cube": CUBE}
+        j_save(str(tmp_path / "checkpoints" / "final.tar"), ckpt)
+    else:
+        fcfg = tfield.FieldConfig.from_settings(model["model"]["nerf_config"], 3)
+        params = tfield.init_field_params(torch.Generator().manual_seed(1), fcfg, CPU)
+        params["sigma"]["table"] = 2.0 * torch.randn(params["sigma"]["table"].shape,
+                                                     generator=torch.Generator().manual_seed(2))
+        ckpt = tmapper.build_ckpt(params, torch.tensor(grid), poses, WorldCube.from_dict(CUBE), 5)
+        tmapper.save_checkpoint(str(tmp_path / "checkpoints" / "final.tar"), ckpt)
+    back = tmapper.load_checkpoint(str(tmp_path / "checkpoints" / "final.tar"))
+    assert back["occ_model_state_dict"].shape == (16, 16, 16)
+    assert back["occ_model_state_dict"].dtype == np.float32
+    assert back["network_state_dict"]["sigma"]["table"].shape == (86074, 2)
+
+    mj, mt = jru.load_experiment(str(tmp_path)), tru.load_experiment(str(tmp_path), device=CPU)
+    assert mt.field_cfg.encoding_sigma == "hash" and mt.compositor == "xla"
+    np.testing.assert_array_equal(mt.occ_grid.numpy(), grid)
+    np.testing.assert_array_equal(mt.field_params["sigma"]["table"].numpy(),
+                                  np.asarray(mj.field_params["sigma"]["table"]))
+    for pose in tru.kf_pose_matrices(mt)[0]:
+        o, d = _scan_rays(pose)
+        out_j = jru.render_depth_chunked(mj, o, d, RAY_RANGE, n_samples=N_SAMPLES, chunk=CHUNK)
+        out_t = tru.render_depth_chunked(mt, o, d, RAY_RANGE, n_samples=N_SAMPLES, chunk=CHUNK)
+        assert np.abs(out_t["opacity"]).max() > 0.5  # the field is not empty
+        _assert_renders_match(out_t, out_j, RTOL["float32"])
 
 
 @pytest.mark.parametrize("entry", ["load_experiment", "render_full_map", "renderer_lidar CLI",

@@ -14,9 +14,14 @@ cfg/synthetic/box_room_tiny_tpu.yaml's settings cut further for one CPU core
 - ``world_cube.yaml`` and ``full_config.yaml`` load with ``yaml.safe_load``
   to the values of ``full_config.pkl``;
 - the settings dict of chip_smoke.py's SLAM phase equals the port's load of
-  cfg/synthetic/box_room_tpu_rt_r4.yaml, but for the keys it overrides on
-  purpose; ``run_trial`` never falls back to the CPU by itself; and the
+  cfg/synthetic/box_room_tpu_rt_r4.yaml, and that of its reference-configuration
+  phase the load of cfg/synthetic/box_room.yaml, but for the keys they override
+  on purpose; ``run_trial`` never falls back to the CPU by itself; and the
   synchronous signal's rendezvous waits for its consumer and aborts.
+
+The reference's own model runs too: cfg/synthetic/box_room_tiny.yaml (hash
+sigma field, OGM sampler), single-threaded and cut the same way, under the same
+ATE bar, and its final checkpoint renders in the JAX package.
 """
 import os
 import pickle
@@ -87,6 +92,58 @@ def tiny_settings(log_prefix: str, single_threaded: bool):
             }},
         }},
     })
+
+
+def tiny_hash_settings(log_prefix: str):
+    """cfg/synthetic/box_room_tiny.yaml (the reference's model: hash sigma field at
+    6 levels x 2^14, OGM sampler), cut for one CPU core like ``tiny_settings``."""
+    settings, _ = load_config(str(REPO / "cfg/synthetic/box_room_tiny.yaml"))
+    return settings.augment({
+        "system": {"log_dir_prefix": log_prefix},
+        "mapper": {"optimizer": {
+            "num_samples": {"lidar": 64},
+            "keyframe_schedule": [
+                {"num_keyframes": 1, "iteration_schedule": [
+                    {"num_iterations": 60, "freeze_poses": True, "freeze_sigma_mlp": False,
+                     "freeze_rgb_mlp": True}]},
+                {"num_keyframes": -1, "iteration_schedule": [
+                    {"num_iterations": 10, "freeze_poses": False, "freeze_sigma_mlp": False,
+                     "freeze_rgb_mlp": True}]},
+            ],
+            "model_config": {"model": {"render": {"N_samples_train": 32}}},
+        }},
+    })
+
+
+@pytest.fixture(scope="module")
+def hash_slam_run(dataset, tmp_path_factory):
+    torch.set_num_threads(1)
+    settings = tiny_hash_settings(str(tmp_path_factory.mktemp("hash_outputs")))
+    assert settings.mapper.optimizer.samples_selection.strategy == "OGM"
+    assert "encoding_sigma" not in settings.mapper.optimizer.model_config.model.nerf_config
+    return run_trial(settings, dataset, experiment_name="port_hash_ogm", device="cpu")
+
+
+@pytest.mark.parametrize("trajectory", ["estimated_trajectory", "tracking_only"])
+def test_hash_ogm_ate(hash_slam_run, trajectory):
+    res = evaluate_trajectory_files(
+        os.path.join(hash_slam_run, "trajectory", f"{trajectory}.txt"),
+        os.path.join(hash_slam_run, "trajectory", "groundtruth.txt"), delta_m=1.0)
+    assert res["ate"]["rmse"] < ATE_MAX, res["ate"]
+
+
+def test_hash_ogm_final_checkpoint_renders_in_the_jax_package(hash_slam_run):
+    ckpt = load_checkpoint(os.path.join(hash_slam_run, "checkpoints", "final.tar"))
+    assert ckpt["occ_model_state_dict"].shape == (32, 32, 32)
+    assert np.abs(ckpt["occ_model_state_dict"]).max() > 0  # the grid was updated
+    assert ckpt["network_state_dict"]["sigma"]["table"].shape[1] == 2
+    model = load_experiment(hash_slam_run)
+    assert model.occ_grid.shape == (32, 32, 32)
+    origin = np.asarray(model.poses[0]["lidar_pose"][:3])
+    dirs = np.array([[1.0, 0, 0], [0, 1.0, 0], [0, 0, 1.0]], np.float32)
+    out = render_depth_chunked(model, np.broadcast_to(origin, dirs.shape), dirs, (0.5, 14.0),
+                               n_samples=64, ret_var=True)
+    assert np.isfinite(out["depth"]).all() and np.isfinite(out["variance"]).all()
 
 
 @pytest.fixture(scope="module", params=["single_threaded", "threaded"])
@@ -205,6 +262,18 @@ def test_smoke_settings_are_the_flagship_yaml():
     want.augment({"system": {"log_dir_prefix": "/tmp/prefix", "precompile": True},
                   "mapper": {"optimizer": {"model_config": {"model": {"render": {
                       "compositor": "pallas"}}}}}})
+    assert smoke == want.as_plain_dict()
+
+
+def test_smoke_reference_settings_are_the_box_room_yaml():
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    smoke = chip_smoke.box_room_settings("/tmp/prefix")
+    want, dataset = load_config(str(REPO / "cfg/synthetic/box_room.yaml"))
+    assert dataset is None  # a bare !include of defaults.yaml
+    assert want.mapper.optimizer.samples_selection.strategy == "OGM"
+    want.augment({"system": {"log_dir_prefix": "/tmp/prefix", "precompile": True}})
     assert smoke == want.as_plain_dict()
 
 

@@ -8,10 +8,24 @@
   gets the draws JAX made, re-derived from its per-step keys. Tolerances: loss
   trajectory rtol 2e-5, parameters and twists atol 5e-6 (three Adam steps of
   lr <= 5e-3 on f32 gradients that differ in summation order).
+- The reference's configuration at small size: OGM sampler + hash sigma field
+  (box_room_tiny's 6 x 2 grid at 2^14, 12 -> 16 -> 1 ReLU MLP, no biases), three
+  iterations from global step 9 so that the second one updates the grid, with
+  the f32 training encode (vjp_f32) and with bf16 (vjp_bf16). Losses rtol 2e-5
+  and twists atol 5e-6 as above; the grid atol 5e-5 (an SGD step of lr 0.5 on
+  sums of -2.5 / +0.25 margin gradients times trilinear weights, scattered in
+  another order; measured 1.2e-5); the MLP atol 5e-5 and the
+  table 99.9% of entries within 5e-6, every one within 5% of the learning rate:
+  Adam's first steps are about lr sign(g), so a weight or entry whose gradient
+  is a near-cancelling sum of a few points' terms (near Adam's eps, 1e-8) moves
+  by a different fraction of lr in each package (measured: 24 of 172,148
+  entries past 5e-6, at most 2.7e-4).
 - The import boundary: the port runs a step, renders a map cloud from a
   checkpoint it wrote, and runs a tiny single-threaded SLAM trial through
-  ``run_trial`` (at chip_smoke.py's settings, cut down), with jax, optax, yaml
-  (and matplotlib) unimportable, and pulls in nothing of ``loner_tpu``.
+  ``run_trial`` (at chip_smoke.py's settings, cut down), each with the Fourier
+  field and proposal sampler and with the hash field and OGM sampler, with jax,
+  optax, yaml (and matplotlib) unimportable, and pulls in nothing of
+  ``loner_tpu``.
 """
 import os
 import subprocess
@@ -34,6 +48,7 @@ from loner_tpu_torch import convert
 from loner_tpu_torch.mapping import optimizer as topt
 from loner_tpu_torch.mapping import rays as trays
 from loner_tpu_torch.models import field as tfield
+from loner_tpu_torch.models.hash_encoding import HashEncodingConfig as THash
 from loner_tpu_torch.models.proposal import ProposalConfig as TProp
 
 torch.set_num_threads(1)
@@ -113,22 +128,50 @@ def _configs(strategy: str, lr_gamma: float):
     return cfg_j, cfg_t, fcfg_j, fcfg_t
 
 
-def _jax_draws(key, n_iters: int):
-    """The draws of JAX's single-step programs (steps_per_dispatch = 1), from
-    the same key splits as make_phase_runner, sample_and_build_rays,
-    render_rays and the samplers."""
-    draws = []
-    for i in range(n_iters):
-        k_step = jax.random.fold_in(jax.random.fold_in(key, i), 1)
-        k_rays, _, k_render = jax.random.split(k_step, 3)
-        k_lidar, _ = jax.random.split(k_rays)
-        k_sample, k_noise = jax.random.split(k_render)
-        draws.append(topt.StepDraws(
-            ray_u=torch.tensor(np.asarray(jax.random.uniform(k_lidar, (W, N_LIDAR)))),
-            jitter=torch.tensor(np.asarray(jax.random.uniform(k_sample, (W * N_LIDAR, S)))),
-            noise=torch.tensor(np.asarray(jax.random.normal(k_noise, (W * N_LIDAR, S)))),
-        ))
+TINY_HASH = dict(n_levels=6, log2_hashmap_size=14, per_level_scale=1.5)  # box_room_tiny.yaml
+
+
+def _hash_configs(encode_impl: str):
+    """OGM + hash field, the reference's model at box_room_tiny's grid widths."""
+    common = dict(n_lidar_samples=N_LIDAR, n_sky_samples=0, n_samples_per_ray=S,
+                  ray_range=(1.0, 10.0), samples_strategy="OGM", lr_sigma=0.01,
+                  occ_voxel_size=16, occ_lr=0.5, occ_update_every=10, encode_impl=encode_impl)
+    cfg_j = jopt.OptimizerConfig(**common, window_size=W, point_chunk=0, steps_per_dispatch=1)
+    cfg_t = topt.OptimizerConfig(**common)
+    fcfg_j = jfield.FieldConfig(pos_encoding_sigma=JHash(**TINY_HASH),
+                                sigma_mlp=jfield.MLPConfig(16, 1, 1),
+                                pos_encoding_intensity=JHash(n_levels=2, log2_hashmap_size=10))
+    fcfg_t = tfield.FieldConfig(pos_encoding_sigma=THash(**TINY_HASH),
+                                sigma_mlp=tfield.MLPConfig(16, 1, 1),
+                                pos_encoding_intensity=THash(n_levels=2, log2_hashmap_size=10))
+    return cfg_j, cfg_t, fcfg_j, fcfg_t
+
+
+def jax_step_draws(k_step, w: int, n_lidar: int, s: int, ogm: bool = False):
+    """One iteration's draws from JAX's step key, by the key splits of the loss,
+    sample_and_build_rays, render_rays and the samplers (the OGM sampler splits
+    its key into the stratified jitter's and the importance uniforms')."""
+    k_rays, _, k_render = jax.random.split(k_step, 3)
+    k_lidar, _ = jax.random.split(k_rays)
+    k_sample, k_noise = jax.random.split(k_render)
+    b = w * n_lidar
+    draws = topt.StepDraws(
+        ray_u=torch.tensor(np.asarray(jax.random.uniform(k_lidar, (w, n_lidar)))),
+        noise=torch.tensor(np.asarray(jax.random.normal(k_noise, (b, s)))),
+    )
+    if ogm:
+        k_uniform, k_pdf = jax.random.split(k_sample)
+        draws.jitter = torch.tensor(np.asarray(jax.random.uniform(k_uniform, (b, s // 2))))
+        draws.pdf_u = torch.tensor(np.asarray(jax.random.uniform(k_pdf, (b, s // 2))))
+    else:
+        draws.jitter = torch.tensor(np.asarray(jax.random.uniform(k_sample, (b, s))))
     return draws
+
+
+def _jax_draws(key, n_iters: int, ogm: bool = False):
+    """The draws of JAX's single-step programs (steps_per_dispatch = 1)."""
+    return [jax_step_draws(jax.random.fold_in(jax.random.fold_in(key, i), 1), W, N_LIDAR, S, ogm)
+            for i in range(n_iters)]
 
 
 @pytest.mark.parametrize(
@@ -182,11 +225,57 @@ def test_run_phase_matches_jax_over_three_iterations(strategy, lr_gamma, pose_ma
         np.testing.assert_array_equal(prop_t["bmat"].numpy(), prop_np["bmat"])
 
 
+@pytest.mark.parametrize("encode_impl", ["vjp_f32", "vjp_bf16"])
+def test_run_phase_at_ogm_and_hash_matches_jax(encode_impl):
+    cfg_j, cfg_t, fcfg_j, fcfg_t = _hash_configs(encode_impl)
+    dirs, depths, twists = _scans(W, seed=3)
+    params = jfield.init_field_params(jax.random.key(2), fcfg_j)
+    params_np = jax.tree.map(np.asarray, params)
+    grid = np.asarray(jax.random.normal(jax.random.key(8), (16, 16, 16))) * 0.1
+    key, step0 = jax.random.key(9), 9  # global steps 9, 10, 11: the grid moves at 10
+
+    bj = jrays.build_window_buffers(dirs, depths, [None] * W, W)
+    run_j = jopt.make_phase_runner(cfg_j, fcfg_j, jopt.PhaseSettings(num_iterations=ITERS), W,
+                                   bj.dirs.shape[1], bj.sky_dirs.shape[1])
+    field_j, grid_j, tw_j, losses_j, eps_j = run_j(
+        params, jnp.asarray(grid), jnp.asarray(twists), bj, jnp.ones(W),
+        jnp.asarray(12.0, jnp.float32), jnp.zeros(3), step0, key, num_iterations=ITERS)
+
+    bt = trays.build_window_buffers(dirs, depths, [None] * W, W, device=CPU)
+    run_t = topt.make_phase_runner(cfg_t, fcfg_t, topt.PhaseSettings(num_iterations=ITERS), W,
+                                   bt.dirs.shape[1], bt.sky_dirs.shape[1], CPU)
+    field_t, grid_t, tw_t, losses_t, eps_t = run_t(
+        convert.field_params_from_jax(params_np, CPU), convert.occ_grid_from_jax(grid, CPU),
+        convert.twists_from_jax(twists, CPU), bt, torch.ones(W), torch.tensor(12.0),
+        torch.zeros(3), step0, None, num_iterations=ITERS, draws=_jax_draws(key, ITERS, True))
+
+    np.testing.assert_allclose(losses_t.numpy(), np.asarray(losses_j), rtol=2e-5)
+    np.testing.assert_allclose(eps_t.numpy(), np.asarray(eps_j), rtol=2e-5)
+    np.testing.assert_allclose(tw_t.numpy(), np.asarray(tw_j), atol=5e-6)
+    assert np.abs(tw_t.numpy() - twists).max() > 1e-4
+    for k, v in field_j["sigma"]["mlp"].items():
+        np.testing.assert_allclose(field_t["sigma"]["mlp"][k].numpy(), np.asarray(v), atol=5e-5,
+                                   err_msg=k)
+    table_j = np.asarray(field_j["sigma"]["table"])
+    diff = np.abs(field_t["sigma"]["table"].numpy() - table_j)
+    assert np.quantile(diff, 0.999) <= 5e-6 and diff.max() <= 0.05 * cfg_t.lr_sigma, diff.max()
+    assert np.abs(table_j - params_np["sigma"]["table"]).max() > 1e-3
+    np.testing.assert_allclose(grid_t.numpy(), np.asarray(grid_j), atol=5e-5)
+    assert np.abs(np.asarray(grid_j) - grid).max() > 1e-3  # the update at step 10
+    np.testing.assert_array_equal(field_t["intensity"]["table"].numpy(),
+                                  params_np["intensity"]["table"])
+
+
 def test_make_phase_runner_rejects_what_is_not_ported():
     _, cfg_t, _, fcfg_t = _configs("PROPOSAL", 1.0)
     args = (W, 4096, 4096, CPU)
-    with pytest.raises(NotImplementedError):
-        topt.make_phase_runner(topt.OptimizerConfig(), fcfg_t, topt.PhaseSettings(), *args)
+    # The default configuration is the reference's: OGM sampler, hash field.
+    assert topt.OptimizerConfig().samples_strategy == "OGM"
+    assert topt.make_phase_runner(topt.OptimizerConfig(), tfield.FieldConfig(),
+                                  topt.PhaseSettings(), *args) is not None
+    with pytest.raises(RuntimeError, match="encode_impl"):
+        topt.make_phase_runner(topt.OptimizerConfig(encode_impl="pallas"), tfield.FieldConfig(),
+                               topt.PhaseSettings(), *args)
     with pytest.raises(NotImplementedError):
         topt.make_phase_runner(cfg_t, fcfg_t, topt.PhaseSettings(freeze_rgb_mlp=False), *args)
     with pytest.raises(NotImplementedError):
@@ -242,6 +331,22 @@ def test_port_runs_a_step_without_jax_optax_yaml_or_loner_tpu():
                   torch.zeros(2, 6), buf, torch.ones(2), 12.0, torch.zeros(3), 0, gen,
                   num_iterations=1)
         assert torch.isfinite(out[3]).all() and out[3].shape == (1,)
+        # The reference's model: OGM sampler, hash sigma field, bf16 training encode.
+        from loner_tpu_torch.models.hash_encoding import HashEncodingConfig
+        from loner_tpu_torch.models.occupancy_grid import init_occ_grid
+        cfg = OptimizerConfig(n_lidar_samples=8, n_sky_samples=0, n_samples_per_ray=16,
+                              samples_strategy="OGM", occ_voxel_size=8, occ_update_every=1)
+        fcfg = FieldConfig(pos_encoding_sigma=HashEncodingConfig(n_levels=4,
+                                                                 log2_hashmap_size=10),
+                           sigma_mlp=MLPConfig(16, 1, 1),
+                           pos_encoding_intensity=HashEncodingConfig(n_levels=2,
+                                                                     log2_hashmap_size=10))
+        run = make_phase_runner(cfg, fcfg, PhaseSettings(), 2, 4096, 4096, dev)
+        params = init_field_params(gen, fcfg, dev)
+        out = run(params, init_occ_grid(8, dev), torch.zeros(2, 6), buf, torch.ones(2), 12.0,
+                  torch.zeros(3), 0, gen, num_iterations=1)
+        assert torch.isfinite(out[3]).all() and out[1].abs().max() > 0
+        assert not torch.equal(out[0]["sigma"]["table"], params["sigma"]["table"])
         bad = sorted(m for m in sys.modules
                      if m == "loner_tpu" or m.startswith("loner_tpu."))
         assert not bad, bad
@@ -294,6 +399,25 @@ def test_port_renders_without_jax_optax_yaml_matplotlib_or_loner_tpu(tmp_path):
                         build_ckpt(params, prop, poses, cube, 1))
         cloud = render_full_map(log_dir, num_channels=4, num_columns=8, n_samples=16,
                                 var_threshold=1e6, device="cpu")
+        # The reference's model: hash sigma field and an OGM grid checkpoint.
+        hash_dir = os.path.join(log_dir, "hash")
+        os.makedirs(os.path.join(hash_dir, "checkpoints"))
+        hash_nerf = {"sigma_network": {"n_neurons": 16, "n_hidden_layers": 1},
+                     "pos_encoding_sigma": {"n_levels": 4, "log2_hashmap_size": 10},
+                     "intensity_network": {"n_neurons": 16, "n_hidden_layers": 1},
+                     "pos_encoding_intensity": {"n_levels": 2, "log2_hashmap_size": 10}}
+        with open(os.path.join(hash_dir, "full_config.pkl"), "wb") as f:
+            pickle.dump({"mapper": {"optimizer": {"model_config": {
+                "data": {"ray_range": [1, 10]},
+                "model": {"nerf_config": hash_nerf, "num_colors": 3, "render": {}}}}},
+                "world_cube": cube.as_dict()}, f)
+        hash_params = init_field_params(gen, FieldConfig.from_settings(hash_nerf), dev)
+        save_checkpoint(os.path.join(hash_dir, "checkpoints", "final.tar"),
+                        build_ckpt(hash_params, torch.rand(8, 8, 8, generator=gen), poses, cube, 1))
+        hash_cloud = render_full_map(hash_dir, num_channels=4, num_columns=8, n_samples=16,
+                                     var_threshold=1e6, device="cpu")
+        assert hash_cloud.shape[1] == 3 and np.isfinite(hash_cloud).all()
+        assert load_experiment(hash_dir, device="cpu").occ_grid.shape == (8, 8, 8)
         assert cloud.shape[1] == 3 and cloud.shape[0] > 0 and np.isfinite(cloud).all()
         model = load_experiment(log_dir, device="cpu")
         frame = render_dataset_frame(model, np.eye(4), spherical_ray_directions(8, 4), (4, 8),
@@ -368,6 +492,33 @@ def test_port_runs_slam_without_jax_optax_yaml_or_loner_tpu(tmp_path):
         for f in ("checkpoints/final.tar", "trajectory/estimated_trajectory.txt",
                   "full_config.yaml", "world_cube.yaml", "runtime.txt"):
             assert os.path.exists(os.path.join(log_dir, f)), f
+        # The smoke test's reference settings (hash sigma field, OGM), cut the same way.
+        settings = Settings(chip_smoke.box_room_settings(os.path.join(root, "out")))
+        settings.augment({
+            "system": {"single_threaded": True},
+            "tracker": {"frame_synthesis": {"frame_decimation_rate_hz": 2.5,
+                                            "decimate_on_load": False},
+                        "icp": {"downsample": {"target_uniform_point_count": 500}}},
+            "mapper": {
+                "keyframe_manager": {"keyframe_selection": {"temporal": {"time_diff_seconds": 1.0}},
+                                     "window_selection": {"window_size": 2}},
+                "optimizer": {
+                    "num_samples": {"lidar": 16},
+                    "keyframe_schedule": [
+                        {"num_keyframes": 1, "iteration_schedule": [
+                            {"num_iterations": 3, "freeze_poses": True}]},
+                        {"num_keyframes": -1, "iteration_schedule": [{"num_iterations": 2}]}],
+                    "model_config": {"model": {
+                        "render": {"N_samples_train": 16},
+                        "occ_model": {"voxel_size": 8},
+                        "nerf_config": {"pos_encoding_sigma": {"n_levels": 4,
+                                                               "log2_hashmap_size": 10},
+                                        "pos_encoding_intensity": {"n_levels": 2,
+                                                                   "log2_hashmap_size": 10}}}}}},
+        })
+        log_dir = run_trial(settings, os.path.join(root, "ds"), experiment_name="boundary_hash",
+                            device="cpu")
+        assert os.path.exists(os.path.join(log_dir, "checkpoints", "final.tar"))
         bad = sorted(m for m in sys.modules
                      if m == "loner_tpu" or m.startswith("loner_tpu."))
         assert not bad, bad
