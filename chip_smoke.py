@@ -8,10 +8,11 @@ nothing of JAX. Phases, each of which raises on failure:
 
 1. Device: no CUDA card, no run. Prints the card's name and power limit.
 2. Build: compiles the CUDA sources of loner_tpu_torch/csrc into build/, one
-   nvcc process per source, all started together; counts each kernel's
-   HGMMA (wgmma) and UBLKCP / UTMALDG (bulk / tensor copies) instructions in
-   the built SASS (cuobjdump), and fails if a Fourier-MLP kernel has no HGMMA
-   (the composite and hash kernels use none).
+   nvcc process per source, all started together; prints each kernel's
+   ptxas -v report and fails if a hash-grid kernel spills; counts each
+   kernel's HGMMA (wgmma) and UBLKCP / UTMALDG (bulk / tensor copies)
+   instructions in the built SASS (cuobjdump), and fails if a Fourier-MLP
+   kernel has no HGMMA (the composite and hash kernels use none).
 3. Kernels: the fused Fourier-MLP forward and backward kernels against their
    plain PyTorch version on the card, at the flagship shapes (2,097,152
    points, 48 frequencies, 99 -> 256 -> 256 -> 1, bf16), each timed with CUDA
@@ -50,11 +51,16 @@ nothing of JAX. Phases, each of which raises on failure:
    CPU, with no host synchronisation in a dispatch.
 10. Hash kernels: the hash-grid encode's forward and backward kernels against
    their plain version at the reference's grid (16 levels x 2 features at
-   2^18) and the mapping path's 2,097,152 and 262,144 points, in bf16 and f32;
-   timed beside the plain version and the bound.
+   2^18), features and dpos equal to the bit, in bf16 and f32, with dpos and
+   without: at the mapping path's 2,097,152 and 262,144 points in the order a
+   mapping iteration gives them (rays of 512 sorted samples) and at random,
+   and at the edge cases of the warp-level work (one index for every lane,
+   runs across warps and blocks, ragged counts, the unit cube's faces); timed
+   at both orders and counts beside the plain version and the bound.
 11. SLAM at the reference's configuration: the same sequence and checks at
    cfg/synthetic/box_room.yaml (hash sigma field through the hash kernels, OGM
-   sampler), with the hash kernels' launches.
+   sampler), with the hash kernels' launches, the backward's split between its
+   variant without dpos (the frozen-pose bootstrap) and the one with dpos.
 
 Each path sets every launch count to 0 just before it runs and reads them just
 after. The second-to-last line of output is a JSON record of the kernels; the
@@ -113,14 +119,11 @@ FLAGSHIP_NERF = {
 
 
 # Hash-grid encode, kernel against plain version on the card. Both take the same
-# rounded f32 operations in the same order (no FMA contraction), so the forward
-# and the position gradient are expected to agree to the bit; the bounds leave one
-# rounding flipped: a bf16 ulp (2^-8 relative) of a bf16-mode feature, two f32
-# ulps of an f32 one, and 1e-6 relative L2 on dpos. The table gradient is summed
-# by float atomics in an order that changes from run to run (up to ~10^4 terms an
-# entry on the coarse levels at 2.1 M points): relative L2 1e-5.
-HASH_FWD_REL = {torch.bfloat16: 2.0 ** -8, torch.float32: 2.0 ** -22}
-HASH_DPOS_REL_L2 = 1e-6
+# rounded f32 operations in the same order (no FMA contraction), so the features
+# and the position gradient must agree to the bit. The table gradient is summed by
+# float atomics, combined first over the lanes of a warp that share an entry, in an
+# order that changes from run to run (up to ~10^4 terms an entry on the coarse
+# levels at 2.1 M points): relative L2 1e-5.
 HASH_DTABLE_REL_L2 = 1e-5
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): bf16
@@ -153,7 +156,8 @@ def read_counts() -> dict:
             "fourier_mlp_bwd": fourier_mlp.counts.bwd_launches,
             "composite": composite.counts.composite_launches,
             "hash_encode_fwd": hash_grid.counts.fwd_launches,
-            "hash_encode_bwd": hash_grid.counts.bwd_launches}
+            "hash_encode_bwd": hash_grid.counts.bwd_launches,
+            "hash_encode_bwd_no_dpos": hash_grid.counts.bwd_no_dpos_launches}
 
 
 def device_line() -> str:
@@ -177,6 +181,22 @@ def cuda_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def ptxas_spills() -> None:
+    """Prints each built kernel's ptxas -v report (registers, shared memory,
+    spills); fails if a hash-grid kernel spills."""
+    import re
+
+    from loner_tpu_torch.ops.build import ptxas_report
+
+    for lib in ("fourier_mlp", "composite", "hash_grid"):
+        for line in ptxas_report(lib).splitlines():
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
+                print(f"ptxas {lib}: {line.strip()}", flush=True)
+    spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", ptxas_report("hash_grid"))
+    if any(int(b) for b in spills):
+        raise RuntimeError("a hash-grid kernel spills registers (ptxas -v above)")
 
 
 def sass_counts() -> dict:
@@ -518,75 +538,109 @@ HASH_POINTS = (8 * 512 * 512, 512 * 512)  # a W=8 iteration's field points, the 
 
 
 def hash_cost(n: int, cfg) -> dict:
-    """Operations and bytes of one forward and one backward at n points: f32
-    operations counted from csrc/hash_grid.cu per (point, level) (corners 25:
-    scale, frac, 1 - frac and the 8 weights; forward 32 more for the 8 weighted
-    feature pairs; backward 40 for the atomics' terms and the corner dot
-    products, 48 for the frac gradients, 6 for the level sum, 16 atomic adds);
-    bytes: points, features or their gradient, dpos and the table (its gradient)
-    each once."""
+    """Operations and bytes of one forward, one backward and one backward without
+    dpos at n points: f32 operations counted from csrc/hash_grid.cu per (point,
+    level) (corners 25: scale, frac, 1 - frac and the 8 weights; forward 32 more
+    for the 8 weighted feature pairs; backward 16 for the atomics' terms and 16
+    atomic adds, and with dpos 24 for the corner dot products, 48 for the frac
+    gradients and 6 for the level sum); bytes: points, features or their
+    gradient, dpos and the table (its gradient) each once; without dpos the
+    table is not read."""
     nl, table = n * cfg.n_levels, 8 * cfg.total_table_size
     return {"fwd": (57 * nl, 12 * n + 4 * cfg.output_dim * n + table),
-            "bwd": (135 * nl, 12 * n + 4 * cfg.output_dim * n + 12 * n + 2 * table)}
+            "bwd": (135 * nl, 12 * n + 4 * cfg.output_dim * n + 12 * n + 2 * table),
+            "bwd_no_dpos": (57 * nl, 12 * n + 4 * cfg.output_dim * n + table)}
+
+
+def check_hash_case(name: str, table, pos, dout, cfg, dtype) -> tuple:
+    """The hash kernels against their plain version on one input: features equal
+    to the bit, and the same in a second call; the backward's dpos equal to the
+    bit and its table gradient within HASH_DTABLE_REL_L2, with dpos and without
+    it (the frozen-pose variant, which returns None for dpos). Returns the largest
+    |kernel - plain| of the features and of the gradients."""
+    from loner_tpu_torch.ops import hash_grid as hg
+
+    out_k = hg.hash_encode_fwd_cuda(table, pos, cfg, dtype)
+    again = hg.hash_encode_fwd_cuda(table, pos, cfg, dtype)
+    out_p = hg.hash_encode_fwd_plain(table, pos, cfg, dtype)
+    dtab_k, dpos_k = hg.hash_encode_bwd_cuda(table, pos, dout, cfg, dtype)
+    dtab_n, dpos_n = hg.hash_encode_bwd_cuda(table, pos, dout, cfg, dtype, need_dpos=False)
+    dtab_p, dpos_p = hg.hash_encode_bwd_plain(table, pos, dout, cfg, dtype)
+    torch.cuda.synchronize()
+    for label, t in (("features", out_k), ("dtable", dtab_k), ("dpos", dpos_k),
+                     ("dtable without dpos", dtab_n)):
+        if not torch.isfinite(t).all():
+            raise RuntimeError(f"hash kernel: non-finite {label} on {name}, {dtype}")
+    fwd_err = float((out_k - out_p).abs().max())
+    rel_t, rel_n = rel_l2(dtab_k, dtab_p), rel_l2(dtab_n, dtab_p)
+    bwd_err = max(float((dtab_k - dtab_p).abs().max()), float((dtab_n - dtab_p).abs().max()),
+                  float((dpos_k - dpos_p).abs().max()))
+    ok = (torch.equal(out_k, out_p) and torch.equal(again, out_k) and torch.equal(dpos_k, dpos_p)
+          and dpos_n is None and rel_t <= HASH_DTABLE_REL_L2 and rel_n <= HASH_DTABLE_REL_L2)
+    print(f"kernel hash_encode {name}, {pos.shape[0]} points, {str(dtype)[6:]}: features "
+          f"{int((out_k != out_p).sum())} of {out_k.numel()} differ (max {fwd_err:.3e}), second "
+          f"call equal {torch.equal(again, out_k)}; dpos {int((dpos_k != dpos_p).sum())} of "
+          f"{dpos_k.numel()} differ; dtable rel L2 {rel_t:.3e}, without dpos {rel_n:.3e} "
+          f"(tolerance {HASH_DTABLE_REL_L2})", flush=True)
+    if not ok:
+        raise RuntimeError(f"hash kernels disagree with their plain version on {name}, {dtype}")
+    return fwd_err, bwd_err
 
 
 def check_hash_kernels(dev) -> list:
     """The hash-grid encode kernels against their plain version at the reference's
-    grid (16 levels x 2 features at 2^18) and the mapping path's point counts, in
-    bf16 (training) and f32 (renders); timed beside the plain version and the
-    bound. No single PyTorch call computes the function: library_ms is null."""
+    grid (16 levels x 2 features at 2^18), in bf16 (training) and f32 (renders):
+    at the mapping path's point counts in the order a mapping iteration gives
+    them (ab_compare.hash_points: rays of 512 sorted samples) and at random
+    points, and at the edge cases of ab_compare.hash_edge_points; each with dpos
+    and without. Timed (median of 5 calls, CUDA events) at both orders and both
+    counts beside the plain version and the bound. No single PyTorch call
+    computes the function: library_ms is null."""
+    from loner_tpu_torch.analysis.ab_compare import hash_edge_points, hash_points
     from loner_tpu_torch.models.hash_encoding import HashEncodingConfig
     from loner_tpu_torch.ops import hash_grid as hg
 
-    cfg = HashEncodingConfig()
+    cfg, bf = HashEncodingConfig(), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(21)
     table = torch.rand((cfg.total_table_size, 2), generator=gen, device=dev) * 2e-2 - 1e-2
     worst = {"fwd": 0.0, "bwd": 0.0}
     times = {}
-    for n in HASH_POINTS:
-        # Points over the unit cube and a little past it, some exactly on its faces.
-        pos = torch.rand((n, 3), generator=gen, device=dev) * 1.02 - 0.01
-        pos[:64] = 0.0
-        pos[64:128] = 1.0
-        dout = torch.randn((n, cfg.output_dim), generator=gen, device=dev) / n ** 0.5
-        for dtype in (torch.bfloat16, torch.float32):
-            out_k = hg.hash_encode_fwd_cuda(table, pos, cfg, dtype)
-            out_p = hg.hash_encode_fwd_plain(table, pos, cfg, dtype)
-            dtab_k, dpos_k = hg.hash_encode_bwd_cuda(table, pos, dout, cfg, dtype)
-            dtab_p, dpos_p = hg.hash_encode_bwd_plain(table, pos, dout, cfg, dtype)
-            torch.cuda.synchronize()
-            for name, t in (("features", out_k), ("dtable", dtab_k), ("dpos", dpos_k)):
-                if not torch.isfinite(t).all():
-                    raise RuntimeError(f"hash kernel: non-finite {name} at {n} points, {dtype}")
-            fwd_err = float((out_k - out_p).abs().max())
-            fwd_ok = bool(((out_k - out_p).abs() <= HASH_FWD_REL[dtype] * out_p.abs()).all())
-            rel_t, rel_p = rel_l2(dtab_k, dtab_p), rel_l2(dpos_k, dpos_p)
-            bwd_err = max(float((dtab_k - dtab_p).abs().max()), float((dpos_k - dpos_p).abs().max()))
-            worst["fwd"], worst["bwd"] = max(worst["fwd"], fwd_err), max(worst["bwd"], bwd_err)
-            print(f"kernel hash_encode {n} points {str(dtype)[6:]}: features max |kernel - plain| "
-                  f"{fwd_err:.3e} ({int((out_k != out_p).sum())} of {out_k.numel()} differ; bound "
-                  f"{HASH_FWD_REL[dtype]:.1e} relative); dtable rel L2 {rel_t:.3e} (tolerance "
-                  f"{HASH_DTABLE_REL_L2}); dpos rel L2 {rel_p:.3e} (tolerance {HASH_DPOS_REL_L2}), "
-                  f"{int((dpos_k != dpos_p).sum())} of {dpos_k.numel()} differ", flush=True)
-            if not (fwd_ok and rel_t <= HASH_DTABLE_REL_L2 and rel_p <= HASH_DPOS_REL_L2):
-                raise RuntimeError(f"hash kernels disagree with their plain version at {n} "
-                                   f"points, {dtype}")
-            t = {"fwd": cuda_ms(lambda: hg.hash_encode_fwd_cuda(table, pos, cfg, dtype)),
-                 "bwd": cuda_ms(lambda: hg.hash_encode_bwd_cuda(table, pos, dout, cfg, dtype))}
-            if n == HASH_POINTS[0] and dtype == torch.bfloat16:
-                t["fwd_plain"] = cuda_ms(lambda: hg.hash_encode_fwd_plain(table, pos, cfg, dtype), 3)
+
+    def check(name, points, scale):
+        pos = torch.from_numpy(points).to(dev)
+        dout = torch.randn((pos.shape[0], cfg.output_dim), generator=gen, device=dev) * scale
+        for dtype in (bf, torch.float32):
+            errs = check_hash_case(name, table, pos, dout, cfg, dtype)
+            worst["fwd"], worst["bwd"] = max(worst["fwd"], errs[0]), max(worst["bwd"], errs[1])
+        return pos, dout
+
+    for name, points in hash_edge_points().items():
+        check(name, points, 1.0)
+    for order in ("ray", "random"):
+        for n in HASH_POINTS:
+            pos, dout = check(f"{order} order", hash_points(n, order), n ** -0.5)
+            t = {"fwd": cuda_ms(lambda: hg.hash_encode_fwd_cuda(table, pos, cfg, bf)),
+                 "bwd": cuda_ms(lambda: hg.hash_encode_bwd_cuda(table, pos, dout, cfg, bf)),
+                 "bwd_no_dpos": cuda_ms(lambda: hg.hash_encode_bwd_cuda(table, pos, dout, cfg, bf,
+                                                                        need_dpos=False))}
+            if (order, n) == ("random", HASH_POINTS[0]):
+                t["fwd_f32"] = cuda_ms(lambda: hg.hash_encode_fwd_cuda(table, pos, cfg,
+                                                                       torch.float32))
+                t["bwd_f32"] = cuda_ms(lambda: hg.hash_encode_bwd_cuda(table, pos, dout, cfg,
+                                                                       torch.float32))
+                t["fwd_plain"] = cuda_ms(lambda: hg.hash_encode_fwd_plain(table, pos, cfg, bf), 3)
                 t["bwd_plain"] = cuda_ms(
-                    lambda: hg.hash_encode_bwd_plain(table, pos, dout, cfg, dtype), 3)
-            times[(n, dtype)] = t
-            del out_k, out_p, dtab_k, dtab_p, dpos_k, dpos_p
+                    lambda: hg.hash_encode_bwd_plain(table, pos, dout, cfg, bf), 3)
+            times[(order, n)] = t
+            del pos, dout
             cost = hash_cost(n, cfg)
-            shares = {k: bound(*cost[k], peak_flops=PEAK_F32_FLOPS) for k in ("fwd", "bwd")}
-            print(f"kernel hash_encode times at {n} points, {str(dtype)[6:]} (ms, median of 5): "
+            shares = {k: bound(*cost[k], peak_flops=PEAK_F32_FLOPS) for k in cost}
+            print(f"kernel hash_encode times, {order} order, {n} points, bf16 (ms, median of 5): "
                   + ", ".join(f"{k} {v:.4f}" for k, v in t.items()) + "; bound "
                   + ", ".join(f"{k} {b[0]:.4f} ({b[1]}, {100 * b[0] / t[k]:.1f}%)"
                               for k, b in shares.items()), flush=True)
-    main = times[(HASH_POINTS[0], torch.bfloat16)]
-    cost = hash_cost(HASH_POINTS[0], cfg)
+    big, small = HASH_POINTS
+    cost = hash_cost(big, cfg)
     src = "loner_tpu_torch/csrc/hash_grid.cu"
     note = "not a TPU kernel: the JAX package computes this function in XLA"
     records = []
@@ -595,10 +649,19 @@ def check_hash_kernels(dev) -> list:
         records.append({
             "name": f"hash_encode_{name}", "route": "cuda", "source": src,
             "replaces": f"loner_tpu/models/hash_encoding.py:{line}", "note": note, "launches": 0,
-            "max_abs_err": worst[name], "ms": main[name], "plain_ms": main[f"{name}_plain"],
+            "max_abs_err": worst[name], "ms": times[("random", big)][name],
+            "plain_ms": times[("random", big)][f"{name}_plain"],
             "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
-            "f32_ms": times[(HASH_POINTS[0], torch.float32)][name],
-            "bootstrap_ms": times[(HASH_POINTS[1], torch.bfloat16)][name]})
+            "f32_ms": times[("random", big)][f"{name}_f32"],
+            "bootstrap_ms": times[("random", small)][name],
+            "ray_ms": times[("ray", big)][name], "ray_bootstrap_ms": times[("ray", small)][name]})
+    nd = "bwd_no_dpos"
+    records[1].update({
+        "no_dpos_ms": times[("random", big)][nd],
+        "no_dpos_bootstrap_ms": times[("random", small)][nd],
+        "ray_no_dpos_ms": times[("ray", big)][nd],
+        "ray_no_dpos_bootstrap_ms": times[("ray", small)][nd],
+        "no_dpos_bound_ms": bound(*cost[nd], peak_flops=PEAK_F32_FLOPS)[0]})
     return records
 
 
@@ -1112,7 +1175,8 @@ def run_slam(dev, label: str, settings: dict, train_kernels, map_kernels, compos
             log_dir = run_loner.run_trial(settings, dataset, experiment_name=f"smoke_{label}",
                                           device=dev)
             wall = time.perf_counter() - t0
-            launches = {k: read_counts()[k] for k in train_kernels}
+            counts = read_counts()
+            launches = {k: counts[k] for k in train_kernels}
         finally:
             run_loner.Loner = original
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -1164,8 +1228,9 @@ def run_slam(dev, label: str, settings: dict, train_kernels, map_kernels, compos
         mapped = check_map_depth(dev, log_dir, scene, gt_poses[0], map_kernels, compositor)
         if measure_test_chunk:
             test_chunk_memory(dev, log_dir)
-    return {"launches": launches, "map_launches": mapped["launches"], "rtf": seq_s / runtime,
-            "boot_ms": boot_ms, "win_ms": win_ms, "iterations": its, **icp}
+    return {"launches": launches, "counts": counts, "map_launches": mapped["launches"],
+            "rtf": seq_s / runtime, "boot_ms": boot_ms, "win_ms": win_ms, "iterations": its,
+            "boot_iterations": int(timing[0, 0]), **icp}
 
 
 def main() -> int:
@@ -1192,6 +1257,7 @@ def main() -> int:
     cp._lib()
     hg._lib()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+    ptxas_spills()
     sass_counts()
 
     cfg, field_cfg = flagship_configs()
@@ -1217,6 +1283,20 @@ def main() -> int:
     for k in hash_kernels:
         k["launches"] = reference["launches"][k["name"]]
         k["map_check_launches"] = reference["map_launches"].get(k["name"], 0)
+    # The backward's launches split by variant: without dpos in the frozen-pose W=1
+    # bootstrap, with dpos in the windows that refine poses.
+    bwd = hash_kernels[1]
+    bwd["launches_no_dpos"] = reference["counts"]["hash_encode_bwd_no_dpos"]
+    bwd["launches_with_dpos"] = bwd["launches"] - bwd["launches_no_dpos"]
+    print(f"SLAM hash+OGM: hash backward launches {bwd['launches']}: "
+          f"{bwd['launches_no_dpos']} without dpos, {bwd['launches_with_dpos']} with it "
+          f"({reference['boot_iterations']} bootstrap iterations of "
+          f"{reference['iterations']})", flush=True)
+    windows = reference["iterations"] - reference["boot_iterations"]
+    if not (bwd["launches_no_dpos"] >= reference["boot_iterations"]
+            and bwd["launches_with_dpos"] >= windows):
+        raise RuntimeError("the hash backward's launches do not split between the frozen-pose "
+                           "bootstrap (without dpos) and the windows (with it)")
     kernels += hash_kernels
 
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 """A/B of two checkouts of this repository on one CUDA card, in turns.
 
-    python3 -m loner_tpu_torch.analysis.ab_compare --other <dir> [--smoke] [--out <dir>]
+    python3 -m loner_tpu_torch.analysis.ab_compare --other <dir> [--iteration] [--smoke]
+        [--out <dir>]
 
 ``<dir>`` is another checkout (for example a ``git archive`` of the parent commit
 unpacked into a directory that ``.gitignore`` lists). Each measurement runs in its
@@ -15,7 +16,15 @@ other, so drift on the card shows as a difference between the two runs of a side
   from ``torch.profiler`` (no host packing). The composite kernel at
   ``COMPOSITE_SHAPES`` (softplus): the kernel alone through the side's C entry
   (``kernel_ms``) and the wrapper ``composite_cuda`` (median of 5 by CUDA
-  events), beside the HBM bound. One JSON line per run.
+  events), beside the HBM bound. The hash-grid encode (``hash_encode_fwd_cuda``,
+  ``hash_encode_bwd_cuda``) at the reference's grid, bf16, at ``SIZES`` points
+  in the order a mapping iteration gives them (``hash_points``: rays of 512
+  sorted samples) and at random points, by back-to-back calls (``kernel_ms``);
+  the backward also without dpos where the side has that variant (else its full
+  backward stands in). One JSON line per run.
+* ``--iteration``: ``profile_iteration.profile`` of this checkout, run against
+  each side's package, at the reference configuration: the W=8 iteration and the
+  W=1 bootstrap's (frozen poses).
 * ``--smoke``: each side's ``chip_smoke.py``, whole; the logs go to ``--out``.
 
 Needs a CUDA card; prints the card's name and power limit first.
@@ -24,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import inspect
 import json
 import os
 import re
@@ -138,6 +148,116 @@ def time_composite() -> dict:
     return out
 
 
+RAY_SAMPLES = 512  # samples a ray in a mapping iteration (N_samples_train)
+RAY_RANGE = (1.0, 10.0)  # metres, cfg/defaults.yaml
+
+
+def hash_points(n: int, order: str, seed: int = 21):
+    """(n, 3) f32 points in the hash encode's [0, 1] coordinates, as numpy.
+
+    ``random``: uniform over [-0.01, 1.01]^3, the first 64 at exactly 0 and the
+    next 64 at exactly 1. ``ray``: the order a mapping iteration gives the
+    encode, ray-major with each ray's samples sorted along it: rays of
+    ``RAY_SAMPLES`` samples from poses of the box room's trajectory in random
+    directions, spaced as the OGM sampler spaces them, half stratified over the
+    ray range and half within one occupancy voxel (1/100 of the world cube) of
+    the wall the ray hits, in the world cube that the SLAM run computes."""
+    import numpy as np
+
+    from loner_tpu_torch.common.world_cube import compute_world_cube
+    from loner_tpu_torch.datasets.synthetic import BoxRoomScene, make_trajectory
+
+    rng = np.random.default_rng(seed)
+    if order == "random":
+        pos = rng.uniform(-0.01, 1.01, (n, 3)).astype(np.float32)
+        pos[:64], pos[64:128] = 0.0, 1.0
+        return pos
+    if order != "ray":
+        raise ValueError(f"order is 'ray' or 'random', not {order!r}")
+    scene = BoxRoomScene()
+    poses, _ = make_trajectory(scene, 150)
+    cube = compute_world_cube(None, None, None, poses, RAY_RANGE)
+    to_slam = np.linalg.inv(poses[0])  # the cube's frame: poses zeroed at the first
+    n_rays, half = -(-n // RAY_SAMPLES), RAY_SAMPLES // 2
+    o = poses[rng.integers(0, len(poses), n_rays), :3, 3]
+    d = rng.normal(size=(n_rays, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    near, far = RAY_RANGE
+    hit = np.clip(scene.raycast(o, d), near, far)
+    strat = near + (far - near) * (np.arange(half) + rng.uniform(size=(n_rays, half))) / half
+    voxel = 2.0 * cube.scale_factor / 100.0
+    imp = np.clip(hit[:, None] + voxel * rng.uniform(-1.0, 1.0, (n_rays, half)), near, far)
+    z = np.sort(np.concatenate([strat, imp], axis=1), axis=1)
+    world = o[:, None, :] + d[:, None, :] * z[..., None]
+    slam = world @ to_slam[:3, :3].T + to_slam[:3, 3]
+    pos = 0.5 * (cube.to_cube(slam) + 1.0)
+    return pos.reshape(-1, 3)[:n].astype(np.float32)
+
+
+def hash_edge_points() -> dict:
+    """Edge cases of the hash kernels' warp-level work, name -> (n, 3) f32 points:
+    every lane of every warp on one index; runs of equal points across a warp
+    boundary (lanes 16-47) and a block boundary (points 100-163) inside
+    ray-ordered points; point counts that are no multiple of 32 or of a block;
+    coordinates at exactly 0 and 1, next to them and outside the unit cube."""
+    import numpy as np
+
+    runs = hash_points(4096, "ray", seed=3)
+    runs[16:48] = runs[16]
+    runs[100:164] = runs[100]
+    vals = np.array([-0.5, 0.0, 1e-7, 0.5, 1.0 - 6e-8, 1.0, 1.5], np.float32)
+    faces = np.stack(np.meshgrid(vals, vals, vals, indexing="ij"), axis=-1).reshape(-1, 3)
+    return {"one_index": np.tile(np.array([[0.3, 0.6, 0.2]], np.float32), (1000, 1)),
+            "runs_across_warps_and_blocks": runs,
+            "ragged_4133_random": hash_points(4133, "random", seed=4),
+            "ragged_1": hash_points(1, "ray", seed=6), "ragged_31": hash_points(31, "ray", seed=7),
+            "ragged_129": hash_points(129, "ray", seed=8), "faces_and_outside": faces}
+
+
+def time_hash() -> dict:
+    """Runs inside a side's process: its hash-grid encode wrappers, bf16, at the
+    reference's grid, at both point orders and ``SIZES``."""
+    import numpy as np
+    import torch
+
+    from loner_tpu_torch.models.hash_encoding import HashEncodingConfig
+    from loner_tpu_torch.ops import hash_grid as hg
+
+    dev = torch.device("cuda", 0)
+    cfg, bf = HashEncodingConfig(), torch.bfloat16
+    rng = np.random.default_rng(5)
+    table = torch.tensor(rng.uniform(-1e-2, 1e-2, (cfg.total_table_size, 2)).astype(np.float32),
+                         device=dev)
+    no_dpos = "need_dpos" in inspect.signature(hg.hash_encode_bwd_cuda).parameters
+    out = {}
+    for order in ("ray", "random"):
+        for n in SIZES:
+            pos = torch.tensor(hash_points(n, order), device=dev)
+            dout = rng.normal(size=(n, cfg.output_dim)) / n ** 0.5
+            dout = torch.tensor(dout.astype(np.float32), device=dev)
+            row = {"fwd_ms": kernel_ms(lambda: hg.hash_encode_fwd_cuda(table, pos, cfg, bf)),
+                   "fwd_f32_ms": kernel_ms(
+                       lambda: hg.hash_encode_fwd_cuda(table, pos, cfg, torch.float32)),
+                   "bwd_ms": kernel_ms(lambda: hg.hash_encode_bwd_cuda(table, pos, dout, cfg, bf))}
+            row["bwd_no_dpos_ms"] = kernel_ms(
+                lambda: hg.hash_encode_bwd_cuda(table, pos, dout, cfg, bf, need_dpos=False)
+            ) if no_dpos else row["bwd_ms"]
+            row["bwd_no_dpos_variant"] = no_dpos
+            out[f"hash_{order}_{n}"] = row
+            del pos, dout
+    return out
+
+
+def time_iteration() -> dict:
+    """Runs inside a side's process: this checkout's profile_iteration.profile on
+    the side's package, reference configuration, W=8 and the W=1 bootstrap."""
+    import runpy
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    prof = runpy.run_path(os.path.join(here, "profile_iteration.py"))["profile"]
+    return {"w8": prof("reference", 8), "w1_bootstrap": prof("reference", 1, freeze_poses=True)}
+
+
 def time_kernels() -> dict:
     """Runs inside a side's process: that side's wrappers, timed."""
     import numpy as np
@@ -186,6 +306,7 @@ def time_kernels() -> dict:
         out[f"peak_gb_{n}"] = torch.cuda.max_memory_allocated(dev) / 1e9
         torch.cuda.reset_peak_memory_stats(dev)
     out.update(time_composite())
+    out.update(time_hash())
     return out
 
 
@@ -204,6 +325,8 @@ def _side(root: str, args: list, log: str = None) -> str:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other", required=True, help="the other checkout's root")
+    parser.add_argument("--iteration", action="store_true",
+                        help="also profile the reference W=8 and W=1 iterations on each side")
     parser.add_argument("--smoke", action="store_true", help="also run each side's chip_smoke.py")
     parser.add_argument("--out", default="outputs/ab_compare", help="directory for the smoke logs")
     args = parser.parse_args()
@@ -223,6 +346,12 @@ def main() -> int:
                 f"m = runpy.run_path({script!r}); print(json.dumps(m['time_kernels']()))")
         line = _side(root, ["-c", code]).strip().splitlines()[-1]
         print(json.dumps({"turn": i, "side": name, "kernels": json.loads(line)}), flush=True)
+    if args.iteration:
+        for i, (name, root) in enumerate(turns):
+            code = (f"import sys; sys.path.insert(0, {root!r}); import json, runpy; "
+                    f"m = runpy.run_path({script!r}); print(json.dumps(m['time_iteration']()))")
+            line = _side(root, ["-c", code]).strip().splitlines()[-1]
+            print(json.dumps({"turn": i, "side": name, "iteration": json.loads(line)}), flush=True)
     if args.smoke:
         os.makedirs(args.out, exist_ok=True)
         for i, (name, root) in enumerate(turns):

@@ -287,9 +287,12 @@ def make_phase_runner(cfg: OptimizerConfig, field_cfg: FieldConfig, phase: Phase
             d = draws[i] if draws is not None else draw_step(generator, cfg, window_size, device)
             for p in params:
                 p.grad = None
-            total, aux = iteration_loss(cfg, field_cfg, sigma, occ, tw, field_params["intensity"],
-                                        buffers, world_scale, world_shift, d, float(i),
-                                        float(step0 + i))
+            # Frozen poses build the rays from detached twists, so nothing below
+            # the rays (the hash encode's dpos among it) is differentiated for them.
+            total, aux = iteration_loss(cfg, field_cfg, sigma, occ,
+                                        tw if optimize_poses else tw.detach(),
+                                        field_params["intensity"], buffers, world_scale,
+                                        world_shift, d, float(i), float(step0 + i))
             total.backward()
             # Freezing is a gradient mask: every parameter gets a gradient (zero
             # where frozen), so Adam's moments move as the JAX package's do.
@@ -297,8 +300,6 @@ def make_phase_runner(cfg: OptimizerConfig, field_cfg: FieldConfig, phase: Phase
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
             tw.grad.mul_(mask)
-            if not optimize_poses:
-                tw.grad.zero_()
             if not optimize_sigma:
                 for p in sigma_params:
                     p.grad.zero_()

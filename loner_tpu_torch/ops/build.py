@@ -6,6 +6,8 @@ a process asks for it, and loaded with ``ctypes``. The hash covers the source an
 the flags, so an edited source builds anew and an unchanged one is reused. The
 sources have a plain C interface and include no PyTorch header: ``nvcc`` takes
 seconds for them. ``build_all`` starts one ``nvcc`` for each source, all at once.
+``ptxas -v`` reports each kernel's registers, shared memory and spills; the
+report is kept beside the library (``ptxas_report``).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "loner_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -40,6 +42,11 @@ def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def ptxas_report(name: str) -> str:
+    """What ``ptxas -v`` said when ``csrc/<name>.cu`` was built."""
+    return _target(name).with_suffix(".ptxas.txt").read_text()
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> None:
@@ -64,6 +71,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> None:
         if proc.returncode != 0:
             failed.append(f"nvcc failed on csrc/{name}.cu:\n{stdout}\n{stderr}")
         else:
+            out.with_suffix(".ptxas.txt").write_text(stdout + stderr)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))

@@ -17,12 +17,25 @@ the levels), the kernel's order, so the plain version is the kernel's reference
 to the bit on the forward and dpos. Torch has no full uint32 arithmetic: the
 hash is taken in int64, and only its low ``log2_hashmap_size`` bits survive the
 mask, so the uint32 wrap of the prime products does not matter.
+
+The backward's dpos half is optional (``need_dpos``): points that need no
+gradient, as with frozen poses, skip it in both versions, and on the card the
+kernel then neither re-gathers the corners nor forms their dot products.
+
+On the card neither kernel is bound by HBM bytes or operations: the 29.7 MB
+table of the reference's grid stays in L2, and what counts is L2 gathers and,
+in the backward, float atomics that serialise where many lanes add to one entry,
+as the sorted samples of a ray do on the coarse levels. The kernels take blocks
+of consecutive points x all levels, a warp = 32 points of one level; the
+backward sums its atomics' terms over each run of lanes that share entries and
+adds a pair of x-neighbour entries with one 16-byte atomic where it can
+(``csrc/hash_grid.cu`` has the design and the levers tried; PERF.md the times).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,15 +45,17 @@ INDEX_LIMIT = 2 ** 31  # points x levels x 8 corners, and table entries x featur
 
 
 class LaunchCounts:
-    """Kernel launches made by the wrappers of this module."""
+    """Kernel launches made by the wrappers of this module. ``bwd_launches``
+    counts every backward launch; ``bwd_no_dpos_launches`` those of them that
+    skipped the position gradient."""
 
     def __init__(self) -> None:
-        self.fwd_launches = 0
-        self.bwd_launches = 0
+        self.reset()
 
     def reset(self) -> None:
         self.fwd_launches = 0
         self.bwd_launches = 0
+        self.bwd_no_dpos_launches = 0
 
 
 counts = LaunchCounts()
@@ -112,13 +127,17 @@ def hash_encode_fwd_plain(table: torch.Tensor, pos01: torch.Tensor, cfg,
 
 
 def hash_encode_bwd_plain(table: torch.Tensor, pos01: torch.Tensor, dout: torch.Tensor, cfg,
-                          dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the backward kernel: (dtable (T, F) f32, dpos (N, 3) f32)."""
+                          dtype: torch.dtype, need_dpos: bool = True
+                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain version of the backward kernel: (dtable (T, F) f32, dpos (N, 3) f32),
+    dpos None when ``need_dpos`` is False (then its half is not computed)."""
     n, n_levels, f_dim = pos01.shape[0], cfg.n_levels, cfg.n_features_per_level
     idx, w = corner_indices(pos01, cfg)
     g = dout.reshape(n, n_levels, 1, f_dim).to(torch.float32)
     dtable = torch.zeros(table.shape, dtype=torch.float32, device=table.device)
     dtable.index_add_(0, idx.reshape(-1), (w[..., None] * g).reshape(-1, f_dim))
+    if not need_dpos:
+        return dtable, None
 
     feats = table[idx]
     if dtype == torch.bfloat16:
@@ -240,22 +259,28 @@ def hash_encode_fwd_cuda(table: torch.Tensor, pos01: torch.Tensor, cfg,
 
 
 def hash_encode_bwd_cuda(table: torch.Tensor, pos01: torch.Tensor, dout: torch.Tensor, cfg,
-                         dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+                         dtype: torch.dtype, need_dpos: bool = True
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(dtable, dpos); dpos None, and neither re-gathered nor formed on the card,
+    when ``need_dpos`` is False."""
     n = _check_operands(table, pos01, cfg, dtype)
     if dout.shape != (n, cfg.output_dim) or dout.dtype != torch.float32 or (
             dout.device != pos01.device or not dout.is_contiguous() or dout.data_ptr() % 8):
         raise ValueError(f"dout must be ({n}, {cfg.output_dim}) float32, contiguous, on "
                          f"{pos01.device}; got {tuple(dout.shape)} {dout.dtype}")
     dtable = torch.zeros(table.shape, dtype=torch.float32, device=table.device)
-    dpos = torch.empty((n, 3), dtype=torch.float32, device=pos01.device)
+    dpos = torch.empty((n, 3), dtype=torch.float32, device=pos01.device) if need_dpos else None
     if n == 0:
         return dtable, dpos
     with torch.cuda.device(pos01.device):
         stream = torch.cuda.current_stream().cuda_stream
         _check(_lib().lt_hash_bwd(_ptr(pos01), _ptr(table), _ptr(dout), n, *_levels(cfg),
-                                  int(dtype == torch.bfloat16), _ptr(dtable), _ptr(dpos),
+                                  int(dtype == torch.bfloat16), _ptr(dtable),
+                                  _ptr(dpos) if need_dpos else ctypes.c_void_p(None),
                                   ctypes.c_void_p(stream)), "lt_hash_bwd")
     counts.bwd_launches += 1
+    if not need_dpos:
+        counts.bwd_no_dpos_launches += 1
     return dtable, dpos
 
 
@@ -290,7 +315,9 @@ class HashEncodeFunction(torch.autograd.Function):
         cfg, dtype, plain = ctx.meta
         table, pos01 = ctx.saved_tensors
         _, bwd = _select(pos01, plain)
-        dtable, dpos = bwd(table, pos01, dout.to(torch.float32).contiguous(), cfg, dtype)
+        # Points that need no gradient (frozen poses) skip the dpos half.
+        dtable, dpos = bwd(table, pos01, dout.to(torch.float32).contiguous(), cfg, dtype,
+                           need_dpos=ctx.needs_input_grad[1])
         return dtable, dpos, None, None, None
 
 

@@ -116,6 +116,40 @@ def test_training_encode_matches_hash_encode_vjp(name, dtype):
     assert np.all(pt.grad.numpy()[outside] == 0) and np.all(dpos_j[outside] == 0)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name", CONFIGS)
+def test_encode_of_points_without_gradient_skips_dpos(name, dtype, monkeypatch):
+    """Frozen poses: the points need no gradient, so the backward skips its dpos
+    half and gives the table the same gradient, JAX's hash_encode_vjp's."""
+    cj, ct = jh.HashEncodingConfig(**CONFIGS[name]), th.HashEncodingConfig(**CONFIGS[name])
+    pos, table, g = _inputs(cj, seed=5)
+    jdt = getattr(jnp, dtype)
+    dtable_j = np.asarray(jax.grad(lambda t: (jh.hash_encode_vjp(t, jnp.asarray(pos), cj, jdt, jdt)
+                                              * g).sum())(jnp.asarray(table)))
+    asked = []
+    plain_bwd = hash_grid.hash_encode_bwd_plain
+
+    def recording_bwd(*args, need_dpos=True):
+        asked.append(need_dpos)
+        return plain_bwd(*args, need_dpos=need_dpos)
+
+    monkeypatch.setattr(hash_grid, "hash_encode_bwd_plain", recording_bwd)
+    grads = {}
+    for needs_pos_grad in (True, False):
+        tt = torch.tensor(table, requires_grad=True)
+        pt = torch.tensor(pos, requires_grad=needs_pos_grad)
+        (th.hash_encode(tt, pt, ct, getattr(torch, dtype)) * torch.tensor(g)).sum().backward()
+        assert (pt.grad is not None) == needs_pos_grad
+        grads[needs_pos_grad] = tt.grad
+    assert asked == [True, False]
+    torch.testing.assert_close(grads[False], grads[True], rtol=0, atol=0)
+    np.testing.assert_allclose(grads[False].numpy(), dtable_j, rtol=1e-5, atol=1e-6)
+    dtable, dpos = plain_bwd(torch.tensor(table), torch.tensor(pos), torch.tensor(g), ct,
+                             getattr(torch, dtype), need_dpos=False)
+    assert dpos is None
+    torch.testing.assert_close(dtable, grads[True], rtol=0, atol=0)
+
+
 def test_cpu_tensors_take_the_plain_version_and_guards_raise_before_any_launch():
     ct = th.HashEncodingConfig(**CONFIGS["box_room_tiny"])
     pos, table, _ = _inputs(jh.HashEncodingConfig(**CONFIGS["box_room_tiny"]))

@@ -13,15 +13,18 @@ moves single points' gradients. Compositing (f32; the kernel's block scan
 multiplies in another order than cumprod): the tolerances of
 tests/test_pallas_ops.py, depth and opacity rtol/atol 2e-4, weights rtol 5e-3
 atol 2e-4, variance rtol 1e-3 atol 2e-4. Hash-grid encode (the same rounded f32
-operations in the same order as the plain version): features and dpos equal;
-the table gradient, summed by float atomics in an order that changes per run
-over up to ~10^4 terms an entry (cancelling sums, so no elementwise bound
-fits), relative L2 1e-5, as chip_smoke.py holds it.
+operations in the same order as the plain version): features and dpos equal,
+with dpos and without, at ray-ordered and random points and at the edge cases
+of the kernels' warp-level work; the table gradient, summed by float atomics
+(combined first over the lanes of a warp) in an order that changes per run over
+up to ~10^4 terms an entry (cancelling sums, so no elementwise bound fits),
+relative L2 1e-5, as chip_smoke.py holds it.
 """
 import numpy as np
 import pytest
 import torch
 
+from loner_tpu_torch.analysis.ab_compare import hash_edge_points, hash_points
 from loner_tpu_torch.models.hash_encoding import HashEncodingConfig
 from loner_tpu_torch.ops import composite as tc
 from loner_tpu_torch.ops import fourier_mlp as tfm
@@ -380,11 +383,12 @@ def test_composite_plan_fields_and_guard():
     assert tc.check_operands(z, z, far, far) == (2, 2 ** 31 - 8 * tc.MAX_THREADS)
 
 
-HASH_CASES = [  # (grid, points): box_room_tiny's and the reference's
+HASH_CASES = [  # (grid, points): box_room_tiny's and the reference's, and an odd level count
     (dict(n_levels=6, log2_hashmap_size=14, per_level_scale=1.5), 1),
     (dict(n_levels=6, log2_hashmap_size=14, per_level_scale=1.5), 70000),
     (dict(), 1000),
     (dict(), 262144),
+    (dict(n_levels=5, log2_hashmap_size=12, per_level_scale=1.7), 3001),
 ]
 
 
@@ -419,6 +423,24 @@ def test_hash_kernels_match_plain(cuda_device, grid, n, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hash_kernels_take_operands_that_are_only_8_byte_aligned(cuda_device, dtype):
+    """A table and an upstream gradient 8 bytes off a 16-byte boundary: no float4
+    pairs, 8-byte staging."""
+    cfg, table, pos, dout = _hash_operands({}, 3001, cuda_device, seed=5)
+    table8 = torch.empty((table.shape[0] + 1, 2), device=cuda_device)[1:]
+    dout8 = torch.empty(dout.numel() + 2, device=cuda_device)[2:].view(dout.shape)
+    table8.copy_(table)
+    dout8.copy_(dout)
+    assert table8.data_ptr() % 16 == 8 and dout8.data_ptr() % 16 == 8
+    assert torch.equal(thg.hash_encode_fwd_cuda(table8, pos, cfg, dtype),
+                       thg.hash_encode_fwd_plain(table, pos, cfg, dtype))
+    dtable_p, dpos_p = thg.hash_encode_bwd_plain(table, pos, dout, cfg, dtype)
+    dtable, dpos = thg.hash_encode_bwd_cuda(table8, pos, dout8, cfg, dtype)
+    assert torch.equal(dpos, dpos_p) and _rel_l2(dtable, dtable_p) <= 1e-5
+
+
+@pytest.mark.cuda
 def test_hash_autograd_takes_the_kernels_and_zero_points(cuda_device):
     cfg, table, pos, dout = _hash_operands({}, 5000, cuda_device, seed=3)
     table.requires_grad_(True)
@@ -447,3 +469,57 @@ def test_hash_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         thg.hash_encode_bwd_cuda(table, pos, dout[:, :8], cfg, torch.float32)
     with pytest.raises(ValueError):
         thg.hash_encode_fwd_cuda(table, pos.t().contiguous().t(), cfg, torch.float32)
+
+
+# The redesigned kernels' warp-level work: ray-ordered and random points at the
+# mapping path's counts and the edge cases of ab_compare.hash_edge_points.
+HASH_INPUTS = [("ray", 2097152), ("ray", 262144), ("random", 262144), ("one_index", 0),
+               ("runs_across_warps_and_blocks", 0), ("ragged_4133_random", 0), ("ragged_1", 0),
+               ("ragged_31", 0), ("ragged_129", 0), ("faces_and_outside", 0)]
+
+
+def _hash_input(case: str, n: int, device):
+    points = hash_points(n, case) if n else hash_edge_points()[case]
+    pos = torch.tensor(points, device=device)
+    gen = torch.Generator(device=device).manual_seed(9)
+    cfg = HashEncodingConfig()
+    table = torch.rand((cfg.total_table_size, 2), generator=gen, device=device) * 2e-2 - 1e-2
+    dout = torch.randn((pos.shape[0], cfg.output_dim), generator=gen, device=device)
+    return cfg, table, pos, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,n", HASH_INPUTS)
+def test_hash_kernels_match_plain_to_the_bit_with_and_without_dpos(cuda_device, case, n, dtype):
+    cfg, table, pos, dout = _hash_input(case, n, cuda_device)
+    out = thg.hash_encode_fwd_cuda(table, pos, cfg, dtype)
+    assert torch.equal(out, thg.hash_encode_fwd_plain(table, pos, cfg, dtype))
+    assert torch.equal(thg.hash_encode_fwd_cuda(table, pos, cfg, dtype), out)
+    dtable_p, dpos_p = thg.hash_encode_bwd_plain(table, pos, dout, cfg, dtype)
+    dtable, dpos = thg.hash_encode_bwd_cuda(table, pos, dout, cfg, dtype)
+    assert torch.equal(dpos, dpos_p)
+    assert _rel_l2(dtable, dtable_p) <= 1e-5
+    before = (thg.counts.bwd_launches, thg.counts.bwd_no_dpos_launches)
+    dtable_n, none = thg.hash_encode_bwd_cuda(table, pos, dout, cfg, dtype, need_dpos=False)
+    assert none is None and _rel_l2(dtable_n, dtable_p) <= 1e-5
+    assert (thg.counts.bwd_launches, thg.counts.bwd_no_dpos_launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+
+
+def test_hash_inputs_follow_the_rays_and_the_edge_cases():
+    ray = hash_points(4 * 512, "ray").reshape(4, 512, 3).astype(np.float64)
+    step = np.linalg.norm(ray - ray[:, :1], axis=-1)  # distance from each ray's first sample
+    assert np.all(np.diff(step, axis=1) >= -1e-6)  # sorted along the ray
+    direction = (ray[:, -1] - ray[:, 0]) / step[:, -1:]
+    off_line = ray - ray[:, :1] - step[..., None] * direction[:, None]
+    assert np.abs(off_line).max() < 1e-5  # one straight ray of 512 samples
+    assert ray.min() > -0.1 and ray.max() < 1.1
+    rnd = hash_points(1000, "random")
+    assert rnd.dtype == np.float32 and np.all(rnd[:64] == 0) and np.all(rnd[64:128] == 1)
+    assert rnd.min() >= -0.01 and rnd.max() <= 1.01
+    edges = hash_edge_points()
+    assert [len(edges[c]) for c, _ in HASH_INPUTS[3:]] == [1000, 4096, 4133, 1, 31, 129, 343]
+    runs = edges["runs_across_warps_and_blocks"]
+    assert np.all(runs[16:48] == runs[16]) and np.all(runs[100:164] == runs[100])
+    assert {0.0, 1.0} <= set(edges["faces_and_outside"].ravel().tolist())

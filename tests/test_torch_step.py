@@ -19,7 +19,9 @@
   Adam's first steps are about lr sign(g), so a weight or entry whose gradient
   is a near-cancelling sum of a few points' terms (near Adam's eps, 1e-8) moves
   by a different fraction of lr in each package (measured: 24 of 172,148
-  entries past 5e-6, at most 2.7e-4).
+  entries past 5e-6, at most 2.7e-4). The same phase with frozen poses (the
+  W=1 bootstrap's kind), at the same tolerances, twists unchanged in both: the
+  port's hash backward then runs without its dpos half.
 - The import boundary: the port runs a step, renders a map cloud from a
   checkpoint it wrote, and runs a tiny single-threaded SLAM trial through
   ``run_trial`` (at chip_smoke.py's settings, cut down), each with the Fourier
@@ -50,6 +52,7 @@ from loner_tpu_torch.mapping import rays as trays
 from loner_tpu_torch.models import field as tfield
 from loner_tpu_torch.models.hash_encoding import HashEncodingConfig as THash
 from loner_tpu_torch.models.proposal import ProposalConfig as TProp
+from loner_tpu_torch.ops import hash_grid as thash_grid
 
 torch.set_num_threads(1)
 
@@ -225,8 +228,9 @@ def test_run_phase_matches_jax_over_three_iterations(strategy, lr_gamma, pose_ma
         np.testing.assert_array_equal(prop_t["bmat"].numpy(), prop_np["bmat"])
 
 
-@pytest.mark.parametrize("encode_impl", ["vjp_f32", "vjp_bf16"])
-def test_run_phase_at_ogm_and_hash_matches_jax(encode_impl):
+def _ogm_hash_phases(encode_impl: str, freeze_poses: bool):
+    """Both packages' OGM + hash phase over ITERS iterations from global step 9, on
+    the same draws: (twists in, params in, grid in, JAX's results, the port's)."""
     cfg_j, cfg_t, fcfg_j, fcfg_t = _hash_configs(encode_impl)
     dirs, depths, twists = _scans(W, seed=3)
     params = jfield.init_field_params(jax.random.key(2), fcfg_j)
@@ -235,35 +239,69 @@ def test_run_phase_at_ogm_and_hash_matches_jax(encode_impl):
     key, step0 = jax.random.key(9), 9  # global steps 9, 10, 11: the grid moves at 10
 
     bj = jrays.build_window_buffers(dirs, depths, [None] * W, W)
-    run_j = jopt.make_phase_runner(cfg_j, fcfg_j, jopt.PhaseSettings(num_iterations=ITERS), W,
-                                   bj.dirs.shape[1], bj.sky_dirs.shape[1])
-    field_j, grid_j, tw_j, losses_j, eps_j = run_j(
-        params, jnp.asarray(grid), jnp.asarray(twists), bj, jnp.ones(W),
-        jnp.asarray(12.0, jnp.float32), jnp.zeros(3), step0, key, num_iterations=ITERS)
+    phase_j = jopt.PhaseSettings(num_iterations=ITERS, freeze_poses=freeze_poses)
+    run_j = jopt.make_phase_runner(cfg_j, fcfg_j, phase_j, W, bj.dirs.shape[1],
+                                   bj.sky_dirs.shape[1])
+    out_j = run_j(params, jnp.asarray(grid), jnp.asarray(twists), bj, jnp.ones(W),
+                  jnp.asarray(12.0, jnp.float32), jnp.zeros(3), step0, key, num_iterations=ITERS)
 
     bt = trays.build_window_buffers(dirs, depths, [None] * W, W, device=CPU)
-    run_t = topt.make_phase_runner(cfg_t, fcfg_t, topt.PhaseSettings(num_iterations=ITERS), W,
-                                   bt.dirs.shape[1], bt.sky_dirs.shape[1], CPU)
-    field_t, grid_t, tw_t, losses_t, eps_t = run_t(
+    phase_t = topt.PhaseSettings(num_iterations=ITERS, freeze_poses=freeze_poses)
+    run_t = topt.make_phase_runner(cfg_t, fcfg_t, phase_t, W, bt.dirs.shape[1],
+                                   bt.sky_dirs.shape[1], CPU)
+    out_t = run_t(
         convert.field_params_from_jax(params_np, CPU), convert.occ_grid_from_jax(grid, CPU),
         convert.twists_from_jax(twists, CPU), bt, torch.ones(W), torch.tensor(12.0),
         torch.zeros(3), step0, None, num_iterations=ITERS, draws=_jax_draws(key, ITERS, True))
+    return twists, params_np, grid, out_j, out_t, cfg_t.lr_sigma
 
+
+def _assert_ogm_hash_phases_match(params_np, grid, out_j, out_t, lr_sigma):
+    """Losses, twists, MLP, table and grid of the two packages' phases, within the
+    module docstring's tolerances."""
+    field_j, grid_j, tw_j, losses_j, eps_j = out_j
+    field_t, grid_t, tw_t, losses_t, eps_t = out_t
     np.testing.assert_allclose(losses_t.numpy(), np.asarray(losses_j), rtol=2e-5)
     np.testing.assert_allclose(eps_t.numpy(), np.asarray(eps_j), rtol=2e-5)
     np.testing.assert_allclose(tw_t.numpy(), np.asarray(tw_j), atol=5e-6)
-    assert np.abs(tw_t.numpy() - twists).max() > 1e-4
     for k, v in field_j["sigma"]["mlp"].items():
         np.testing.assert_allclose(field_t["sigma"]["mlp"][k].numpy(), np.asarray(v), atol=5e-5,
                                    err_msg=k)
     table_j = np.asarray(field_j["sigma"]["table"])
     diff = np.abs(field_t["sigma"]["table"].numpy() - table_j)
-    assert np.quantile(diff, 0.999) <= 5e-6 and diff.max() <= 0.05 * cfg_t.lr_sigma, diff.max()
+    assert np.quantile(diff, 0.999) <= 5e-6 and diff.max() <= 0.05 * lr_sigma, diff.max()
     assert np.abs(table_j - params_np["sigma"]["table"]).max() > 1e-3
     np.testing.assert_allclose(grid_t.numpy(), np.asarray(grid_j), atol=5e-5)
     assert np.abs(np.asarray(grid_j) - grid).max() > 1e-3  # the update at step 10
     np.testing.assert_array_equal(field_t["intensity"]["table"].numpy(),
                                   params_np["intensity"]["table"])
+
+
+@pytest.mark.parametrize("encode_impl", ["vjp_f32", "vjp_bf16"])
+def test_run_phase_at_ogm_and_hash_matches_jax(encode_impl):
+    twists, params_np, grid, out_j, out_t, lr_sigma = _ogm_hash_phases(encode_impl, False)
+    _assert_ogm_hash_phases_match(params_np, grid, out_j, out_t, lr_sigma)
+    assert np.abs(out_t[2].numpy() - twists).max() > 1e-4
+
+
+@pytest.mark.parametrize("encode_impl", ["vjp_f32", "vjp_bf16"])
+def test_frozen_pose_phase_at_ogm_and_hash_matches_jax_without_dpos(encode_impl, monkeypatch):
+    """The W=1 bootstrap's kind of phase: poses frozen. The port builds its rays
+    from detached twists, so the hash backward runs without its dpos half; the
+    results still match JAX's, which masks the twist gradient instead."""
+    asked = []
+    plain_bwd = thash_grid.hash_encode_bwd_plain
+
+    def recording_bwd(*args, need_dpos=True):
+        asked.append(need_dpos)
+        return plain_bwd(*args, need_dpos=need_dpos)
+
+    monkeypatch.setattr(thash_grid, "hash_encode_bwd_plain", recording_bwd)
+    twists, params_np, grid, out_j, out_t, lr_sigma = _ogm_hash_phases(encode_impl, True)
+    assert asked == [False] * ITERS
+    _assert_ogm_hash_phases_match(params_np, grid, out_j, out_t, lr_sigma)
+    np.testing.assert_array_equal(out_t[2].numpy(), twists)
+    np.testing.assert_array_equal(np.asarray(out_j[2]), twists)
 
 
 def test_make_phase_runner_rejects_what_is_not_ported():
