@@ -61,6 +61,19 @@ nothing of JAX. Phases, each of which raises on failure:
    cfg/synthetic/box_room.yaml (hash sigma field through the hash kernels, OGM
    sampler), with the hash kernels' launches, the backward's split between its
    variant without dpos (the frozen-pose bootstrap) and the one with dpos.
+12. Dispatch, graphs against eager: the flagship's and the reference's
+   iterations at W=1 (frozen poses) and W=8 through the captured CUDA graphs
+   and through the explicit eager loop (``make_phase_runner(...,
+   graphs=False)``), 7 iterations at k = 3 from one seed, the reference from a
+   global step that puts the OGM step inside a dispatch: the flagship equal to
+   the bit, the reference within DISPATCH_REF_TOL; ms an iteration and the
+   device's busy share both ways.
+
+The mapping iteration and the ICP schedule run as CUDA graphs wherever the
+port runs them (phases 4, 9, 11: ``steps_per_dispatch`` replays a dispatch);
+each SLAM run prints its graphs' captures and memory pools, and the ICP check
+of phase 9 holds the tracker's ICP graph to the eager dispatch. Launch counts
+count replays (``common/cuda_graphs.py``).
 
 Each path sets every launch count to 0 just before it runs and reads them just
 after. The second-to-last line of output is a JSON record of the kernels; the
@@ -389,6 +402,7 @@ def library_ms(ws, bs, bmat, pts01, dout) -> dict:
 def run_slice(dev, cfg, field_cfg, n_iters: int = 20, w: int = WINDOW) -> dict:
     from dataclasses import replace
 
+    from loner_tpu_torch.common.cuda_graphs import pool_bytes
     from loner_tpu_torch.mapping.optimizer import (
         PhaseSettings, draw_step, iteration_loss, make_phase_runner,
     )
@@ -430,7 +444,9 @@ def run_slice(dev, cfg, field_cfg, n_iters: int = 20, w: int = WINDOW) -> dict:
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = {"fourier_mlp_fwd": fm.counts.fwd_launches, "fourier_mlp_bwd": fm.counts.bwd_launches}
+    # The iteration's temporaries live in the graphs' pool, reserved at capture.
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    pool_gb = pool_bytes(run_phase.pool) / 1e9
 
     if losses.shape != (n_iters,) or eps.shape != (n_iters,):
         raise RuntimeError(f"run_phase returned {tuple(losses.shape)} losses for {n_iters} iterations")
@@ -448,7 +464,8 @@ def run_slice(dev, cfg, field_cfg, n_iters: int = 20, w: int = WINDOW) -> dict:
     rays = w * cfg.n_lidar_samples
     print(f"slice: {n_iters} iterations, {ms_it:.3f} ms/iteration, "
           f"{rays / (ms_it / 1e3):.1f} mapped rays/s, {rays * cfg.n_samples_per_ray} field "
-          f"points/iteration, peak device memory {peak_gb:.3f} GB, launches {launches}, "
+          f"points/iteration, peak device memory {peak_gb:.3f} GB outside the graphs' pool of "
+          f"{pool_gb:.3f} GB, launches {launches}, "
           f"losses first/last {float(losses[0]):.4f}/{float(losses[-1]):.4f}", flush=True)
 
     # One iteration, kernel against plain sigma path: same params, same draws.
@@ -1026,10 +1043,15 @@ def write_slam_dataset(root: str):
 def check_icp_card_against_cpu(dev, dataset: str) -> dict:
     """One real frame pair (scans 0 and 2, the 5 Hz decimation) at 5120 points
     through run_icp_schedule on the card and on the CPU; one dispatch on the
-    tracker's kind of stream under torch.cuda.set_sync_debug_mode("error")."""
+    tracker's kind of stream under torch.cuda.set_sync_debug_mode("error"); the
+    tracker's ICPGraph of the same schedule, captured on that stream, equal to
+    the eager dispatch to the bit, with a host init and chained; its time behind
+    two kinds of backlog on the default stream, replayed on the tracker's
+    high-priority stream and on one of default priority, beside the eager
+    dispatch's and the backlog's own."""
     from loner_tpu_torch.common.frame import Frame
     from loner_tpu_torch.datasets.scan_stream import ScanStreamReader
-    from loner_tpu_torch.tracking.icp import run_icp_schedule
+    from loner_tpu_torch.tracking.icp import ICPGraph, run_icp_schedule
 
     reader = ScanStreamReader(dataset)
     tgt, src = (Frame(reader.read_scan(i)).build_point_cloud(scan_duration=0.9, target_points=5000)
@@ -1057,15 +1079,78 @@ def check_icp_card_against_cpu(dev, dataset: str) -> dict:
         host_ms = 1e3 * (time.perf_counter() - t0)
         torch.cuda.synchronize()
         device_ms = start.elapsed_time(end)
+        # The tracker's graph of the same schedule: equal to the eager dispatch.
+        graph = ICPGraph(dev, schedule, pad_size=5120)
+        graph.capture()
+        replayed = graph(src, tgt, None)
+        chained_graph = graph(src, tgt, replayed.transformation)
+        eager = torch.cat([card.transformation.reshape(16), card.fitness.reshape(1),
+                           chained.transformation.reshape(16), chained.fitness.reshape(1)])
+        graphed = torch.cat([replayed.transformation.reshape(16), replayed.fitness.reshape(1),
+                             chained_graph.transformation.reshape(16),
+                             chained_graph.fitness.reshape(1)])
+        same = torch.equal(eager, graphed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        graph(src, tgt, None)
+        end.record()
+        graph_host_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        graph_device_ms = start.elapsed_time(end)
+
+        # Priority: the ICP behind a backlog on the default stream, of 60 bf16
+        # 8192^2 products or of 500 elementwise kernels of many short blocks;
+        # the graph replayed on the tracker's high-priority stream and on one
+        # of default priority, and the eager dispatch on the high-priority one.
+        big = torch.randn(8192, 8192, device=dev, dtype=torch.bfloat16)
+        vec = torch.zeros(1 << 26, device=dev)
+        backlogs = {"products": lambda: [big @ big for _ in range(60)],
+                    "elementwise": lambda: [vec.add_(1.0) for _ in range(500)]}
+        low = torch.cuda.Stream(dev, priority=0)
+        runs = {"alone": (None, None), "graph high": (stream, lambda: graph(src, tgt, None)),
+                "graph default": (low, lambda: graph(src, tgt, None)),
+                "eager high": (stream, lambda: run_icp_schedule(src, tgt, schedule,
+                                                                pad_size=5120, device=dev))}
+
+        def under_backlog(fill, s, icp) -> float:
+            torch.cuda.synchronize()
+            with torch.cuda.stream(torch.cuda.default_stream(dev)):
+                if icp is None:  # the backlog alone
+                    start.record()
+                fill()
+                if icp is None:
+                    end.record()
+            if icp is not None:
+                with torch.cuda.stream(s):
+                    start.record()
+                    icp()
+                    end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end)
+
+        backlog_ms = {}
+        for kind, fill in backlogs.items():
+            under_backlog(fill, stream, runs["graph high"][1])  # warm-up
+            for name, (s, icp) in runs.items():
+                backlog_ms[f"{kind}: {name}"] = under_backlog(fill, s, icp)
+        del big, vec
     t_cpu = run_icp_schedule(src, tgt, schedule, pad_size=5120,
                              device=torch.device("cpu")).transformation.numpy()
     err = float(np.abs(t_card - t_cpu).max())
     print(f"ICP card vs CPU, one frame pair at 5120 points: max |dT| {err:.3e} (tolerance "
           f"{ICP_CARD_CPU_TOL}), no host sync in a dispatch; one dispatch {host_ms:.3f} ms on "
-          f"the host, {device_ms:.3f} ms on the card (CUDA events)", flush=True)
+          f"the host, {device_ms:.3f} ms on the card (CUDA events); as one CUDA graph "
+          f"{graph_host_ms:.3f} / {graph_device_ms:.3f} ms, transform and fitness equal to the "
+          f"eager dispatch's (and chained): {same}; behind a backlog on the default stream, "
+          f"ms: {json.dumps(backlog_ms)}", flush=True)
     if not err <= ICP_CARD_CPU_TOL:
         raise RuntimeError(f"ICP on the card disagrees with the CPU: {err}")
-    return {"icp_card_cpu_err": err, "icp_host_ms": host_ms, "icp_device_ms": device_ms}
+    if not same:
+        raise RuntimeError("the ICP graph disagrees with the eager dispatch")
+    return {"icp_card_cpu_err": err, "icp_host_ms": host_ms, "icp_device_ms": device_ms,
+            "icp_graph_host_ms": graph_host_ms, "icp_graph_device_ms": graph_device_ms,
+            "icp_graph_backlog_ms": backlog_ms}
 
 
 def check_map_depth(dev, log_dir: str, scene, gt0: np.ndarray, kernels, compositor) -> dict:
@@ -1193,6 +1278,15 @@ def run_slam(dev, label: str, settings: dict, train_kernels, map_kernels, compos
         if any(d != dev for d in placed.values()):
             raise RuntimeError(f"SLAM tensors not on {dev}: {placed}")
 
+        from loner_tpu_torch.common.cuda_graphs import pool_bytes
+
+        opt = loner.mapper.optimizer
+        graphs = {"mapper_captures": opt.graph_captures, "mapper_late_captures": opt.late_captures,
+                  "mapper_pool_gb": pool_bytes(opt.graph_pool) / 1e9,
+                  "icp_captures": loner.tracker.icp_graph.captures,
+                  "icp_pool_gb": pool_bytes(loner.tracker.icp_graph.pool()) / 1e9}
+        print(f"SLAM {label} CUDA graphs: {json.dumps(graphs)}", flush=True)
+
         runtime = float(open(os.path.join(log_dir, "runtime.txt")).read().split()[1])
         seq_s = float(ts[-1] - ts[0]) + 0.1
         timing = np.loadtxt(os.path.join(log_dir, "timing.csv"), delimiter=",", ndmin=2)
@@ -1229,8 +1323,168 @@ def run_slam(dev, label: str, settings: dict, train_kernels, map_kernels, compos
         if measure_test_chunk:
             test_chunk_memory(dev, log_dir)
     return {"launches": launches, "counts": counts, "map_launches": mapped["launches"],
+            "graphs": graphs, "track_p50_ms": 1e3 * float(np.median(track[:, 0])),
+            "track_p95_ms": 1e3 * float(np.quantile(track[:, 0], 0.95)), "peak_gb": peak_gb,
             "rtf": seq_s / runtime, "boot_ms": boot_ms, "win_ms": win_ms, "iterations": its,
             "boot_iterations": int(timing[0, 0]), **icp}
+
+
+DISPATCH_ITERS, DISPATCH_K = 7, 3  # two dispatches of 3 iterations, then one single step
+DISPATCH_STEP0 = {"flagship": 0, "reference": 9}  # reference: global steps 9-15, the OGM
+# step at 10, the middle of the first dispatch
+# Reference, graphs against eager and against graphs again: the largest relative
+# difference of a loss or depth_eps, and the relative L2 difference of a
+# parameter's update over the phase. The hash table's gradient and the OGM grid's
+# are sums of float atomics, in an order that changes from run to run, and Adam
+# moves an entry whose gradient nearly cancels by about lr in either direction;
+# two runs through graphs differ as much as graphs and eager (on an H100: losses
+# 4e-4, depth_eps 9e-4, grid 1.1e-7, MLP 0.016, table 0.14, twists 0.79). The
+# bounds are 3-6x those spreads; the twists' update is not held.
+DISPATCH_REF_TOL = {"losses": 3e-3, "depth_eps": 3e-3, "OGM grid": 1e-4, "hash table": 0.5,
+                    "sigma w0": 0.1, "sigma w1": 0.1}
+DISPATCH_TIMED = 30  # iterations timed each way
+DISPATCH_PROFILED = 6  # iterations under the profiler each way
+
+
+def synthetic_window(dev, w: int):
+    """A window of ``w`` keyframes of 65,536 unit directions and depths in [1.5,
+    9.5] m, and twists, from a seed (the slice's and profile_iteration's)."""
+    from loner_tpu_torch.mapping.rays import build_window_buffers
+
+    rng = np.random.default_rng(0)
+    dirs, depths = [], []
+    for _ in range(w):
+        d = rng.normal(size=(3, 65536))
+        d /= np.linalg.norm(d, axis=0, keepdims=True)
+        dirs.append(d.astype(np.float32))
+        depths.append(rng.uniform(1.5, 9.5, 65536).astype(np.float32))
+    buffers = build_window_buffers(dirs, depths, [None] * w, w, device=dev)
+    twists = torch.from_numpy(rng.normal(0, 0.02, (w, 6)).astype(np.float32)).to(dev)
+    return buffers, twists
+
+
+def phase_outputs(out) -> dict:
+    """A run_phase result as named tensors."""
+    field, occ, twists, losses, eps = out
+    named = {"losses": losses, "depth_eps": eps, "twists": twists}
+    named.update({f"sigma {k}": v for k, v in field["sigma"]["mlp"].items()})
+    if "table" in field["sigma"]:
+        named["hash table"] = field["sigma"]["table"]
+    if isinstance(occ, dict):
+        named.update({f"proposal {k}": v for k, v in occ.items()})
+    elif occ is not None:
+        named["OGM grid"] = occ
+    return named
+
+
+def profiled_ms(fn, n: int) -> tuple:
+    """(device ms an iteration, busy share of the traced wall) of ``fn()``, which
+    runs ``n`` iterations, under torch.profiler."""
+    from loner_tpu_torch.analysis.profile_iteration import device_events
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    device = sum(e.device_time_total for e in device_events(prof)) / 1e3
+    return device / n, device / wall
+
+
+def check_dispatch(dev) -> dict:
+    """Phase 12: the flagship's and the reference's iterations at W=1 (frozen
+    poses, the bootstrap's kind) and W=8 through the captured graphs and
+    through the explicit eager loop, from one seed: 7 iterations at k = 3 (two
+    dispatches and a single step); the graph runner run twice. The flagship
+    must agree to the bit; the reference's hash and grid gradients are summed
+    by float atomics, so it is held to DISPATCH_REF_TOL, both against eager and
+    against the graphs' second run. Then ms an iteration and the device's busy
+    share both ways."""
+    from dataclasses import replace
+
+    from loner_tpu_torch.analysis.profile_iteration import configs
+    from loner_tpu_torch.mapping.optimizer import Optimizer, PhaseSettings, make_phase_runner
+
+    record, failures = {}, []
+    for config in ("flagship", "reference"):
+        cfg, field_cfg = configs(config)
+        cfg = replace(cfg, steps_per_dispatch=DISPATCH_K)
+        step0 = DISPATCH_STEP0[config]
+        for w, frozen in ((1, True), (8, False)):
+            buffers, twists = synthetic_window(dev, w)
+            state = Optimizer(cfg, field_cfg, 12.0, np.zeros(3), [], dev).state
+            phase = PhaseSettings(freeze_poses=frozen)
+            runners = {mode: make_phase_runner(cfg, field_cfg, phase, w, buffers.dirs.shape[1],
+                                               buffers.sky_dirs.shape[1], dev,
+                                               graphs=mode == "graphs")
+                       for mode in ("graphs", "eager")}
+            common = (twists, buffers, torch.ones(w, device=dev), torch.tensor(12.0, device=dev),
+                      torch.zeros(3, device=dev))
+
+            def run(mode, n, s0=step0, seed=1):
+                return runners[mode](state.field_params, state.occ_grid, *common, s0,
+                                     torch.Generator(device=dev).manual_seed(seed),
+                                     num_iterations=n)
+
+            outs = {"graphs": phase_outputs(run("graphs", DISPATCH_ITERS)),
+                    "eager": phase_outputs(run("eager", DISPATCH_ITERS)),
+                    "graphs again": phase_outputs(run("graphs", DISPATCH_ITERS))}
+            before = phase_outputs((state.field_params, state.occ_grid, twists,
+                                    torch.zeros(0, device=dev), torch.zeros(0, device=dev)))
+            diffs = {}
+            for other in ("eager", "graphs again"):
+                for name, t in outs["graphs"].items():
+                    u = outs[other][name]
+                    if name in ("losses", "depth_eps"):
+                        err = float(((t - u).abs() / u.abs().clamp_min(1e-30)).max())
+                    else:  # relative L2 of the parameter's update over the phase
+                        base = before[name]
+                        err = rel_l2(t - base, u - base)
+                    diffs.setdefault(other, {})[name] = err
+                bits = all(torch.equal(t, outs[other][name]) for name, t in outs["graphs"].items())
+                diffs[other]["equal bits"] = bits
+            finite = all(bool(torch.isfinite(t).all()) for t in outs["graphs"].values())
+            label = f"{config} W={w}{' frozen poses' if frozen else ''}"
+            print(f"dispatch {label}: {DISPATCH_ITERS} iterations at k = {DISPATCH_K}, global "
+                  f"steps {step0}-{step0 + DISPATCH_ITERS - 1}; graphs vs eager: "
+                  f"{json.dumps(diffs['eager'])}; graphs vs graphs: "
+                  f"{json.dumps(diffs['graphs again'])}", flush=True)
+            if not finite:
+                failures.append(f"{label}: non-finite outputs through graphs")
+            for other in ("eager", "graphs again"):
+                if config == "flagship" and not diffs[other]["equal bits"]:
+                    failures.append(f"{label}: graphs and {other} differ")
+                for name, tol in DISPATCH_REF_TOL.items():
+                    if config == "reference" and not diffs[other][name] <= tol:
+                        failures.append(f"{label}: {name} differs by {diffs[other][name]} "
+                                        f"(graphs vs {other}, tolerance {tol})")
+
+            timing = {}
+            for mode in ("graphs", "eager"):
+                run(mode, DISPATCH_K)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(mode, DISPATCH_TIMED)
+                torch.cuda.synchronize()
+                host = 1e3 * (time.perf_counter() - t0) / DISPATCH_TIMED
+                device, busy = profiled_ms(lambda m=mode: run(m, DISPATCH_PROFILED),
+                                           DISPATCH_PROFILED)
+                timing[mode] = {"host_ms": host, "device_ms": device, "busy": busy}
+            print(f"dispatch {label}: ms an iteration (host clock, {DISPATCH_TIMED} "
+                  f"iterations) graphs {timing['graphs']['host_ms']:.3f}, eager "
+                  f"{timing['eager']['host_ms']:.3f}; device ms (profiler, "
+                  f"{DISPATCH_PROFILED} iterations) {timing['graphs']['device_ms']:.3f} / "
+                  f"{timing['eager']['device_ms']:.3f}, busy share "
+                  f"{timing['graphs']['busy']:.3f} / {timing['eager']['busy']:.3f}; "
+                  f"captures {runners['graphs'].captures}", flush=True)
+            record[label] = {"diffs": diffs, "timing": timing}
+            del runners, outs
+            torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError("dispatch: " + "; ".join(failures))
+    return record
 
 
 def main() -> int:
@@ -1298,6 +1552,7 @@ def main() -> int:
         raise RuntimeError("the hash backward's launches do not split between the frozen-pose "
                            "bootstrap (without dpos) and the windows (with it)")
     kernels += hash_kernels
+    check_dispatch(dev)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

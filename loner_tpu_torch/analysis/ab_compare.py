@@ -23,8 +23,9 @@ other, so drift on the card shows as a difference between the two runs of a side
   the backward also without dpos where the side has that variant (else its full
   backward stands in). One JSON line per run.
 * ``--iteration``: ``profile_iteration.profile`` of this checkout, run against
-  each side's package, at the reference configuration: the W=8 iteration and the
-  W=1 bootstrap's (frozen poses).
+  each side's package, at the reference and the flagship configurations: the W=8
+  iteration and the W=1 bootstrap's (frozen poses), each through the eager loop
+  and, on a side that has them, through CUDA graphs (k replays a dispatch).
 * ``--smoke``: each side's ``chip_smoke.py``, whole; the logs go to ``--out``.
 
 Needs a CUDA card; prints the card's name and power limit first.
@@ -250,12 +251,23 @@ def time_hash() -> dict:
 
 def time_iteration() -> dict:
     """Runs inside a side's process: this checkout's profile_iteration.profile on
-    the side's package, reference configuration, W=8 and the W=1 bootstrap."""
+    the side's package, both configurations, W=8 and the W=1 bootstrap, through
+    the eager loop and, where the side has them, through CUDA graphs."""
     import runpy
+
+    from loner_tpu_torch.mapping.optimizer import make_phase_runner
 
     here = os.path.dirname(os.path.abspath(__file__))
     prof = runpy.run_path(os.path.join(here, "profile_iteration.py"))["profile"]
-    return {"w8": prof("reference", 8), "w1_bootstrap": prof("reference", 1, freeze_poses=True)}
+    modes = ("eager", "graphs") if "graphs" in inspect.signature(
+        make_phase_runner).parameters else ("eager",)
+    out = {}
+    for config in ("reference", "flagship"):
+        for name, w, frozen in (("w8", 8, False), ("w1_bootstrap", 1, True)):
+            for mode in modes:
+                out[f"{config}_{name}_{mode}"] = prof(config, w, freeze_poses=frozen,
+                                                      graphs=mode == "graphs")
+    return out
 
 
 def time_kernels() -> dict:
@@ -326,7 +338,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other", required=True, help="the other checkout's root")
     parser.add_argument("--iteration", action="store_true",
-                        help="also profile the reference W=8 and W=1 iterations on each side")
+                        help="also profile the W=8 and W=1 iterations on each side, eager "
+                        "and through graphs")
     parser.add_argument("--smoke", action="store_true", help="also run each side's chip_smoke.py")
     parser.add_argument("--out", default="outputs/ab_compare", help="directory for the smoke logs")
     args = parser.parse_args()

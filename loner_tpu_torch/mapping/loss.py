@@ -68,7 +68,9 @@ def compute_lidar_loss(rays, depths_cube, valid, field_params, field_cfg, sample
                        pdf_u: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Render the batch and assemble the total loss. Returns (loss, aux).
-    ``jitter`` and ``pdf_u`` are the sampler's draws, ``noise`` the sigma noise."""
+    ``jitter`` and ``pdf_u`` are the sampler's draws, ``noise`` the sigma noise.
+    ``iteration_idx`` and ``global_step`` are numbers or device scalars (a
+    captured iteration reads them from the device)."""
     far = rays[:, 10]
     depths_gt_m = depths_cube * world_scale  # meters
     transparent = depths_cube > far
@@ -102,14 +104,10 @@ def compute_lidar_loss(rays, depths_cube, valid, field_params, field_cfg, sample
         weights_gt = get_weights_gt(z_m, depths_gt_m[:, None], eps=eps_dyn)
     elif sel in ("L1_LOS", "L2_LOS"):
         if cfg.decay_depth_eps:
-            depth_eps = torch.clamp(
-                torch.as_tensor(
-                    cfg.depth_eps * cfg.depth_eps_decay_rate
-                    ** (iteration_idx / cfg.depth_eps_decay_steps),
-                    dtype=z_m.dtype, device=z_m.device,
-                ),
-                min=cfg.min_depth_eps,
-            )
+            decayed = cfg.depth_eps * cfg.depth_eps_decay_rate ** (
+                iteration_idx / cfg.depth_eps_decay_steps)
+            depth_eps = torch.clamp(torch.as_tensor(decayed, dtype=z_m.dtype, device=z_m.device),
+                                    min=cfg.min_depth_eps)
         else:
             depth_eps = torch.as_tensor(cfg.depth_eps, dtype=z_m.dtype, device=z_m.device)
         weights_gt = get_weights_gt(z_m, depths_gt_m[:, None], eps=depth_eps)
@@ -120,11 +118,11 @@ def compute_lidar_loss(rays, depths_cube, valid, field_params, field_cfg, sample
     weights_gt = torch.where(opaque[:, None], weights_gt, 0.0)
 
     if cfg.decay_los_lambda:
-        los_lambda = max(
-            cfg.los_lambda * cfg.los_lambda_decay_rate
-            ** ((global_step + 1.0) / cfg.los_lambda_decay_steps),
-            cfg.min_los_lambda,
-        )
+        los_lambda = cfg.los_lambda * cfg.los_lambda_decay_rate ** (
+            (global_step + 1.0) / cfg.los_lambda_decay_steps)
+        los_lambda = (torch.clamp(los_lambda, min=cfg.min_los_lambda)
+                      if isinstance(los_lambda, torch.Tensor)
+                      else max(los_lambda, cfg.min_los_lambda))
     else:
         los_lambda = cfg.los_lambda
 

@@ -10,15 +10,19 @@ twist parameters; every ``occ_update_every`` global steps the OGM grid then
 takes one SGD step. ``Optimizer``: the host-side loop that runs a keyframe
 window through the iteration schedule and writes the optimised poses back.
 
-Freeze flags are gradient masks, and each phase builds a fresh Adam, as in the
-JAX package. The loop is plain Python; ``steps_per_dispatch`` and
-``max_inflight_dispatches`` have no effect.
+Freeze flags are gradient masks, and each phase starts a fresh Adam, as in the
+JAX package. A phase runs as the JAX package dispatches it (``run_dispatches``):
+``n // k`` dispatches of k = ``steps_per_dispatch`` iterations, then the rest
+one by one, with at most ``max_inflight_dispatches`` dispatches in flight. On a
+CUDA device the runner (``mapping/phase_graph.py``) replays one captured CUDA
+graph of the iteration k times a dispatch; on the CPU it runs the same
+iterations eagerly.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field as dc_field, replace
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +34,7 @@ from loner_tpu_torch.mapping.rays import (
 )
 from loner_tpu_torch.models.field import FieldConfig, init_field_params
 from loner_tpu_torch.models.losses import get_logits_grad
-from loner_tpu_torch.models.occupancy_grid import init_occ_grid, occ_grid_update
+from loner_tpu_torch.models.occupancy_grid import init_occ_grid
 from loner_tpu_torch.models.proposal import (
     ProposalConfig, init_proposal_params, proposal_logits,
 )
@@ -91,8 +95,14 @@ class OptimizerConfig:
     # The hash training encode: vjp_bf16 takes the kernel pair in bf16; vjp_f32
     # and xla (JAX's autodiff oracle of the same function) take it in f32.
     encode_impl: str = "vjp_bf16"
-    # Accepted for the JAX package's configs; the port's loop is plain Python.
+    # Iterations per dispatch: k replays of the captured iteration on the card
+    # (the JAX package's lax.scan of k steps); the remainder of a phase runs as
+    # single steps.
     steps_per_dispatch: int = 10
+    # Dispatches in flight on the device queue (0: unbounded): before dispatch
+    # n is enqueued, dispatch n - d has finished, so a tracker ICP queued beside
+    # the mapper waits behind at most d dispatches.
+    max_inflight_dispatches: int = 2
     loss: LossConfig = LossConfig()
 
     @staticmethod
@@ -126,6 +136,7 @@ class OptimizerConfig:
             ray_range=tuple(float(x) for x in model_cfg["model"]["ray_range"]),
             encode_impl=str(train.get("encode_impl", "vjp_bf16")),
             steps_per_dispatch=int(train.get("steps_per_dispatch", 10)),
+            max_inflight_dispatches=int(train.get("max_inflight_dispatches", 2)),
             loss=LossConfig.from_settings(model_cfg["loss"]),
         )
 
@@ -152,14 +163,63 @@ def draw_step(generator: torch.Generator, cfg: "OptimizerConfig", window_size: i
     """One iteration's draws from ``generator`` on ``device``."""
     b, s = window_size * cfg.n_lidar_samples, cfg.n_samples_per_ray
     ogm = cfg.samples_strategy == "OGM"
-    shape = (b, s // 2 if ogm else s)
-    return StepDraws(
-        ray_u=torch.rand((window_size, cfg.n_lidar_samples), generator=generator, device=device),
-        jitter=torch.rand(shape, generator=generator, device=device) if cfg.perturb > 0 else None,
-        noise=torch.randn((b, s), generator=generator, device=device)
-        if cfg.raw_noise_std > 0 else None,
-        pdf_u=torch.rand((b, s // 2), generator=generator, device=device) if ogm else None,
+    draws = StepDraws(
+        ray_u=torch.empty((window_size, cfg.n_lidar_samples), device=device),
+        jitter=torch.empty((b, s // 2 if ogm else s), device=device) if cfg.perturb > 0 else None,
+        noise=torch.empty((b, s), device=device) if cfg.raw_noise_std > 0 else None,
+        pdf_u=torch.empty((b, s // 2), device=device) if ogm else None,
     )
+    return fill_draws(draws, generator)
+
+
+DRAW_FIELDS = ("ray_u", "jitter", "noise", "pdf_u")
+
+
+def fill_draws(draws: StepDraws, generator: torch.Generator) -> StepDraws:
+    """Draw into ``draws``' tensors in place, in a fixed order: what
+    ``torch.rand`` and ``torch.randn`` give from the same generator state. The
+    captured draw graph is this call."""
+    for name in DRAW_FIELDS:
+        t = getattr(draws, name)
+        if t is None:
+            continue
+        if name == "noise":
+            t.normal_(generator=generator)
+        else:
+            t.uniform_(generator=generator)
+    return draws
+
+
+def fused_steps(cfg: "OptimizerConfig", extras_mode: str = "none") -> int:
+    """Iterations per dispatch (the JAX package's ``fused_steps``): 1 with the
+    full per-iteration debug record, else ``steps_per_dispatch``."""
+    if extras_mode == "full":
+        return 1
+    return max(int(cfg.steps_per_dispatch), 1)
+
+
+def run_dispatches(n_iters: int, k: int, depth: int, dispatch: Callable[[int, int], None],
+                   make_event: Optional[Callable[[], Any]] = None) -> None:
+    """The JAX package's dispatch schedule of a phase: with k > 1, ``n_iters //
+    k`` dispatches ``dispatch(i0, k)`` of k iterations from i0, then the rest as
+    ``dispatch(i, 1)``. After each k-dispatch an event (``make_event()``) is
+    recorded; before dispatch n is enqueued, the event of dispatch n - depth is
+    waited on (depth 0, or no events: never)."""
+    events: List[Any] = []
+    i = 0
+    if k > 1:
+        while i + k <= n_iters:
+            if depth and len(events) >= depth:
+                events[len(events) - depth].synchronize()
+            dispatch(i, k)
+            if make_event is not None:
+                event = make_event()
+                event.record()
+                events.append(event)
+            i += k
+    while i < n_iters:
+        dispatch(i, 1)
+        i += 1
 
 
 def training_field_cfg(cfg: "OptimizerConfig", field_cfg: FieldConfig) -> FieldConfig:
@@ -213,8 +273,10 @@ def iteration_loss(cfg: "OptimizerConfig", field_cfg: FieldConfig, sigma: Dict[s
 
 def make_phase_runner(cfg: OptimizerConfig, field_cfg: FieldConfig, phase: PhaseSettings,
                       window_size: int, point_pad: int, sky_pad: int,
-                      device: torch.device, extras_mode: str = "none"):
-    """Build the runner of one optimization phase.
+                      device: torch.device, extras_mode: str = "none",
+                      graphs: Optional[bool] = None, window: Optional[WindowBuffers] = None,
+                      pool=None):
+    """Build the runner of one optimization phase (a ``phase_graph.PhaseProgram``).
 
     ``run_phase(field_params, occ_state, twists, buffers, pose_mask, world_scale,
     world_shift, global_step0, generator, num_iterations=None, draws=None)``
@@ -224,7 +286,14 @@ def make_phase_runner(cfg: OptimizerConfig, field_cfg: FieldConfig, phase: Phase
     iteration; without it the draws come from ``generator`` on ``device``.
     ``point_pad`` and ``sky_pad`` are the buffers' padded sizes, kept for the JAX
     package's signature.
+
+    ``graphs``: replay a captured CUDA graph of the iteration (the default on a
+    CUDA device; the CPU has none). ``graphs=False`` on the card runs the same
+    iterations eagerly, for comparisons and profiles. ``window`` and ``pool``:
+    static window buffers and a graph memory pool shared with other runners.
     """
+    from loner_tpu_torch.mapping.phase_graph import PhaseProgram
+
     if cfg.samples_strategy not in ("OGM", "PROPOSAL", "UNIFORM"):
         raise ValueError(f"unknown samples_strategy {cfg.samples_strategy!r}")
     if not phase.freeze_rgb_mlp:
@@ -235,98 +304,13 @@ def make_phase_runner(cfg: OptimizerConfig, field_cfg: FieldConfig, phase: Phase
         raise NotImplementedError("sky rays are not ported yet")
     if cfg.rays_strategy not in ("RANDOM", "MASK", "FIXED"):
         raise RuntimeError(f"Can't find rays_selection strategy: {cfg.rays_strategy}")
-
-    use_prop = cfg.samples_strategy == "PROPOSAL"
-    use_occ = cfg.samples_strategy == "OGM"
-    optimize_poses = not phase.freeze_poses
-    optimize_sigma = not phase.freeze_sigma_mlp
-    field_cfg = training_field_cfg(cfg, field_cfg)
-
-    def run_phase(field_params: Dict[str, Any], occ_state,
-                  twists: torch.Tensor, buffers: WindowBuffers, pose_mask: torch.Tensor,
-                  world_scale, world_shift: torch.Tensor, global_step0: int,
-                  generator: Optional[torch.Generator], num_iterations: Optional[int] = None,
-                  draws: Optional[Sequence[StepDraws]] = None):
-        n_iters = phase.num_iterations if num_iterations is None else num_iterations
-        if draws is None and generator is None:
-            raise ValueError("run_phase needs a generator or the draws")
-        if draws is not None and len(draws) < n_iters:
-            raise ValueError(f"{len(draws)} draws for {n_iters} iterations")
-
-        def leaf(t: torch.Tensor) -> torch.Tensor:
-            return t.detach().clone().requires_grad_(True)
-
-        # The sigma group: the MLP and, for the hash field, its table.
-        sigma = {"mlp": {k: leaf(v) for k, v in field_params["sigma"]["mlp"].items()}}
-        if "table" in field_params["sigma"]:
-            sigma["table"] = leaf(field_params["sigma"]["table"])
-        sigma_params = list(sigma["mlp"].values()) + ([sigma["table"]] if "table" in sigma else [])
-        tw = leaf(twists)
-        groups = [
-            {"params": sigma_params, "lr": cfg.lr_sigma},
-            {"params": [tw], "lr": cfg.lr_pose},
-        ]
-        occ = occ_state
-        if use_prop:
-            # ``bmat`` is a fixed projection, never trained: it stays out of Adam.
-            occ = {k: v.detach() if k == "bmat" else leaf(v) for k, v in occ_state.items()}
-            groups.append({"params": [v for k, v in occ.items() if k != "bmat"],
-                           "lr": cfg.prop_lr})
-        adam = torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
-        schedule = None
-        if cfg.lr_gamma != 1.0:
-            decay = lambda step: cfg.lr_gamma ** step  # noqa: E731
-            lambdas = [decay, decay] + ([lambda step: 1.0] if use_prop else [])
-            schedule = torch.optim.lr_scheduler.LambdaLR(adam, lambdas)
-        params: List[torch.Tensor] = [p for g in groups for p in g["params"]]
-        mask = pose_mask.to(tw.dtype)[:, None]
-        step0 = int(global_step0)
-
-        losses, eps_log = [], []
-        for i in range(n_iters):
-            d = draws[i] if draws is not None else draw_step(generator, cfg, window_size, device)
-            for p in params:
-                p.grad = None
-            # Frozen poses build the rays from detached twists, so nothing below
-            # the rays (the hash encode's dpos among it) is differentiated for them.
-            total, aux = iteration_loss(cfg, field_cfg, sigma, occ,
-                                        tw if optimize_poses else tw.detach(),
-                                        field_params["intensity"], buffers, world_scale,
-                                        world_shift, d, float(i), float(step0 + i))
-            total.backward()
-            # Freezing is a gradient mask: every parameter gets a gradient (zero
-            # where frozen), so Adam's moments move as the JAX package's do.
-            for p in params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            tw.grad.mul_(mask)
-            if not optimize_sigma:
-                for p in sigma_params:
-                    p.grad.zero_()
-            adam.step()
-            if schedule is not None:
-                schedule.step()
-            if use_occ and (step0 + i) % cfg.occ_update_every == 0:
-                # After the Adam step, at the forward's sample points, as the JAX
-                # package updates its grid.
-                logits_grad = get_logits_grad(aux["z_m"].detach(),
-                                              aux["depths_gt_m"][:, None].detach())
-                occ = occ_grid_update(occ, aux["points"], logits_grad * aux["valid"][:, None],
-                                      cfg.occ_lr)
-            # The mapping loss is reported, not the total with the proposal term.
-            losses.append(aux["loss"].detach())
-            eps_log.append(aux["depth_eps"].detach())
-
-        new_sigma = {"mlp": {k: v.detach() for k, v in sigma["mlp"].items()}}
-        if "table" in sigma:
-            new_sigma["table"] = sigma["table"].detach()
-        new_field = {"sigma": new_sigma, "intensity": field_params["intensity"]}
-        if use_prop:
-            occ = {k: v.detach() for k, v in occ.items()}
-        stack = lambda xs: torch.stack(xs) if xs else torch.zeros((0,), device=device)  # noqa: E731
-        return new_field, occ, tw.detach(), stack(losses), stack(eps_log)
-
-    return run_phase
+    device = torch.device(device)
+    if graphs is None:
+        graphs = device.type == "cuda"
+    if graphs and device.type != "cuda":
+        raise ValueError(f"CUDA graphs need a CUDA device, not {device}")
+    return PhaseProgram(cfg, field_cfg, phase, window_size, device, graphs=graphs,
+                        extras_mode=extras_mode, window=window, pool=pool)
 
 
 @dataclass
@@ -351,7 +335,15 @@ class Optimizer:
     Counterpart of ``loner_tpu/mapping/optimizer.py::Optimizer``: runs a
     keyframe window through its iteration schedule (``iterate_optimizer``) and
     writes the optimised poses back into the keyframes. The random draws come
-    from a ``torch.Generator`` on the device, seeded with ``seed``."""
+    from a ``torch.Generator`` on the device, seeded with ``seed``.
+
+    On a CUDA device every runner is a captured program (``phase_graph``): the
+    runners share one graph memory pool (they replay one at a time on one
+    stream, and keep no value in it between replays) and, per window class,
+    one set of static window buffers, into which each keyframe's window is
+    copied once. ``warm_up`` captures every program the schedule can reach; a
+    program first met later (no warm-up, or a point pad grown by a larger scan)
+    is captured then, counted in ``late_captures`` and logged."""
 
     def __init__(
         self,
@@ -391,7 +383,11 @@ class Optimizer:
         self.state = MapState(*self._init_state(self._generator))
         self._keyframe_count = 0
         self._runner_cache: Dict[tuple, Any] = {}
+        self._windows: Dict[tuple, WindowBuffers] = {}  # (W, P, PS) -> static buffers
         self._scan_pool = DeviceScanPool(self._device)
+        self.graph_pool = (torch.cuda.graph_pool_handle() if self._device.type == "cuda"
+                           else None)
+        self.late_captures = 0
         self.last_losses: Optional[np.ndarray] = None
         self.last_depth_eps: Optional[np.ndarray] = None
 
@@ -439,8 +435,32 @@ class Optimizer:
         cache_key = (replace(phase, num_iterations=0), w, p, ps)
         if cache_key not in self._runner_cache:
             self._runner_cache[cache_key] = make_phase_runner(
-                self._cfg, self._field_cfg, phase, w, p, ps, self._device)
+                self._cfg, self._field_cfg, phase, w, p, ps, self._device,
+                window=self._windows[(w, p, ps)], pool=self.graph_pool)
         return self._runner_cache[cache_key]
+
+    def _static_window(self, buffers: WindowBuffers) -> WindowBuffers:
+        """The static buffers of this window class, holding ``buffers``' values.
+        A grown point pad retires the class's smaller buffers and their runners."""
+        from loner_tpu_torch.mapping.phase_graph import clone_window, copy_window
+
+        key = (buffers.dirs.shape[0], buffers.dirs.shape[1], buffers.sky_dirs.shape[1])
+        static = self._windows.get(key)
+        if static is None:
+            stale = [k for k in self._windows if k[0] == key[0]]
+            for k in stale:
+                del self._windows[k]
+            self._runner_cache = {k: v for k, v in self._runner_cache.items()
+                                  if k[1:] not in stale}
+            static = self._windows[key] = clone_window(buffers)
+        elif static is not buffers:
+            copy_window(static, buffers)
+        return static
+
+    @property
+    def graph_captures(self) -> int:
+        """Graphs captured by the runners alive now."""
+        return sum(r.captures for r in self._runner_cache.values())
 
     def _window_classes_for_item(self, first_kf: int, last_kf: Optional[int]) -> set:
         """Window sizes a schedule item can run at: KF#k optimises a window of
@@ -454,10 +474,10 @@ class Optimizer:
         return classes
 
     def warm_up(self, n_points: int) -> float:
-        """Build the CUDA kernels (on a CUDA device) and run one iteration of
-        every phase runner the keyframe schedule can reach, on dummy state:
-        kernels, cuBLAS handles and the allocator are then ready before the
-        first keyframe. Returns the seconds spent."""
+        """Build the CUDA kernels and capture the program of every phase runner
+        the keyframe schedule can reach (on the CPU: run one iteration of each),
+        on dummy state and at the point pad of ``n_points``-point scans, without
+        drawing from the optimizer's generator. Returns the seconds spent."""
         t0 = time.time()
         if self._device.type == "cuda" and self._field_cfg.sigma_kernel == "fused":
             from loner_tpu_torch.ops import fourier_mlp, hash_grid
@@ -486,17 +506,17 @@ class Optimizer:
 
         dummy = torch.Generator(device=self._device).manual_seed(17)
         field_params, occ = self._init_state(dummy)
-        losses = []
+        ready = []
         for (_, w), eff in needed.items():
-            buffers = build_window_buffers([d] * w, [depths] * w, [None] * w, w,
-                                           device=self._device)
+            buffers = self._static_window(build_window_buffers(
+                [d] * w, [depths] * w, [None] * w, w, device=self._device))
             runner = self._get_runner(eff, w, buffers.dirs.shape[1], buffers.sky_dirs.shape[1])
-            out = runner(field_params, occ, torch.zeros((w, 6), device=self._device), buffers,
-                         torch.ones((w,), device=self._device), self._world_scale,
-                         self._world_shift, 0, dummy, num_iterations=1)
-            losses.append(out[3])
-        if losses:
-            torch.cat(losses).cpu()  # waits for the device
+            ready.append(runner.warm_up(
+                field_params, occ, torch.zeros((w, 6), device=self._device), buffers,
+                torch.ones((w,), device=self._device), self._world_scale, self._world_shift,
+                self._generator))
+        if ready:
+            torch.cat(ready).cpu()  # waits for the device
         return time.time() - t0
 
     # -- main entry ------------------------------------------------------------
@@ -516,7 +536,9 @@ class Optimizer:
         # A 1-keyframe window (the KF#1 bootstrap) runs a W = 1 runner: the
         # full width would spend all but one slot on masked-out replicas.
         w = 1 if m == 1 else self._cfg.window_size
-        buffers = self._scan_pool.build_window(window, w, self._cfg.rays_strategy == "MASK")
+        # One copy of the window into its class's static buffers per keyframe.
+        buffers = self._static_window(
+            self._scan_pool.build_window(window, w, self._cfg.rays_strategy == "MASK"))
         p, ps = buffers.dirs.shape[1], buffers.sky_dirs.shape[1]
 
         twists = np.zeros((w, 6), np.float32)
@@ -525,21 +547,34 @@ class Optimizer:
             j = min(i, m - 1)
             twists[i] = window[j].pose_twist(self._use_gt_poses)
             anchored[i] = 1.0 if (window[j].is_anchored or i >= m) else 0.0
-        twists = torch.from_numpy(twists).to(self._device)
+        effective = [self._effective_phase(phase) for phase in phases]
+        masks = []
+        for eff in effective:
+            pose_mask = 1.0 - anchored
+            if eff.latest_kf_only:
+                latest_only = np.zeros_like(pose_mask)
+                latest_only[m - 1] = 1.0
+                pose_mask = pose_mask * latest_only
+            masks.append(pose_mask)
+        # The twists and every phase's pose mask go up in one copy, pinned and
+        # asynchronous on a CUDA device.
+        host = torch.from_numpy(np.concatenate([twists.reshape(-1)] + masks))
+        if self._device.type == "cuda":
+            host = host.pin_memory()
+        up = host.to(self._device, non_blocking=True)
+        twists = up[: w * 6].view(w, 6)
 
         all_losses, all_eps = [], []
         with optimizer_trace(self._log_directory, self._profile_optimizer, self._keyframe_count):
-            for phase in phases:
-                eff = self._effective_phase(phase)
-                pose_mask = 1.0 - anchored
-                if eff.latest_kf_only:
-                    latest_only = np.zeros_like(pose_mask)
-                    latest_only[m - 1] = 1.0
-                    pose_mask = pose_mask * latest_only
+            for n, eff in enumerate(effective):
                 runner = self._get_runner(eff, w, p, ps)
+                if runner.graphs and not runner.captured:
+                    self.late_captures += 1
+                    print(f"Mapper: capturing the {eff} program at W={w}, point pad {p} "
+                          f"(late capture {self.late_captures})", flush=True)
                 (self.state.field_params, self.state.occ_grid, twists, losses, eps) = runner(
                     self.state.field_params, self.state.occ_grid, twists, buffers,
-                    torch.from_numpy(pose_mask).to(self._device), self._world_scale,
+                    up[w * 6 + n * w : w * 6 + (n + 1) * w], self._world_scale,
                     self._world_shift, self.state.global_step, self._generator,
                     num_iterations=eff.num_iterations,
                 )

@@ -1,0 +1,341 @@
+"""One mapping phase as a program: its static state, one iteration captured as a
+CUDA graph, and the dispatches that replay it.
+
+Counterpart of the JAX package's phase programs (``make_phase_runner``'s
+``step`` and ``multi_step`` in ``loner_tpu/mapping/optimizer.py``): where JAX
+fuses k = ``steps_per_dispatch`` iterations into one dispatched program with
+``lax.scan``, a ``PhaseProgram`` on a CUDA device captures one iteration as a
+``torch.cuda.CUDAGraph`` and a dispatch replays it k times; the remainder of a
+phase runs as single replays, and at most ``max_inflight_dispatches``
+dispatches are in flight (``optimizer.run_dispatches``).
+
+The program owns the static state of one (phase flags, window class W, point
+pad) runner: the leaf tensors of the sigma MLP, the hash table, the twists and
+the proposal parameters; Adam's moments and step (``capturable=True`` on the
+card); the pose mask, world scale and shift; the window buffers; the draw
+tensors; the iteration index and global step as device scalars; and the
+per-iteration loss and ``depth_eps`` record. A phase copies the incoming
+parameters in, resets Adam in place (the JAX package's fresh ``tx.init`` per
+phase) and returns copies, never the static tensors.
+
+One iteration is captured in two variants, with and without the OGM grid's SGD
+step; the host picks one per replay, since it knows the global step
+(``(step0 + i) % occ_update_every == 0``, the JAX package's ``lax.cond``). The
+draws come from their own small graph, captured with the optimizer's generator
+registered (``CUDAGraph.register_generator_state``), so each replay advances
+its Philox offset as an eager draw would: graphs and the eager loop take the
+same draws from the same seed. Before capture, a few iterations run on a side
+stream (PyTorch's whole-network capture recipe): they initialise Adam's state
+and every lazily built table outside the graph. A capture or replay failure
+raises; nothing falls back to the eager loop.
+
+With graphs off (the CPU, or ``graphs=False`` on the card) the same iteration
+runs eagerly on the same static state; on the card both ways take the same
+operations, so a deterministic configuration gives the same bits either way.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Dict, List, Optional, Sequence
+
+import torch
+
+from loner_tpu_torch.common.cuda_graphs import CountedGraph
+from loner_tpu_torch.mapping import optimizer as _opt
+from loner_tpu_torch.mapping.rays import WindowBuffers
+from loner_tpu_torch.models.losses import get_logits_grad
+from loner_tpu_torch.models.occupancy_grid import occ_grid_update
+
+HISTORY = 256  # per-iteration records kept on the device between two reads
+WARMUP_ITERS = 2  # eager iterations of each variant before its capture
+
+
+def copy_window(dst: WindowBuffers, src: WindowBuffers) -> None:
+    for name in ("dirs", "depths", "counts", "sky_dirs", "sky_counts", "slot_valid"):
+        getattr(dst, name).copy_(getattr(src, name))
+
+
+def clone_window(src: WindowBuffers) -> WindowBuffers:
+    return WindowBuffers(*(getattr(src, name).clone() for name in (
+        "dirs", "depths", "counts", "sky_dirs", "sky_counts", "slot_valid")))
+
+
+class PhaseProgram:
+    """The runner of one phase (see the module docstring). Call it as the JAX
+    package's ``run_phase``: ``(field_params, occ_state, twists, buffers,
+    pose_mask, world_scale, world_shift, global_step0, generator,
+    num_iterations=None, draws=None) -> (field_params, occ_state, twists, losses,
+    depth_eps)``.
+
+    ``window``: static window buffers the program reads (shared by the
+    Optimizer's runners of one window class); without it the program keeps its
+    own, and a call copies ``buffers`` in unless they are that object. ``pool``:
+    the graph memory pool its graphs share. ``graph_class``: the graph type
+    (``CountedGraph``; the tests pass one that runs on the CPU)."""
+
+    def __init__(self, cfg, field_cfg, phase, window_size: int, device: torch.device,
+                 graphs: bool, extras_mode: str = "none",
+                 window: Optional[WindowBuffers] = None, pool=None, graph_class=None) -> None:
+        self.cfg = cfg
+        self.field_cfg = _opt.training_field_cfg(cfg, field_cfg)
+        self.w = window_size
+        self.device = torch.device(device)
+        self.graphs = graphs
+        self.k = _opt.fused_steps(cfg, extras_mode)
+        self.depth = max(int(cfg.max_inflight_dispatches), 0)
+        self._cuda = self.device.type == "cuda"
+        self._use_prop = cfg.samples_strategy == "PROPOSAL"
+        self._use_occ = cfg.samples_strategy == "OGM"
+        self._optimize_poses = not phase.freeze_poses
+        self._optimize_sigma = not phase.freeze_sigma_mlp
+        self._window = window
+        # One pool for the program's graphs unless the caller shares one.
+        self.pool = pool if pool is not None or not (graphs and self._cuda) else (
+            torch.cuda.graph_pool_handle())
+        self._graph_class = graph_class or CountedGraph
+        self._phase_iterations = phase.num_iterations
+        self._built = False
+        self._steps: Dict[bool, Any] = {}  # OGM step or not -> captured iteration
+        self._draw_graph = None
+        self._draw_generator: Optional[torch.Generator] = None
+        self.captures = 0
+
+    @property
+    def captured(self) -> bool:
+        return bool(self._steps)
+
+    # -- static state ----------------------------------------------------------
+    def _build(self, field_params, occ_state, twists, buffers: WindowBuffers) -> None:
+        cfg, dev = self.cfg, self.device
+
+        def leaf(t: torch.Tensor) -> torch.Tensor:
+            return t.detach().clone().requires_grad_(True)
+
+        # The sigma group: the MLP and, for the hash field, its table.
+        self.sigma = {"mlp": {k: leaf(v) for k, v in field_params["sigma"]["mlp"].items()}}
+        if "table" in field_params["sigma"]:
+            self.sigma["table"] = leaf(field_params["sigma"]["table"])
+        self.sigma_params = list(self.sigma["mlp"].values()) + (
+            [self.sigma["table"]] if "table" in self.sigma else [])
+        self.tw = leaf(twists)
+        self._base_lr = [cfg.lr_sigma, cfg.lr_pose]
+        groups = [{"params": self.sigma_params}, {"params": [self.tw]}]
+        self.occ = None
+        if self._use_prop:
+            # ``bmat`` is a fixed projection, never trained: it stays out of Adam.
+            self.occ = {k: v.detach().clone() if k == "bmat" else leaf(v)
+                        for k, v in occ_state.items()}
+            groups.append({"params": [v for k, v in self.occ.items() if k != "bmat"]})
+            self._base_lr.append(cfg.prop_lr)
+        elif occ_state is not None:
+            self.occ = occ_state.detach().clone()
+        # lr_gamma != 1 decays the sigma and pose rates per step (the proposal's
+        # stays): the rates are device scalars the iteration multiplies.
+        decay = cfg.lr_gamma != 1.0
+        for i, (g, lr) in enumerate(zip(groups, self._base_lr)):
+            g["lr"] = torch.tensor(lr, device=dev) if decay and i < 2 else lr
+        self.params: List[torch.Tensor] = [p for g in groups for p in g["params"]]
+        self.adam = torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8,
+                                     capturable=self._cuda)
+        self._decayed = self.adam.param_groups[:2] if decay else []
+        self.mask = torch.zeros((self.w,), dtype=self.tw.dtype, device=dev)
+        self.scale = torch.zeros((), dtype=torch.float32, device=dev)
+        self.shift = torch.zeros((3,), dtype=torch.float32, device=dev)
+        if self._window is None:
+            self._window = clone_window(buffers)
+        self.it = torch.zeros((), dtype=torch.float32, device=dev)  # iteration in the phase
+        self.gstep = torch.zeros((), dtype=torch.float32, device=dev)  # global step
+        self.slot = torch.zeros((), dtype=torch.int64, device=dev)
+        self.history = torch.zeros((2, max(HISTORY, self.k)), dtype=torch.float32, device=dev)
+        self.draws = None  # the draw graph's static tensors, made at capture
+        self._built = True
+
+    def _seat(self, field_params, occ_state, twists, buffers, pose_mask, world_scale,
+              world_shift, step0: int) -> None:
+        """Phase start: the incoming state into the static tensors, a fresh Adam."""
+        with torch.no_grad():
+            for k, v in field_params["sigma"]["mlp"].items():
+                self.sigma["mlp"][k].copy_(v)
+            if "table" in self.sigma:
+                self.sigma["table"].copy_(field_params["sigma"]["table"])
+            self.tw.copy_(twists)
+            if self._use_prop:
+                for k, v in occ_state.items():
+                    self.occ[k].copy_(v)
+            elif self.occ is not None:
+                self.occ.copy_(occ_state)
+            self.mask.copy_(pose_mask)
+            for dst, src in ((self.scale, world_scale), (self.shift, world_shift)):
+                if isinstance(src, torch.Tensor):
+                    dst.copy_(src)
+                else:
+                    dst.copy_(torch.as_tensor(src, dtype=torch.float32))
+            if buffers is not self._window:
+                copy_window(self._window, buffers)
+            self.it.zero_()
+            self.gstep.fill_(float(step0))
+            self.slot.zero_()
+            for state in self.adam.state.values():
+                for v in state.values():
+                    v.zero_()
+            for g, lr in zip(self._decayed, self._base_lr):
+                g["lr"].fill_(lr)
+
+    # -- one iteration ----------------------------------------------------------
+    def _iteration(self, d, occ_step: bool) -> None:
+        """Forward, backward, gradient masks, the Adam step, the OGM step when
+        ``occ_step``, and the iteration's record; every result lands in the
+        static tensors, so the same code is the captured graph."""
+        cfg = self.cfg
+        for p in self.params:
+            p.grad = None
+        # Frozen poses build the rays from detached twists, so nothing below
+        # the rays (the hash encode's dpos among it) is differentiated for them.
+        # The sigma-only iteration reads no intensity head.
+        total, aux = _opt.iteration_loss(
+            cfg, self.field_cfg, self.sigma, self.occ,
+            self.tw if self._optimize_poses else self.tw.detach(), {}, self._window,
+            self.scale, self.shift, d, self.it, self.gstep)
+        total.backward()
+        # Freezing is a gradient mask: every parameter gets a gradient (zero
+        # where frozen), so Adam's moments move as the JAX package's do.
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        self.tw.grad.mul_(self.mask[:, None])
+        if not self._optimize_sigma:
+            for p in self.sigma_params:
+                p.grad.zero_()
+        self.adam.step()
+        with torch.no_grad():
+            for g in self._decayed:
+                g["lr"].mul_(cfg.lr_gamma)
+            if occ_step:
+                # After the Adam step, at the forward's sample points, as the JAX
+                # package updates its grid.
+                logits_grad = get_logits_grad(aux["z_m"].detach(),
+                                              aux["depths_gt_m"][:, None].detach())
+                self.occ.copy_(occ_grid_update(self.occ, aux["points"],
+                                               logits_grad * aux["valid"][:, None], cfg.occ_lr))
+            # The mapping loss is recorded, not the total with the proposal term.
+            record = torch.stack([aux["loss"].detach(), aux["depth_eps"].detach().float()])
+            self.history.index_copy_(1, self.slot.view(1), record.view(2, 1))
+            self.slot.add_(1)
+            self.it.add_(1.0)
+            self.gstep.add_(1.0)
+
+    # -- capture -----------------------------------------------------------------
+    def capture(self, field_params, occ_state, twists, buffers, pose_mask, world_scale,
+                world_shift, generator: Optional[torch.Generator]) -> None:
+        """Seat the statics from this state (their values do not matter), run
+        the warm-up iterations, capture both iteration variants and, with a
+        generator, the draw graph. Draws nothing from ``generator``."""
+        if not self._built:
+            self._build(field_params, occ_state, twists, buffers)
+        self._seat(field_params, occ_state, twists, buffers, pose_mask, world_scale,
+                   world_shift, 0)
+        scratch = torch.Generator(device=self.device).manual_seed(0)
+        self.draws = _opt.draw_step(scratch, self.cfg, self.w, self.device)
+        variants = (False, True) if self._use_occ else (False,)
+        side = torch.cuda.Stream(self.device) if self._cuda else None
+        if side is not None:
+            side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
+            for occ_step in variants:
+                for _ in range(WARMUP_ITERS):
+                    self._iteration(self.draws, occ_step)
+        if side is not None:
+            torch.cuda.current_stream(self.device).wait_stream(side)
+        for occ_step in variants:
+            graph = self._graph_class()
+            graph.capture(lambda v=occ_step: self._iteration(self.draws, v), pool=self.pool)
+            self._steps[occ_step] = graph
+            self.captures += 1
+        if generator is not None:
+            self._capture_draws(generator)
+
+    def _capture_draws(self, generator: torch.Generator) -> None:
+        graph = self._graph_class()
+        graph.capture(lambda: _opt.fill_draws(self.draws, generator), pool=self.pool,
+                      generators=(generator,))
+        self._draw_graph, self._draw_generator = graph, generator
+        self.captures += 1
+
+    def warm_up(self, field_params, occ_state, twists, buffers, pose_mask, world_scale,
+                world_shift, generator: torch.Generator) -> torch.Tensor:
+        """Make the program ready before the first keyframe without drawing from
+        ``generator``: with graphs, capture it; without, run one iteration on a
+        scratch generator. Returns a tensor to wait on."""
+        if self.graphs:
+            if not self.captured:
+                self.capture(field_params, occ_state, twists, buffers, pose_mask, world_scale,
+                             world_shift, generator)
+            return self.history[0, :1]
+        scratch = torch.Generator(device=self.device).manual_seed(17)
+        return self(field_params, occ_state, twists, buffers, pose_mask, world_scale,
+                    world_shift, 0, scratch, num_iterations=1)[3]
+
+    # -- a phase -----------------------------------------------------------------
+    def __call__(self, field_params: Dict[str, Any], occ_state, twists: torch.Tensor,
+                 buffers: WindowBuffers, pose_mask: torch.Tensor, world_scale,
+                 world_shift: torch.Tensor, global_step0: int,
+                 generator: Optional[torch.Generator], num_iterations: Optional[int] = None,
+                 draws: Optional[Sequence] = None):
+        n_iters = self._phase_iterations if num_iterations is None else num_iterations
+        if draws is None and generator is None:
+            raise ValueError("run_phase needs a generator or the draws")
+        if draws is not None and len(draws) < n_iters:
+            raise ValueError(f"{len(draws)} draws for {n_iters} iterations")
+        if self.graphs and not self.captured:
+            self.capture(field_params, occ_state, twists, buffers, pose_mask, world_scale,
+                         world_shift, generator if draws is None else None)
+        elif not self._built:
+            self._build(field_params, occ_state, twists, buffers)
+        step0 = int(global_step0)
+        self._seat(field_params, occ_state, twists, buffers, pose_mask, world_scale,
+                   world_shift, step0)
+        if self.graphs and draws is None and self._draw_generator is not generator:
+            self._capture_draws(generator)
+
+        records: List[torch.Tensor] = []
+        filled = 0
+
+        def iterate(i: int) -> None:
+            occ_step = self._use_occ and (step0 + i) % self.cfg.occ_update_every == 0
+            if not self.graphs:
+                d = draws[i] if draws is not None else _opt.draw_step(
+                    generator, self.cfg, self.w, self.device)
+                self._iteration(d, occ_step)
+                return
+            if draws is None:
+                self._draw_graph.replay()
+            else:
+                for name in _opt.DRAW_FIELDS:
+                    if getattr(self.draws, name) is not None:
+                        getattr(self.draws, name).copy_(getattr(draws[i], name))
+            self._steps[occ_step].replay()
+
+        def dispatch(i0: int, k: int) -> None:
+            nonlocal filled
+            if filled + k > self.history.shape[1]:
+                records.append(self.history[:, :filled].clone())
+                self.slot.zero_()
+                filled = 0
+            for j in range(k):
+                iterate(i0 + j)
+            filled += k
+
+        _opt.run_dispatches(n_iters, self.k, self.depth, dispatch,
+                            torch.cuda.Event if self._cuda else None)
+        records.append(self.history[:, :filled])
+        log = torch.cat(records, dim=1)
+
+        new_sigma = {"mlp": {k: v.detach().clone() for k, v in self.sigma["mlp"].items()}}
+        if "table" in self.sigma:
+            new_sigma["table"] = self.sigma["table"].detach().clone()
+        new_field = {"sigma": new_sigma, "intensity": field_params["intensity"]}
+        if self._use_prop:
+            occ = {k: v.detach().clone() for k, v in self.occ.items()}
+        else:
+            occ = None if self.occ is None else self.occ.clone()
+        return new_field, occ, self.tw.detach().clone(), log[0].clone(), log[1].clone()

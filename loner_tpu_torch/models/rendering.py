@@ -24,7 +24,7 @@ def pack_rays(origins, dirs, near, far, viewdirs=None) -> torch.Tensor:
 
 
 def _inverse_cdf(cdf: torch.Tensor, bins: torch.Tensor, u: torch.Tensor,
-                 eps: float = 1e-5) -> torch.Tensor:
+                 eps: float = 1e-5, edges: Optional[tuple] = None) -> torch.Tensor:
     """Map u in [0, cdf[:, -1]] through the piecewise-linear inverse CDF.
 
     cdf: (B, M) strictly increasing with cdf[:, 0] == 0; bins: (B, M) ascending
@@ -32,12 +32,23 @@ def _inverse_cdf(cdf: torch.Tensor, bins: torch.Tensor, u: torch.Tensor,
     interval as the JAX package's masked min/max lookup: the low edge is the
     last with cdf <= u, the high edge the first with cdf > u. u at (or clamped
     to) the top edge maps to the last bin edge.
+
+    ``edges``: (near (B, 1), far (B, 1), t (M,)) when ``bins`` is ``near (1 - t)
+    + far t``. The picked edges are then formed from the picked t, the same
+    values, so their gradient reaches near and far through products and a sum
+    along the ray, where a gather's gradient would scatter float atomics in an
+    order that changes from run to run on a CUDA device.
     """
     m = cdf.shape[-1]
     hi = torch.searchsorted(cdf, u.contiguous(), right=True).clamp(1, m - 1)
     lo = hi - 1
     cdf_lo, cdf_hi = torch.gather(cdf, 1, lo), torch.gather(cdf, 1, hi)
-    bin_lo, bin_hi = torch.gather(bins, 1, lo), torch.gather(bins, 1, hi)
+    if edges is None:
+        bin_lo, bin_hi = torch.gather(bins, 1, lo), torch.gather(bins, 1, hi)
+    else:
+        near, far, t = edges
+        t_lo, t_hi = t[lo], t[hi]
+        bin_lo, bin_hi = near * (1.0 - t_lo) + far * t_lo, near * (1.0 - t_hi) + far * t_hi
     denom = cdf_hi - cdf_lo
     denom = torch.where(denom < eps, 1.0, denom)
     out = bin_lo + (u - cdf_lo) / denom * (bin_hi - bin_lo)
@@ -74,6 +85,25 @@ def stratified_z_vals(near: torch.Tensor, far: torch.Tensor, n_samples: int,
     return z
 
 
+class _PositiveCumprod(torch.autograd.Function):
+    """``torch.cumprod`` along the last axis of strictly positive values, with
+    the gradient PyTorch's own backward takes when no value is zero,
+    ``reversed_cumsum(out * grad) / x``. PyTorch's backward first checks the
+    input for zeros with ``.item()``: a host synchronisation, which a CUDA graph
+    cannot capture and which stalls an eager loop once an iteration."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return (out * grad).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def raw2outputs(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
                 noise: Optional[torch.Tensor] = None, raw_noise_std: float = 0.0,
                 softplus: bool = False, far: Optional[torch.Tensor] = None,
@@ -89,8 +119,9 @@ def raw2outputs(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
         sigmas = sigmas + noise * raw_noise_std
     act = F_nn.softplus(sigmas) if softplus else torch.relu(sigmas)
     alphas = 1.0 - torch.exp(-deltas * act)
-    trans = torch.cumprod(
-        torch.cat([torch.ones_like(alphas[:, :1]), 1.0 - alphas + 1e-10], dim=-1), dim=-1
+    # Every factor is at least 1e-10: the cumprod's gradient needs no zero check.
+    trans = _PositiveCumprod.apply(
+        torch.cat([torch.ones_like(alphas[:, :1]), 1.0 - alphas + 1e-10], dim=-1)
     )[:, :-1]
     weights = alphas * trans
     opacity = weights.sum(dim=-1)
@@ -175,7 +206,7 @@ class ProposalRaySampler:
         else:
             u = ((q + 0.5) / n_samples).expand(rays.shape[0], n_samples)
         u = torch.minimum(u, cdf[:, -1:])
-        return _inverse_cdf(cdf, z_ctrl, u)
+        return _inverse_cdf(cdf, z_ctrl, u, edges=(near, far, steps))
 
 
 def make_sampler(occ_state, n_ctrl: Optional[int] = None):

@@ -3,7 +3,8 @@
 Counterpart of ``loner_tpu/runtime/loner.py``. One process: the tracker and
 the mapper are host threads joined by the signal bus, on one explicit torch
 device. On a CUDA device the tracker's ICP runs on its own stream beside the
-mapper's work on the default stream.
+mapper's work on the default stream. The threads start at the first scan,
+after ``warm_up`` has captured the CUDA graphs (``common/cuda_graphs.py``).
 
 Kept from the JAX package: the signals (LiDAR [synchronous], frame,
 keyframe-update), the 2-phase StopSignal shutdown, the single-threaded
@@ -180,26 +181,38 @@ class Loner:
         self._tracker = Tracker(s, None, self._lidar_signal, self._frame_signal, self._device)
 
         print(f"Starting LONER SLAM (PyTorch) on {self._device}")
-        if not self._single_threaded:
-            self._tracking_thread = threading.Thread(
-                target=self._run_worker, args=("tracking", self._tracker.run), daemon=True)
-            self._mapping_thread = threading.Thread(
-                target=self._run_worker, args=("mapping", self._mapper.run), daemon=True)
-            self._tracking_thread.start()
-            self._mapping_thread.start()
+
+    def _start_workers(self) -> None:
+        """Launch the tracking and mapping threads, at the first scan (or at
+        ``stop``): CUDA graphs are captured before them (``warm_up``; the
+        tracker's ICP graph in any case), while no other thread runs CUDA work."""
+        if self._single_threaded or self._tracking_thread is not None:
+            return
+        self._tracker.prepare_graphs()
+        self._tracking_thread = threading.Thread(
+            target=self._run_worker, args=("tracking", self._tracker.run), daemon=True)
+        self._mapping_thread = threading.Thread(
+            target=self._run_worker, args=("mapping", self._mapper.run), daemon=True)
+        self._tracking_thread.start()
+        self._mapping_thread.start()
 
     def warm_up(self, n_points: int) -> float:
-        """Build the kernels and run the tracker's ICP and every reachable
-        mapping phase once, before data streams in. Call between ``start()``
-        and the first ``process_lidar`` with the per-scan point count."""
+        """Build the kernels, capture the tracker's ICP graph and every
+        reachable mapping program (on the CPU: run each once), before data
+        streams in and before the worker threads start. Call between
+        ``start()`` and the first ``process_lidar`` with the per-scan point
+        count."""
         if self._tracker is None or self._mapper is None:
             raise RuntimeError("warm_up must be called after start()")
+        if self._tracking_thread is not None:
+            raise RuntimeError("warm_up must come before the first process_lidar")
         t_track = self._tracker.warm_up()
         t_map = self._mapper.warm_up(n_points)
         print(f"Warm-up: tracker {t_track:.1f}s, mapper {t_map:.1f}s")
         return t_track + t_map
 
     def stop(self) -> None:
+        self._start_workers()
         if not self._single_threaded:
             print("Stopping LONER SLAM workers")
             self._lidar_signal.emit(StopSignal())
@@ -248,6 +261,7 @@ class Loner:
         if not np.all(np.diff(lidar_scan.timestamps) >= 0):
             raise ValueError("sort your points by timestamps!")
         self._logger.update()
+        self._start_workers()
         try:
             self._lidar_signal.emit((lidar_scan, gt_pose))
         except RuntimeError:

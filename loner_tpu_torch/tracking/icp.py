@@ -26,7 +26,8 @@ no matmul precision setting touches, and is rounded to float32; the caller's
 No host synchronisation: one ``run_icp_schedule`` uploads its clouds in one
 pinned copy and returns device tensors; nothing in it waits for the device
 (no ``.item()``, no ``bool()`` of a tensor, no error check of a solver:
-``solve_ex``, and closed forms in place of ``eigh`` and ``svd``).
+``solve_ex``, and closed forms in place of ``eigh`` and ``svd``). So the whole
+schedule is one fixed program, which ``ICPGraph`` captures as a CUDA graph.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from loner_tpu_torch.common import se3
+from loner_tpu_torch.common.cuda_graphs import CountedGraph
 from loner_tpu_torch.common.device import resolve_device
 
 
@@ -211,6 +213,50 @@ def _icp_schedule_fused(src, tgt, src_valid, tgt_valid, thresholds: Sequence[flo
                      result.inlier_rmse)
 
 
+def _pack_clouds(source: np.ndarray, target: np.ndarray, pad_size: int,
+                 host_init: Optional[np.ndarray]) -> np.ndarray:
+    """One flat f32 host buffer: the padded clouds as (2, pad_size, 4) rows of
+    [x, y, z, valid], then the (4, 4) init when it is a host array."""
+    src, src_valid = pad_cloud(np.asarray(source, np.float32), pad_size)
+    tgt, tgt_valid = pad_cloud(np.asarray(target, np.float32), pad_size)
+    n = 2 * pad_size * 4
+    flat = np.empty(n + (16 if host_init is not None else 0), np.float32)
+    clouds = flat[:n].reshape(2, pad_size, 4)
+    clouds[0, :, :3], clouds[0, :, 3] = src, src_valid
+    clouds[1, :, :3], clouds[1, :, 3] = tgt, tgt_valid
+    if host_init is not None:
+        flat[n:] = host_init.reshape(16)
+    return flat
+
+
+def _upload(flat: np.ndarray, device: torch.device) -> torch.Tensor:
+    buf = torch.from_numpy(flat)
+    if device.type == "cuda":
+        return buf.pin_memory().to(device, non_blocking=True)
+    return buf.to(device)
+
+
+def _host_init(init) -> Optional[np.ndarray]:
+    if isinstance(init, torch.Tensor):
+        return None
+    return np.eye(4, dtype=np.float32) if init is None else np.asarray(init, np.float32)
+
+
+def _stages(schedule: list) -> Tuple[list, list]:
+    thresholds = [float(s["threshold"]) for s in schedule]
+    stage_params = [(int(s["max_iterations"]), float(s.get("relative_fitness", 1e-8)),
+                     float(s.get("relative_rmse", 1e-8))) for s in schedule]
+    return thresholds, stage_params
+
+
+def _schedule_on_clouds(dev_clouds: torch.Tensor, t0: torch.Tensor, thresholds, stage_params,
+                        knn: int) -> ICPResult:
+    return _icp_schedule_fused(
+        dev_clouds[0, :, :3], dev_clouds[1, :, :3], dev_clouds[0, :, 3] > 0.5,
+        dev_clouds[1, :, 3] > 0.5, thresholds, t0, stage_params, knn,
+    )
+
+
 def run_icp_schedule(
     source: np.ndarray,
     target: np.ndarray,
@@ -232,30 +278,79 @@ def run_icp_schedule(
     if device is None and isinstance(init, torch.Tensor):
         device = init.device
     device = resolve_device(device)
-    src, src_valid = pad_cloud(np.asarray(source, np.float32), pad_size)
-    tgt, tgt_valid = pad_cloud(np.asarray(target, np.float32), pad_size)
-    host_init = None if isinstance(init, torch.Tensor) else (
-        np.eye(4, dtype=np.float32) if init is None else np.asarray(init, np.float32))
-
+    host_init = _host_init(init)
+    buf = _upload(_pack_clouds(source, target, pad_size, host_init), device)
     n = 2 * pad_size * 4
-    flat = np.empty(n + (16 if host_init is not None else 0), np.float32)
-    clouds = flat[:n].reshape(2, pad_size, 4)
-    clouds[0, :, :3], clouds[0, :, 3] = src, src_valid
-    clouds[1, :, :3], clouds[1, :, 3] = tgt, tgt_valid
-    if host_init is not None:
-        flat[n:] = host_init.reshape(16)
-    buf = torch.from_numpy(flat)
-    if device.type == "cuda":
-        buf = buf.pin_memory().to(device, non_blocking=True)
-    else:
-        buf = buf.to(device)
-    dev_clouds = buf[:n].view(2, pad_size, 4)
     t0 = buf[n:].view(4, 4) if host_init is not None else init.to(device, torch.float32)
+    thresholds, stage_params = _stages(schedule)
+    return _schedule_on_clouds(buf[:n].view(2, pad_size, 4), t0, thresholds, stage_params, knn)
 
-    thresholds = [float(s["threshold"]) for s in schedule]
-    stage_params = [(int(s["max_iterations"]), float(s.get("relative_fitness", 1e-8)),
-                     float(s.get("relative_rmse", 1e-8))) for s in schedule]
-    return _icp_schedule_fused(
-        dev_clouds[0, :, :3], dev_clouds[1, :, :3], dev_clouds[0, :, 3] > 0.5,
-        dev_clouds[1, :, 3] > 0.5, thresholds, t0, stage_params, knn,
-    )
+
+class ICPGraph:
+    """``run_icp_schedule`` as one CUDA graph, for one (pad size, schedule,
+    knn): normals and every stage, about a thousand launches, in one replay.
+
+    The graph reads a static device buffer of the clouds, their masks and the
+    init: a call uploads the clouds there in one pinned copy, with a host init
+    (a host ``eye`` or the last transform) in the same copy, or copies a device
+    init (the tracker's chained velocity init) into its place. A call returns a
+    copy of the graph's outputs, so results of earlier calls stay valid.
+    ``capture`` runs the schedule twice on dummy clouds (handles, workspaces,
+    the allocator) and captures it, on the current stream (a stream of the
+    graph module's own when that is the default stream); calls replay on the
+    current stream, so the tracker's high-priority stream carries the graph's
+    kernels. A CUDA device only."""
+
+    def __init__(self, device: torch.device, schedule: list, pad_size: int = 5120,
+                 knn: int = 30) -> None:
+        self.device = torch.device(device)
+        self.pad_size = pad_size
+        self._n = 2 * pad_size * 4
+        self._thresholds, self._stage_params = _stages(schedule)
+        self._knn = knn
+        self._flat = torch.zeros(self._n + 16, device=self.device)
+        self._graph = None
+        self._out: Optional[torch.Tensor] = None
+        self.captures = 0
+
+    def _program(self) -> torch.Tensor:
+        res = _schedule_on_clouds(self._flat[: self._n].view(2, self.pad_size, 4),
+                                  self._flat[self._n :].view(4, 4), self._thresholds,
+                                  self._stage_params, self._knn)
+        return torch.cat([res.transformation.reshape(16), res.fitness.reshape(1),
+                          res.inlier_rmse.reshape(1)])
+
+    def capture(self) -> None:
+        rng = np.random.default_rng(0)
+        cloud = rng.uniform(-5.0, 5.0, (self.pad_size, 3)).astype(np.float32)
+        self._flat.copy_(_upload(_pack_clouds(cloud, cloud, self.pad_size,
+                                              np.eye(4, dtype=np.float32)), self.device))
+        for _ in range(2):
+            self._program()
+        current = torch.cuda.current_stream(self.device)
+        graph = CountedGraph()
+        self._out = graph.capture(
+            self._program, stream=None if current == torch.cuda.default_stream(self.device)
+            else current)
+        self._graph = graph
+        self.captures += 1
+
+    @property
+    def captured(self) -> bool:
+        return self._graph is not None
+
+    def pool(self):
+        return None if self._graph is None else self._graph.pool()
+
+    def __call__(self, source: np.ndarray, target: np.ndarray,
+                 init: Union[np.ndarray, torch.Tensor, None] = None) -> ICPResult:
+        if self._graph is None:
+            self.capture()
+        host_init = _host_init(init)
+        flat = torch.from_numpy(_pack_clouds(source, target, self.pad_size, host_init))
+        self._flat[: flat.shape[0]].copy_(flat.pin_memory(), non_blocking=True)
+        if host_init is None:
+            self._flat[self._n :].copy_(init.reshape(16))
+        self._graph.replay()
+        out = self._out.clone()
+        return ICPResult(out[:16].view(4, 4), out[16], out[17])

@@ -8,8 +8,12 @@ rays found by spherical-projection morphology. Runs as a host thread beside
 the mapper; ``SharedState`` throttles it against the mapper.
 
 On a CUDA device the ICP runs on the tracker's own high-priority stream, so it
-never queues behind the mapper's work on the default stream. Frames carry
-numpy arrays only: no tensor crosses between the two threads.
+never queues behind the mapper's work on the default stream, and the whole
+schedule is one captured CUDA graph (``icp.ICPGraph``), captured by
+``warm_up`` or ``prepare_graphs`` before the worker threads start. Each CUDA
+section of the tracker holds ``cuda_graphs.CAPTURE_LOCK``, so it never runs
+while the mapper captures. Frames carry numpy arrays only: no tensor crosses
+between the two threads.
 """
 from __future__ import annotations
 
@@ -21,12 +25,13 @@ import numpy as np
 import torch
 from scipy import ndimage
 
+from loner_tpu_torch.common.cuda_graphs import CAPTURE_LOCK
 from loner_tpu_torch.common.frame import Frame
 from loner_tpu_torch.common.pose import Pose
 from loner_tpu_torch.common.signals import Signal, SharedState, StopSignal
 from loner_tpu_torch.ops.voxel import voxel_downsample
 from loner_tpu_torch.tracking.frame_synthesis import FrameSynthesis
-from loner_tpu_torch.tracking.icp import ICPResult, run_icp_schedule
+from loner_tpu_torch.tracking.icp import ICPGraph, ICPResult, run_icp_schedule
 
 
 class Tracker:
@@ -77,15 +82,26 @@ class Tracker:
         self._frame_rate = self._settings.frame_synthesis.frame_decimation_rate_hz
         self._max_time_delta = self._settings.synchronization.max_time_delta
         self._icp_pad = int(self._settings.icp.downsample.get("target_uniform_point_count", 5000))
+        self._icp_schedule = [dict(s) for s in self._settings.icp.schedule]
+        self.icp_graph = (ICPGraph(self._device, self._icp_schedule, self._icp_pad)
+                          if self._device.type == "cuda" else None)
 
     def _on_stream(self):
         return torch.cuda.stream(self._stream) if self._stream is not None else (
             contextlib.nullcontext())
 
+    def prepare_graphs(self) -> None:
+        """Capture the ICP graph (a CUDA device) unless it is captured; the
+        runtime calls this before the worker threads start."""
+        if self.icp_graph is not None and not self.icp_graph.captured:
+            with self._on_stream():
+                self.icp_graph.capture()
+
     def warm_up(self) -> float:
-        """Run the ICP schedule once on dummy clouds at the configured pad
-        size (allocator, cuBLAS and cuSOLVER handles). Returns seconds."""
+        """Capture the ICP graph and run the ICP schedule once on dummy clouds
+        at the configured pad size. Returns seconds."""
         t0 = time.time()
+        self.prepare_graphs()
         rng = np.random.default_rng(0)
         cloud = rng.uniform(-5.0, 5.0, (self._icp_pad, 3)).astype(np.float32)
         target = cloud + rng.normal(0, 0.01, cloud.shape).astype(np.float32)
@@ -170,9 +186,11 @@ class Tracker:
         raise ValueError(f"Unrecognized downsample type {downsample.type}")
 
     def _dispatch_icp(self, cloud: np.ndarray, target: np.ndarray, init) -> ICPResult:
-        with self._on_stream():
-            return run_icp_schedule(cloud, target, [dict(s) for s in self._settings.icp.schedule],
-                                    pad_size=self._icp_pad, init=init, device=self._device)
+        with CAPTURE_LOCK, self._on_stream():
+            if self.icp_graph is not None:
+                return self.icp_graph(cloud, target, init)
+            return run_icp_schedule(cloud, target, self._icp_schedule, pad_size=self._icp_pad,
+                                    init=init, device=self._device)
 
     def _apply_registration(self, frame: Frame, registration: np.ndarray) -> None:
         """Compose the tracked pose, motion-compensate, and advance the chain."""
@@ -197,7 +215,7 @@ class Tracker:
         self._pending = None
         # One copy to the host for the transform and the fitness; on the
         # tracker's stream, so it waits for the ICP only.
-        with self._on_stream():
+        with CAPTURE_LOCK, self._on_stream():
             host = torch.cat([result.transformation.reshape(16),
                               result.fitness.reshape(1)]).cpu().numpy()
         registration = host[:16].reshape(4, 4).astype(np.float64)
