@@ -74,9 +74,14 @@ class ScanStreamReader:
 
             with open(meta_path) as f:
                 self.meta = yaml.safe_load(f) or {}
+        self._time_spans: Optional[np.ndarray] = None
 
     def __len__(self) -> int:
         return len(self._scan_files)
+
+    @property
+    def gt_interpolator(self) -> Optional[TrajectoryInterpolator]:
+        return self._gt
 
     def gt_poses(self) -> Optional[np.ndarray]:
         if self._gt is None:
@@ -86,6 +91,21 @@ class ScanStreamReader:
     def read_scan(self, idx: int) -> LidarScan:
         data = np.load(self._scan_files[idx])
         return LidarScan(data["directions"], data["distances"], data["timestamps"])
+
+    def time_spans(self) -> np.ndarray:
+        """(len(self), 2) raw [start, end] time per scan, reading only each
+        npz's timestamps member, cached after the first call."""
+        if self._time_spans is None:
+            spans = []
+            for f in self._scan_files:
+                ts = np.load(f)["timestamps"]
+                spans.append((float(ts[0]), float(ts[-1])))
+            self._time_spans = np.asarray(spans)
+        return self._time_spans
+
+    def start_times(self) -> np.ndarray:
+        """(len(self),) scan start times (cached; see time_spans)."""
+        return self.time_spans()[:, 0]
 
     def has_images(self) -> bool:
         img_dir = os.path.join(self._root, "images")

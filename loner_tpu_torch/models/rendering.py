@@ -113,7 +113,8 @@ def raw2outputs(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
     Depth uses the far-appended residual bin: sum(w z) + (1 - sum w) far."""
     sigmas = raw[..., 0]
     deltas = z_vals[:, 1:] - z_vals[:, :-1]
-    deltas = torch.cat([deltas, torch.full_like(deltas[:, :1], 1e10)], dim=-1)
+    # The last delta from z_vals, not from the (B, 0) deltas of a one-sample ray.
+    deltas = torch.cat([deltas, torch.full_like(z_vals[:, :1], 1e10)], dim=-1)
     deltas = deltas * torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     if raw_noise_std > 0 and noise is not None:
         sigmas = sigmas + noise * raw_noise_std

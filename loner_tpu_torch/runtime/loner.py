@@ -11,15 +11,13 @@ keyframe-update), the 2-phase StopSignal shutdown, the single-threaded
 deterministic mode (deep-copying queues), the dumps of ``world_cube.yaml``,
 ``full_config.yaml`` and ``full_config.pkl``, and the output directory
 ``outputs/<experiment>_<MMDDYY_HHMMSS>/[config_<i>/][trial_<j>/]``. The two
-YAML files are written as JSON text with every float spelled with a decimal
+YAML files are written as JSON text (``common/json_yaml.py``): every float has a decimal
 point, which ``yaml.safe_load`` reads back to the same values: no YAML writer
 is needed. The camera branch (rgb signal) is not ported.
 """
 from __future__ import annotations
 
 import datetime
-import json
-import math
 import os
 import pickle
 import threading
@@ -29,6 +27,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
+from loner_tpu_torch.common.json_yaml import write_json_yaml
 from loner_tpu_torch.common.pose import Pose
 from loner_tpu_torch.common.sensors import LidarScan
 from loner_tpu_torch.common.settings import Settings
@@ -38,32 +37,6 @@ from loner_tpu_torch.mapping.mapper import Mapper
 from loner_tpu_torch.runtime.logger import DefaultLogger
 from loner_tpu_torch.runtime.profiling import RunProfiler
 from loner_tpu_torch.tracking.tracker import Tracker
-
-
-def _json_text(value) -> str:
-    """JSON text that YAML 1.1 loaders read to the same values: floats always
-    carry a decimal point (``1.0e-08``, not ``1e-08``, which PyYAML reads as a
-    string)."""
-    if isinstance(value, dict):
-        return "{" + ", ".join(f"{json.dumps(str(k))}: {_json_text(v)}"
-                               for k, v in value.items()) + "}"
-    if isinstance(value, (list, tuple)):
-        return "[" + ", ".join(_json_text(v) for v in value) + "]"
-    if isinstance(value, (bool, np.bool_)) or value is None:
-        return json.dumps(None if value is None else bool(value))
-    if isinstance(value, (int, np.integer)):
-        return str(int(value))
-    if isinstance(value, (float, np.floating)):
-        if not math.isfinite(value):
-            raise ValueError(f"{value} has no JSON form")
-        text = repr(float(value))
-        return text.replace("e", ".0e") if "e" in text and "." not in text else text
-    return json.dumps(str(value))
-
-
-def write_json_yaml(path: str, value) -> None:
-    with open(path, "w") as f:
-        f.write(_json_text(value) + "\n")
 
 
 class Loner:

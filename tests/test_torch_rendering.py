@@ -127,6 +127,51 @@ def test_raw2outputs_matches_values_and_gradients(softplus):
         _close(got / scale, np.asarray(ref) / scale, atol=1e-4)
 
 
+def _composite_inputs(n: int, s: int, seed: int):
+    rng = np.random.default_rng(seed)
+    raw = rng.normal(1.0, 3.0, (n, s, 1)).astype(np.float32)
+    z = np.sort(rng.uniform(0.05, 0.9, (n, s)), axis=1).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    return raw, z, d, np.full((n, 1), 0.95, np.float32)
+
+
+@pytest.mark.parametrize("softplus", [False, True])
+def test_raw2outputs_at_one_sample_matches_the_plain_compositor(softplus):
+    """S = 1: the last (and only) delta is 1e10 |d|, as the plain compositor of
+    ops/composite.py has it; JAX's raw2outputs builds it from an empty slice and
+    returns (B, 0) weights (ROADMAP Queue 3). Tolerance 1e-6 absolute."""
+    from loner_tpu_torch.ops.composite import composite_plain
+
+    raw, z, d, far = _composite_inputs(16, 1, 12)
+    raw[:4] = -1.0  # relu(sigma) = 0: empty rays, depth at far
+    out = tr.raw2outputs(torch.tensor(raw), torch.tensor(z), torch.tensor(d), softplus=softplus,
+                         far=torch.tensor(far), ret_var=True)
+    depth, opacity, var, weights = composite_plain(
+        torch.tensor(z), torch.tensor(raw[..., 0]), torch.tensor(far[:, 0]),
+        torch.linalg.norm(torch.tensor(d), dim=-1), softplus=softplus)
+    assert out["weights"].shape == (16, 1)
+    for got, ref in ((out["depth"], depth), (out["opacity"], opacity), (out["variance"], var),
+                     (out["weights"], weights)):
+        _close(got, ref.numpy(), atol=1e-6)
+    if not softplus:
+        _close(out["depth"][:4], far[:4, 0], atol=1e-6)
+
+
+@pytest.mark.parametrize("s", [2, 3, 64])
+@pytest.mark.parametrize("ret_var", [False, True])
+def test_raw2outputs_at_two_or_more_samples_matches_jax(s, ret_var):
+    """S >= 2, no sigma noise: the one-sample fix leaves the JAX package's values
+    (tolerance 2e-5 absolute, as above)."""
+    raw, z, d, far = _composite_inputs(16, s, 13 + s)
+    ref = jr.raw2outputs(jnp.asarray(raw), jnp.asarray(z), jnp.asarray(d), sigma_only=True,
+                         softplus=True, far=jnp.asarray(far), ret_var=ret_var)
+    out = tr.raw2outputs(torch.tensor(raw), torch.tensor(z), torch.tensor(d), softplus=True,
+                         far=torch.tensor(far), ret_var=ret_var)
+    assert set(out) == set(ref) & {"depth", "weights", "opacity", "variance"}
+    for k, v in out.items():
+        _close(v, ref[k], atol=2e-5, msg=k)
+
+
 def test_render_rays_matches_with_the_fused_sigma_path():
     """render_rays through the proposal sampler and the Fourier sigma field;
     JAX runs its fused Pallas kernel in interpret mode."""

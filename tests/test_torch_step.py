@@ -557,6 +557,29 @@ def test_port_runs_slam_without_jax_optax_yaml_or_loner_tpu(tmp_path):
         log_dir = run_trial(settings, os.path.join(root, "ds"), experiment_name="boundary_hash",
                             device="cpu")
         assert os.path.exists(os.path.join(log_dir, "checkpoints", "final.tar"))
+        # The map-quality path on that run, cut to a CPU size: GT map, map cloud,
+        # masked GT, F-score, L1, mesh, regression record.
+        import functools
+        from loner_tpu_torch.analysis import (
+            create_lidar_map, eval_map_quality, evaluate_lidar_map, l1_breakdown, mesh_to_pcd,
+            mesher, metrics_pipeline)
+        evaluate_lidar_map.ICP_SCHEDULE = [{"threshold": 0.5, "max_iterations": 1}]
+        mesher.build_weight_grid = functools.partial(
+            mesher.build_weight_grid, n_samples=16, num_channels=4, num_columns=16, chunk=64)
+        gt_map = create_lidar_map.build_gt_map(os.path.join(root, "ds"))
+        eval_map_quality.render_full_map = functools.partial(
+            eval_map_quality.render_full_map, num_channels=4, num_columns=16, n_samples=16)
+        eval_map_quality.compute_l1_depth = functools.partial(
+            eval_map_quality.compute_l1_depth, num_frames=2, rays_per_frame=32, n_samples=16)
+        out = eval_map_quality.eval_map_quality(log_dir, gt_map, device="cpu", var_threshold=1e6)
+        assert out["l1"]["num_rays"] > 0 and 0.0 <= out["statistics"]["f_score"] <= 1.0
+        split = l1_breakdown.l1_breakdown(log_dir, device="cpu", num_frames=2,
+                                          rays_per_frame=32, n_samples=16)
+        assert split["num_rays"] == out["l1"]["num_rays"]
+        mesher.get_mesh(log_dir, resolution=16, level=1e-3, skip_step=1, device="cpu")
+        mesh_to_pcd.read_ply(os.path.join(log_dir, "meshing", "mesh.ply"))
+        record = metrics_pipeline.write_regression_file(log_dir)
+        assert {"ate_rmse", "map_f_score", "l1_mean"} <= set(record["trials"]["."])
         bad = sorted(m for m in sys.modules
                      if m == "loner_tpu" or m.startswith("loner_tpu."))
         assert not bad, bad
