@@ -112,7 +112,11 @@ class ScanStreamReader:
         return os.path.isdir(img_dir) and any(f.endswith(".npz") for f in os.listdir(img_dir))
 
     def __iter__(self) -> Iterator[Tuple[LidarScan, Optional[Pose]]]:
-        for i in range(len(self)):
+        return self.iter_from(0)
+
+    def iter_from(self, start: int) -> Iterator[Tuple[LidarScan, Optional[Pose]]]:
+        """(scan, GT pose or None) from scan ``start`` on."""
+        for i in range(start, len(self)):
             scan = self.read_scan(i)
             gt = None
             if self._gt is not None and self._gt.contains(scan.get_start_time()):

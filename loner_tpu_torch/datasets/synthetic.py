@@ -1,10 +1,10 @@
-"""Synthetic LiDAR scene: a box room with box obstacles, analytic raycast.
+"""Synthetic LiDAR scenes: a box room with box obstacles, the reference-scale
+courtyard, moving box actors; analytic raycast.
 
-Counterpart of the box-room part of ``loner_tpu/datasets/synthetic.py``
-(numpy and scipy only; the moving actors, the courtyard and the virtual camera
-are not ported). Depths are closed-form ray/AABB intersections, so the same
-seed gives scans bit-equal to the JAX package's, and ICP, mapping and SLAM can
-be checked against exact ground truth.
+Counterpart of ``loner_tpu/datasets/synthetic.py`` (numpy and scipy only; the
+virtual camera is not ported). Depths are closed-form ray/AABB intersections,
+so the same seed gives scans bit-equal to the JAX package's, and ICP, mapping
+and SLAM can be checked against exact ground truth.
 """
 from __future__ import annotations
 
@@ -16,6 +16,34 @@ from scipy.spatial.transform import Rotation as _R
 
 from loner_tpu_torch.common.pose import Pose
 from loner_tpu_torch.common.sensors import LidarScan
+
+
+@dataclass
+class DynamicBox:
+    """A moving axis-aligned box actor (pedestrian/vehicle stand-in).
+
+    The box center follows a piecewise-linear waypoint path at constant
+    speed; the box is axis-aligned at all times (adequate for robustness
+    drills — what matters is that returns appear at transient, wrong-for-
+    the-map positions, like the pedestrians in the reference's real
+    datasets). Before t_start / after the path ends the actor parks at
+    the first / last waypoint.
+    """
+
+    size: np.ndarray  # (3,) full extents
+    waypoints: np.ndarray  # (K, 3) centers
+    speed: float = 1.4
+    t_start: float = 0.0
+
+    def center_at(self, t: np.ndarray) -> np.ndarray:
+        """(T,) times -> (T, 3) centers (piecewise-linear, arc-length)."""
+        wp = np.asarray(self.waypoints, np.float64)
+        seg = np.linalg.norm(np.diff(wp, axis=0), axis=-1)
+        cum = np.concatenate([[0.0], np.cumsum(seg)])
+        s = np.clip((np.asarray(t, np.float64) - self.t_start) * self.speed, 0.0, cum[-1])
+        idx = np.clip(np.searchsorted(cum, s, side="right") - 1, 0, len(seg) - 1)
+        frac = (s - cum[idx]) / np.maximum(seg[idx], 1e-12)
+        return wp[idx] + frac[:, None] * (wp[idx + 1] - wp[idx])
 
 
 @dataclass
@@ -31,6 +59,9 @@ class BoxRoomScene:
             (np.array([-5.0, 2.0, -2.0]), np.array([-3.0, 4.0, 0.5])),
         ]
     )
+    # Moving actors (robustness drills): raycast consults them only when
+    # per-ray times are provided.
+    actors: List[DynamicBox] = field(default_factory=list)
     # Open-sky variant: the ceiling (z = room_max[2]) is removed — rays
     # exiting through it return no hit (inf depth -> dropped by
     # make_scan), which is what real outdoor lidar sees above the
@@ -45,8 +76,18 @@ class BoxRoomScene:
     # cleanly separable from wall returns.
     top_opening: Optional[Tuple[np.ndarray, np.ndarray]] = None
 
-    def raycast(self, origins: np.ndarray, directions: np.ndarray) -> np.ndarray:
-        """Exact first-hit distance for rays (N, 3), (N, 3) -> (N,)."""
+    def raycast(
+        self,
+        origins: np.ndarray,
+        directions: np.ndarray,
+        times: Optional[np.ndarray] = None,
+    ) -> np.ndarray:
+        """Exact first-hit distance for rays (N, 3), (N, 3) -> (N,).
+
+        ``times`` (N,) enables the dynamic actors: each ray is tested
+        against every actor's AABB at that ray's own emission time (the
+        spinning-lidar rolling shutter is modeled exactly, not at a
+        single mid-scan snapshot)."""
         o, d = np.asarray(origins, np.float64), np.asarray(directions, np.float64)
         d = np.where(np.abs(d) < 1e-12, 1e-12, d)
 
@@ -82,6 +123,19 @@ class BoxRoomScene:
             hit = (t_near <= t_far) & (t_far > 0) & (t_near > 0)
             depth = np.where(hit, np.minimum(depth, t_near), depth)
 
+        if times is not None:
+            for actor in self.actors:
+                # Per-ray box position: the slab test vectorizes
+                # unchanged with (N, 3) corners.
+                c = actor.center_at(times)
+                bmin = c - 0.5 * np.asarray(actor.size)
+                bmax = c + 0.5 * np.asarray(actor.size)
+                t0 = (bmin - o) / d
+                t1 = (bmax - o) / d
+                t_near = np.minimum(t0, t1).max(axis=-1)
+                t_far = np.maximum(t0, t1).min(axis=-1)
+                hit = (t_near <= t_far) & (t_far > 0) & (t_near > 0)
+                depth = np.where(hit, np.minimum(depth, t_near), depth)
         return depth
 
     def sample_free_positions(self, n: int, margin: float = 0.5, seed: int = 0) -> np.ndarray:
@@ -151,7 +205,8 @@ def make_scan(
     rot = pose.get_rotation()
     dirs_world = (rot @ dirs_sensor).T  # (N, 3)
     origins = np.broadcast_to(pose.get_translation(), dirs_world.shape)
-    depth = scene.raycast(origins, dirs_world)
+    times = lidar.timestamps(t_start) if scene.actors else None
+    depth = scene.raycast(origins, dirs_world, times=times)
     rng = np.random.default_rng(seed)
     if noise_std > 0:
         depth = depth + rng.normal(0, noise_std, depth.shape)
@@ -187,6 +242,184 @@ def make_trajectory(
     yaw = angles + np.pi / 2
     poses[:, :3, :3] = _R.from_euler("z", yaw.reshape(-1, 1)).as_matrix()
     return poses, ts
+
+
+def make_waypoint_trajectory(
+    waypoints: np.ndarray,
+    speed: float = 1.6,
+    rate_hz: float = 10.0,
+    z: float = 1.5,
+    smooth_s: float = 4.0,
+    t_start: float = 100.0,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Constant-speed trajectory along an xy waypoint polyline.
+
+    Positions are arc-length sampled, then box-filtered over
+    ``smooth_s`` seconds so corners become arcs — the heading (yaw,
+    from the smoothed finite-difference velocity) is continuous and
+    turn rates stay within what the 5 Hz ICP tracker absorbs (~5°/frame
+    at walking speed). Returns ((N, 4, 4) poses, (N,) timestamps).
+    """
+    wp = np.asarray(waypoints, np.float64)[:, :2]
+    seg = np.linalg.norm(np.diff(wp, axis=0), axis=-1)
+    cum = np.concatenate([[0.0], np.cumsum(seg)])
+    n = max(2, int(np.floor(cum[-1] / speed * rate_hz)))
+    s = np.linspace(0.0, cum[-1], n)
+    idx = np.clip(np.searchsorted(cum, s, side="right") - 1, 0, len(seg) - 1)
+    frac = (s - cum[idx]) / np.maximum(seg[idx], 1e-12)
+    xy = wp[idx] + frac[:, None] * (wp[idx + 1] - wp[idx])
+
+    half = max(1, int(smooth_s * rate_hz / 2))
+    pad = np.concatenate([np.repeat(xy[:1], half, 0), xy, np.repeat(xy[-1:], half, 0)])
+    kernel = np.ones(2 * half + 1) / (2 * half + 1)
+    sm = np.stack(
+        [np.convolve(pad[:, k], kernel, mode="valid") for k in range(2)], axis=-1
+    )
+
+    vel = np.gradient(sm, axis=0)
+    yaw = np.arctan2(vel[:, 1], vel[:, 0])
+    # At the endpoints the box filter flattens the velocity to ~0 —
+    # hold the nearest well-defined heading instead of atan2 noise.
+    speed_ok = np.linalg.norm(vel, axis=-1) > 1e-6
+    if speed_ok.any():
+        first, last = np.argmax(speed_ok), len(yaw) - 1 - np.argmax(speed_ok[::-1])
+        yaw[:first] = yaw[first]
+        yaw[last + 1 :] = yaw[last]
+
+    ts = t_start + np.arange(n) / rate_hz
+    poses = np.tile(np.eye(4), (n, 1, 1))
+    poses[:, 0, 3] = sm[:, 0]
+    poses[:, 1, 3] = sm[:, 1]
+    poses[:, 2, 3] = z
+    poses[:, :3, :3] = _R.from_euler("z", yaw.reshape(-1, 1)).as_matrix()
+    return poses, ts
+
+
+def _box(x0, y0, z0, x1, y1, z1) -> Tuple[np.ndarray, np.ndarray]:
+    return (np.array([x0, y0, z0], np.float64), np.array([x1, y1, z1], np.float64))
+
+
+def make_courtyard(
+    with_actors: bool = False,
+) -> Tuple[BoxRoomScene, np.ndarray, float]:
+    """Reference-scale outdoor scene: a 64 x 48 m walled courtyard.
+
+    Sized to the reference's canteen-class operating envelope
+    (ray_range [1, 50], the reference's cfg/fusion_portable/
+    canteen.yaml:19): open sky, two building blocks, a tower, a
+    colonnade of 0.5 m pillars, a 0.6 m divider wall, benches and
+    planters — structure spanning three orders of spatial scale
+    (64 m walls down to 0.5 m furniture). Returns
+    (scene, trajectory waypoints, walking speed); the waypoint loop
+    circles the perimeter then re-enters the south corridor and the
+    central plaza — a genuine revisit after ~150 m of travel.
+    """
+    obstacles = [
+        # building A (south-west block, 16 x 12 x 9)
+        _box(-24.0, -18.0, -0.5, -8.0, -6.0, 9.0),
+        # building B (north-east block, 18 x 14 x 7)
+        _box(8.0, 2.0, -0.5, 26.0, 16.0, 7.0),
+        # tower (tall, small footprint)
+        _box(-26.0, 10.0, -0.5, -20.0, 16.0, 14.0),
+        # divider wall (0.6 m thick, 2 m high)
+        _box(-4.0, 6.0, -0.5, 12.0, 6.6, 2.0),
+    ]
+    # colonnade: 6 pillars, 0.5 m square, 5 m tall, along y = -12
+    for x in (0.0, 4.0, 8.0, 12.0, 16.0, 20.0):
+        obstacles.append(_box(x - 0.25, -12.25, -0.5, x + 0.25, -11.75, 5.0))
+    # benches (0.5 m high) and planters (1.2 m cubes): small-scale detail
+    obstacles += [
+        _box(-2.0, -2.0, -0.5, 0.0, -1.3, 0.5),
+        _box(2.0, -6.0, -0.5, 4.0, -5.3, 0.5),
+        _box(-14.0, 14.0, -0.5, -12.0, 14.7, 0.5),
+        _box(0.0, 12.0, -0.5, 1.2, 13.2, 0.7),
+        _box(-18.0, 0.0, -0.5, -16.8, 1.2, 0.7),
+        _box(18.0, -18.0, -0.5, 19.2, -16.8, 0.7),
+    ]
+    scene = BoxRoomScene(
+        room_min=np.array([-32.0, -24.0, -0.5]),
+        room_max=np.array([32.0, 24.0, 18.0]),
+        obstacles=obstacles,
+        open_top=True,
+    )
+    if with_actors:
+        # Two pedestrians crossing the sensor's path mid-run and one
+        # loiterer shadowing the south corridor.
+        scene.actors = [
+            DynamicBox(
+                size=np.array([0.5, 0.5, 1.8]),
+                waypoints=np.array([[10.0, -20.0, 0.4], [10.0, -2.0, 0.4]]),
+                speed=1.2,
+                t_start=102.0,
+            ),
+            DynamicBox(
+                size=np.array([0.6, 0.6, 1.8]),
+                waypoints=np.array([[28.0, 0.0, 0.4], [4.0, -8.0, 0.4]]),
+                speed=1.4,
+                t_start=120.0,
+            ),
+            DynamicBox(
+                size=np.array([0.5, 0.5, 1.8]),
+                waypoints=np.array(
+                    [[-20.0, -21.0, 0.4], [20.0, -21.0, 0.4], [-20.0, -21.0, 0.4]]
+                ),
+                speed=1.0,
+                t_start=100.0,
+            ),
+        ]
+    # Perimeter loop (counterclockwise), then a revisit of the south
+    # corridor and a final turn into the central plaza between the two
+    # buildings (crossing the colonnade line at x = -2, between pillar
+    # rows).
+    waypoints = np.array(
+        [
+            [-28.0, -20.0],
+            [28.0, -20.0],
+            [28.0, 20.0],
+            [-2.0, 20.0],
+            [-28.0, 20.0],
+            [-28.0, -20.0],  # loop closed: full revisit of the start
+            [0.0, -20.0],    # re-traverse half the south corridor
+            [-2.0, -8.0],    # through the colonnade gap
+            [-2.0, 2.0],     # central plaza
+        ]
+    )
+    return scene, waypoints, 1.6
+
+
+def generate_courtyard_sequence(
+    with_actors: bool = False,
+    noise_std: float = 0.0,
+    dropout: float = 0.0,
+    rate_hz: float = 10.0,
+    lidar: Optional[VirtualLidar] = None,
+    num_scans: Optional[int] = None,
+) -> Tuple[List[LidarScan], np.ndarray, np.ndarray, BoxRoomScene, VirtualLidar]:
+    """The reference-scale drive sequence (~150 s at walking speed), or its
+    first ``num_scans`` scans with their poses and times.
+
+    The default sensor is 64 channels x 1024 columns (~65k points/scan)
+    — the reference's operating envelope is an Ouster OS1-128 masked to
+    the same +/-22.5 deg vFOV (canteen.yaml:28, 60-130k points/scan per
+    the motion-compensation sizes in src/common/sensors.py); a 32x512
+    virtual sensor under-constrains ICP at 50 m ranges (0.37 m azimuth
+    spacing at 30 m) and costs ~2x the odometry drift.
+    """
+    scene, waypoints, speed = make_courtyard(with_actors=with_actors)
+    lidar = lidar or VirtualLidar(
+        num_channels=64, num_columns=1024, max_range=60.0
+    )
+    poses, ts = make_waypoint_trajectory(waypoints, speed=speed, rate_hz=rate_hz)
+    if num_scans is not None:
+        poses, ts = poses[:num_scans], ts[:num_scans]
+    scans = [
+        make_scan(
+            scene, lidar, Pose(poses[i]), ts[i],
+            noise_std=noise_std, dropout=dropout, seed=i,
+        )
+        for i in range(len(ts))
+    ]
+    return scans, poses, ts, scene, lidar
 
 
 def generate_sequence(

@@ -89,12 +89,12 @@ class Mapper:
             raise NotImplementedError("a device mesh (system.mesh_devices) is not ported")
         if int(settings.optimizer.num_samples.get("camera", 0)) > 0:
             raise NotImplementedError("camera samples are not ported")
-        if enable_sky_segmentation and int(settings.optimizer.num_samples.sky) > 0:
-            raise NotImplementedError("sky rays in the mapper are not ported")
-        # The optimiser's full window class is the keyframe window's size.
+        # The optimiser's full window class is the keyframe window's size; sky
+        # rays are on where the tracker segments sky and the schedule samples it.
         opt_cfg = replace(
             OptimizerConfig.from_settings(settings.optimizer, model_cfg),
             window_size=int(settings.keyframe_manager.window_selection.window_size),
+            enable_sky=enable_sky_segmentation and int(settings.optimizer.num_samples.sky) > 0,
         )
         field_cfg = FieldConfig.from_settings(model_cfg.model.nerf_config,
                                               int(model_cfg.model.num_colors))

@@ -150,29 +150,42 @@ class StepDraws:
             for the OGM sampler, whose stratified half it jitters
     noise:  (B, S) standard normals, the sigma noise (raw_noise_std > 0)
     pdf_u:  (B, S/2) uniforms of the OGM sampler's importance half
+    sky_u:  (W, n_sky) uniforms that pick the sky directions (sky rays on)
+
+    B = W * (n_lidar + n_sky) rays.
     """
 
     ray_u: torch.Tensor
     jitter: Optional[torch.Tensor] = None
     noise: Optional[torch.Tensor] = None
     pdf_u: Optional[torch.Tensor] = None
+    sky_u: Optional[torch.Tensor] = None
+
+
+def sky_rays_per_slot(cfg: "OptimizerConfig") -> int:
+    """Sky rays per window slot in an iteration: 0 unless sky rays are on."""
+    return cfg.n_sky_samples if cfg.enable_sky else 0
 
 
 def draw_step(generator: torch.Generator, cfg: "OptimizerConfig", window_size: int,
               device: torch.device) -> StepDraws:
     """One iteration's draws from ``generator`` on ``device``."""
-    b, s = window_size * cfg.n_lidar_samples, cfg.n_samples_per_ray
+    n_sky = sky_rays_per_slot(cfg)
+    b, s = window_size * (cfg.n_lidar_samples + n_sky), cfg.n_samples_per_ray
     ogm = cfg.samples_strategy == "OGM"
     draws = StepDraws(
         ray_u=torch.empty((window_size, cfg.n_lidar_samples), device=device),
         jitter=torch.empty((b, s // 2 if ogm else s), device=device) if cfg.perturb > 0 else None,
         noise=torch.empty((b, s), device=device) if cfg.raw_noise_std > 0 else None,
         pdf_u=torch.empty((b, s // 2), device=device) if ogm else None,
+        sky_u=torch.empty((window_size, n_sky), device=device) if n_sky else None,
     )
     return fill_draws(draws, generator)
 
 
-DRAW_FIELDS = ("ray_u", "jitter", "noise", "pdf_u")
+# The order of the draws. ``sky_u`` comes last, so a configuration without sky
+# rays draws the same numbers whether or not the port has them.
+DRAW_FIELDS = ("ray_u", "jitter", "noise", "pdf_u", "sky_u")
 
 
 def fill_draws(draws: StepDraws, generator: torch.Generator) -> StepDraws:
@@ -248,8 +261,9 @@ def iteration_loss(cfg: "OptimizerConfig", field_cfg: FieldConfig, sigma: Dict[s
     else:
         sampler = UniformRaySampler()
     rays, depths_cube, valid = sample_and_build_rays(
-        buffers, twists, world_scale, world_shift, cfg.ray_range, cfg.n_lidar_samples, 0,
-        u=draws.ray_u, fixed_indices=cfg.rays_strategy == "FIXED",
+        buffers, twists, world_scale, world_shift, cfg.ray_range, cfg.n_lidar_samples,
+        sky_rays_per_slot(cfg), u=draws.ray_u, fixed_indices=cfg.rays_strategy == "FIXED",
+        sky_u=draws.sky_u,
     )
     loss, aux = compute_lidar_loss(
         rays, depths_cube, valid, {"sigma": sigma, "intensity": intensity}, field_cfg, sampler,
@@ -300,8 +314,6 @@ def make_phase_runner(cfg: OptimizerConfig, field_cfg: FieldConfig, phase: Phase
         raise NotImplementedError("camera / intensity phases are not ported yet")
     if extras_mode != "none":
         raise NotImplementedError("per-iteration debug records are not ported yet")
-    if cfg.enable_sky and cfg.n_sky_samples > 0:
-        raise NotImplementedError("sky rays are not ported yet")
     if cfg.rays_strategy not in ("RANDOM", "MASK", "FIXED"):
         raise RuntimeError(f"Can't find rays_selection strategy: {cfg.rays_strategy}")
     device = torch.device(device)
@@ -456,6 +468,10 @@ class Optimizer:
         elif static is not buffers:
             copy_window(static, buffers)
         return static
+
+    @property
+    def config(self) -> OptimizerConfig:
+        return self._cfg
 
     @property
     def graph_captures(self) -> int:

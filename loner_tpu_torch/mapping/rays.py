@@ -1,11 +1,12 @@
 """Differentiable ray building from keyframe point buffers, on the device.
 
-Counterpart of ``loner_tpu/mapping/rays.py``, LiDAR rays only. Every keyframe's
-point buffer is padded to one size and stays on the device for the whole window
-optimisation; each iteration samples ray indices, applies the pose twists,
-scales into the world cube and computes near/far there. Gradients flow from the
-loss through ray origins and directions to the twists. Invalid slots and rays
-are masked, never filtered.
+Counterpart of ``loner_tpu/mapping/rays.py``: LiDAR and sky rays. Every
+keyframe's point buffer is padded to one size and stays on the device for the
+whole window optimisation; each iteration samples ray indices, applies the pose
+twists, scales into the world cube and computes near/far there. Gradients flow
+from the loss through the LiDAR rays' origins and directions to the twists; sky
+rays are built from detached poses. Invalid slots and rays are masked, never
+filtered.
 """
 from __future__ import annotations
 
@@ -109,16 +110,19 @@ def sample_and_build_rays(buffers: WindowBuffers, twists: torch.Tensor,
                           world_scale, world_shift: torch.Tensor,
                           ray_range: Tuple[float, float], n_lidar: int, n_sky: int,
                           u: Optional[torch.Tensor] = None,
-                          fixed_indices: bool = False):
+                          fixed_indices: bool = False,
+                          sky_u: Optional[torch.Tensor] = None):
     """Sample ray indices per slot and build rays, on the device.
 
     u: (W, n_lidar) uniforms that pick the ray indices (unused with
-    ``fixed_indices``). Returns (rays (B, 11) in cube coords, depths_cube (B,),
-    valid (B,)) with B = W * n_lidar. Rays with less than 1 m inside the cube,
-    or whose origin is outside it, are masked.
+    ``fixed_indices``); sky_u: (W, n_sky) uniforms that pick the sky directions.
+    Returns (rays (B, 11) in cube coords, depths_cube (B,), valid (B,)) with
+    B = W * (n_lidar + n_sky), each slot's rays laid out as [n_lidar | n_sky].
+    Sky rays take the depth ray_range[1] + 1 (transparent supervision), are
+    valid where their slot is and has sky directions, and are built from
+    detached poses: no pose gradient comes from them. Rays with less than 1 m
+    inside the cube, or whose origin is outside it, are masked.
     """
-    if n_sky > 0:
-        raise NotImplementedError("sky rays are not ported yet")
     w = buffers.dirs.shape[0]
     counts = buffers.counts[:, None].long()
     if fixed_indices:
@@ -136,10 +140,23 @@ def sample_and_build_rays(buffers: WindowBuffers, twists: torch.Tensor,
     # World-frame directions as f32 products and sums (no reduced-precision
     # matmul path), normalized.
     dirs_w = (rot * dirs_s[:, :, None, :]).sum(dim=-1)
-    dirs_w = dirs_w / torch.linalg.norm(dirs_w, dim=-1, keepdim=True)
     origins = ((trans + world_shift) / world_scale).expand(dirs_w.shape)
+    if n_sky > 0:
+        sky_counts = buffers.sky_counts[:, None]
+        sidx = torch.floor(sky_u * torch.clamp(sky_counts, min=1).to(sky_u.dtype)).long()
+        sky_s = torch.gather(buffers.sky_dirs, 1, sidx[..., None].expand(w, n_sky, 3))
+        sky_w = (rot.detach() * sky_s[:, :, None, :]).sum(dim=-1)
+        sky_o = ((trans.detach() + world_shift) / world_scale).expand(sky_w.shape)
+        dirs_w = torch.cat([dirs_w, sky_w], dim=1)
+        origins = torch.cat([origins, sky_o], dim=1)
+        depths_m = torch.cat([depths_m, torch.full((w, n_sky), ray_range[1] + 1.0,
+                                                   dtype=depths_m.dtype, device=depths_m.device)],
+                             dim=1)
+        sky_valid = buffers.slot_valid[:, None] & (sky_counts > 0)
+        valid = torch.cat([valid, sky_valid.expand(w, n_sky)], dim=1)
+    dirs_w = dirs_w / torch.linalg.norm(dirs_w, dim=-1, keepdim=True)
 
-    b = w * n_lidar
+    b = w * (n_lidar + n_sky)
     origins = origins.reshape(b, 3)
     dirs_w = dirs_w.reshape(b, 3)
     depths_cube = (depths_m / world_scale).reshape(b)

@@ -5,18 +5,23 @@ device:
 
     python -m loner_tpu_torch.run_loner <dataset_dir> <config.yaml> \\
         [--experiment_name NAME] [--duration SECONDS] [--precompile] [--device cuda|cpu|cuda:N]
+    python -m loner_tpu_torch.run_loner --resume <log_dir> [--duration SECONDS] [--device ...]
 
 The world cube comes from the ground-truth poses when the dataset has them;
 ``runtime.txt`` records the wall time of the run; the return value (and the
 last line printed) is the log directory. ``--device`` defaults to ``cuda``
 and never falls back to the CPU: without a CUDA card, ask for ``cpu``.
 ``<dataset_dir>`` may be ``auto`` for a sequence config that names its
-dataset. Sweeps, ``--resume``, trial pools and camera images are not ported.
+dataset. ``--resume`` continues a run (written by either package) in its own
+directory from its newest full checkpoint, with the configuration and dataset
+of its ``full_config.pkl`` (``runtime/resume.py``). Sweeps, trial pools and
+camera images are not ported.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import pickle
 import time
 from typing import Optional, Union
 
@@ -39,9 +44,9 @@ def run_trial(
     resume_from: Optional[str] = None,
     device: Union[torch.device, str] = "cuda",
 ) -> str:
-    """One SLAM run over the dataset; returns the log directory."""
-    if resume_from is not None:
-        raise NotImplementedError("resuming a run is not ported")
+    """One SLAM run over the dataset; returns the log directory. With
+    ``resume_from`` (a log directory) the run continues there from its newest
+    full checkpoint, streaming the scans after its last keyframe."""
     device = resolve_device(device)
     settings = settings if isinstance(settings, Settings) else Settings(settings)
     if settings.system.get("seed_cache_only", False):
@@ -61,8 +66,15 @@ def run_trial(
     loner = Loner(settings, device)
     loner.initialize(lidar_poses, ray_range, dataset_path=dataset_path,
                      experiment_name=experiment_name, config_idx=config_idx,
-                     trial_idx=trial_idx, traj_bounding_box=bbox)
+                     trial_idx=trial_idx, traj_bounding_box=bbox, log_directory=resume_from)
     loner.start()
+
+    resume_idx = 0
+    if resume_from is not None:
+        from loner_tpu_torch.runtime.resume import resume_run
+
+        resume_idx = resume_run(loner, reader, resume_from)
+        print(f"Resuming {resume_from} at scan {resume_idx}/{len(reader)}")
 
     fov = settings.system.lidar_fov
     if settings.system.get("precompile", False) and len(reader) > 0:
@@ -74,9 +86,15 @@ def run_trial(
         loner.warm_up(len(scan0))
 
     gt_offset = None
+    if resume_idx > 0 and reader.gt_interpolator is not None:
+        # The original run's zero-origin offset, its first scan's GT: the first
+        # scan after the resume would re-zero the trajectory mid-sequence.
+        first = reader.read_scan(0).get_start_time()
+        if reader.gt_interpolator.contains(first):
+            gt_offset = reader.gt_interpolator.at(first).inv()
     start = time.time()
     init_time = None
-    for scan, gt in reader:
+    for scan, gt in reader.iter_from(resume_idx):
         if init_time is None:
             init_time = scan.get_start_time()
         if duration is not None and scan.get_start_time() - init_time > duration:
@@ -104,9 +122,13 @@ def run_trial(
 
 def main() -> None:
     parser = argparse.ArgumentParser(description="Run LONER SLAM with the PyTorch port")
-    parser.add_argument("dataset_path", help="scan-stream directory, or 'auto' for the "
-                        "dataset a sequence config names")
-    parser.add_argument("config", help="path to the config yaml")
+    parser.add_argument("dataset_path", nargs="?", default=None,
+                        help="scan-stream directory, or 'auto' for the dataset a sequence "
+                        "config names")
+    parser.add_argument("config", nargs="?", default=None, help="path to the config yaml")
+    parser.add_argument("--resume", default=None, metavar="LOGDIR",
+                        help="continue a run from its newest full checkpoint (configuration "
+                        "and dataset from the run's full_config.pkl)")
     parser.add_argument("--experiment_name", default=None)
     parser.add_argument("--duration", type=float, default=None, help="seconds of data")
     parser.add_argument("--precompile", action="store_true",
@@ -114,6 +136,16 @@ def main() -> None:
     parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     args = parser.parse_args()
 
+    if args.resume is not None:
+        with open(os.path.join(args.resume, "full_config.pkl"), "rb") as f:
+            settings = Settings(pickle.load(f))
+        if args.precompile:
+            settings.augment({"system": {"precompile": True}})
+        run_trial(settings, settings["dataset_path"], duration=args.duration,
+                  resume_from=args.resume, device=args.device)
+        return
+    if args.dataset_path is None or args.config is None:
+        parser.error("dataset_path and config are required unless --resume is given")
     settings, seq_dataset = load_config(args.config)
     dataset_path = args.dataset_path
     if dataset_path in ("auto", "-"):

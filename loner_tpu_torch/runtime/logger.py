@@ -16,7 +16,7 @@ import numpy as np
 
 from loner_tpu_torch.common.pose import Pose
 from loner_tpu_torch.common.signals import Signal, StopSignal
-from loner_tpu_torch.common.trajectory import dump_trajectory_to_tum
+from loner_tpu_torch.common.trajectory import dump_trajectory_to_tum, load_tum_trajectory
 
 
 class DefaultLogger:
@@ -40,6 +40,32 @@ class DefaultLogger:
         self._t_kf_to_frame = np.eye(4)
         self._last_keyframe_state = None
         self._frame_done = False
+
+    def preload(self, prev_trajectory_dir: str, keyframe_states) -> None:
+        """Mid-run resume (``runtime/resume.py``): reload the trajectories of a
+        previous run's ``trajectory/`` directory, cut at the checkpoint's last
+        keyframe, and re-seat the splice state there. Frames tracked after that
+        keyframe were never mapped; they stream again."""
+        icp, ts = load_tum_trajectory(os.path.join(prev_trajectory_dir, "tracking_only.txt"))
+        online, _ = load_tum_trajectory(os.path.join(prev_trajectory_dir, "online_estimates.txt"))
+        kf_time = float(keyframe_states[-1]["timestamp"])
+        keep = int(np.argmin(np.abs(ts - kf_time))) + 1
+
+        self._timestamps = [float(t) for t in ts[:keep]]
+        self._icp_only = [np.asarray(m) for m in icp[:keep]]
+        self._frame_log = [np.asarray(m) for m in online[:keep]]
+        gt_file = os.path.join(prev_trajectory_dir, "groundtruth.txt")
+        if os.path.exists(gt_file):
+            gt, _ = load_tum_trajectory(gt_file)
+            self._gt_path = [np.asarray(m) for m in gt[:keep]]
+            # Already zero-origined; the ingest loop offsets new frames by the
+            # original first scan's GT.
+            self._gt_pose_offset = Pose.identity()
+
+        self._last_keyframe_state = keyframe_states
+        self._t_world_to_kf = Pose.from_twist(keyframe_states[-1]["lidar_pose"]).matrix
+        # The keyframe is the newest frame kept: the keyframe-to-frame delta is 1.
+        self._t_kf_to_frame = np.eye(4)
 
     def update(self) -> None:
         while self._frame_slot.has_value():

@@ -57,6 +57,7 @@ class Loner:
 
         self._mapper: Optional[Mapper] = None
         self._tracker: Optional[Tracker] = None
+        self._logger: Optional[DefaultLogger] = None
         self._tracking_thread: Optional[threading.Thread] = None
         self._mapping_thread: Optional[threading.Thread] = None
 
@@ -74,7 +75,11 @@ class Loner:
         config_idx: Optional[int] = None,
         trial_idx: Optional[int] = None,
         traj_bounding_box: Optional[dict] = None,
+        log_directory: Optional[str] = None,
     ) -> None:
+        """The world cube and the log directory. ``log_directory`` continues an
+        existing run in place (mid-run resume: CSV logs append, checkpoints keep
+        their numbering, the config dumps are written again)."""
         self._world_cube = compute_world_cube(
             None, None, None, all_lidar_poses, ray_range, padding=0.3,
             traj_bounding_box=traj_bounding_box,
@@ -86,7 +91,10 @@ class Loner:
         expname = self._settings.get("experiment_name", "experiment")
         self._experiment_name = f"{expname}_{now_str}"
         prefix = os.path.expanduser(self._settings.system.log_dir_prefix)
-        if experiment_name is None:
+        if log_directory is not None:
+            self._log_directory = os.path.abspath(log_directory)
+            self._experiment_name = os.path.basename(self._log_directory)
+        elif experiment_name is None:
             self._log_directory = os.path.join(prefix, self._experiment_name)
         else:
             self._log_directory = os.path.join(prefix, experiment_name)
@@ -110,6 +118,10 @@ class Loner:
     @property
     def tracker(self) -> Optional[Tracker]:
         return self._tracker
+
+    @property
+    def logger(self) -> Optional[DefaultLogger]:
+        return self._logger
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> None:

@@ -52,9 +52,9 @@ class Tracker:
         self._stream = (torch.cuda.Stream(self._device, priority=-1)
                         if self._device.type == "cuda" else None)
 
+        self.t_lidar_to_camera = Pose.from_settings(settings.calibration.lidar_to_camera)
         self._frame_synthesizer = FrameSynthesis(
-            self._settings.frame_synthesis,
-            Pose.from_settings(settings.calibration.lidar_to_camera),
+            self._settings.frame_synthesis, self.t_lidar_to_camera,
             bool(settings.system.lidar_only),
         )
         self.processed_stop_signal = False
@@ -109,6 +109,26 @@ class Tracker:
         with self._on_stream():
             result.transformation.cpu()
         return time.time() - t0
+
+    # -- resume --------------------------------------------------------------
+    def seed_reference(self, frame: Frame) -> None:
+        """Prime the tracking chain from a restored keyframe (``runtime/resume.py``).
+        ``frame`` holds the keyframe's tracked pose and uncompensated scan: ICP
+        then chains as in the original run, and the keyframe manager's re-basing
+        onto the optimised pose stays one correction. The pipeline starts empty:
+        no pending result, the velocity init back to the identity on the host.
+        The ICP graph keeps its static buffers; the next call fills them."""
+        cloud = self._build_icp_cloud(frame)
+        self._reference_points = cloud
+        self._good_cloud = cloud
+        self._reference_pose = frame.get_lidar_pose().clone()
+        self._reference_time = frame.get_middle_time()
+        self._last_relative = np.eye(4)
+        self._last_relative_dev = None
+        self._pending = None
+        self._last_tracked_frame_time = frame.get_time()
+        # Decimation continues from the seed frame.
+        self._frame_synthesizer._prev_accepted_timestamp = frame.get_time()
 
     # -- pipeline ------------------------------------------------------------
     def update(self) -> bool:

@@ -251,6 +251,23 @@ def test_cpu_tensors_take_the_plain_version():
     assert (tfm.counts.fwd_launches, tfm.counts.bwd_launches) == before
 
 
+def test_guards_take_the_courtyard_width():
+    """cfg/synthetic/courtyard_tpu_r5f.yaml's sigma head: 96 frequencies, a first
+    layer of K = 2 * 96 + 3 = 195 rows, 256 x 2 hidden. The CUDA wrappers' checks
+    and packing accept it on the CPU (no launch), the packed first layer holds
+    every row of W_0, and the backward's plan has the chunks and tiles of it."""
+    ws, bs, bmat, pts, _ = _operands(96, 256, 2, 5000, torch.device("cpu"))
+    assert ws[0].shape == (195, 256)
+    tfm.check_shape(96, 256, 3)
+    _, bpad, wimg, wl, bias, f, h, n_layers = tfm._cuda_args(ws, bs, bmat, pts, torch.bfloat16)
+    assert (f, h, n_layers, tuple(bpad.shape)) == (96, 256, 3, (3, 96))
+    back = tfm.unpack_weights(wimg, f, h, n_layers)
+    assert torch.equal(back[0], ws[0].to(torch.bfloat16)) and wl.shape == (256,)
+    plan = tfm.BackwardPlan(2_097_152, 96, 256, 3, 132)
+    assert plan.k0 == 208 and len(plan.tiles) == 4 and plan.np == 2_097_152
+    assert plan.work_elems == (208 + 256 + 512) * 2_097_152
+
+
 def test_point_count_guard_raises_before_any_launch():
     # The kernels offset points in 64 bits and count a CTA's 128-point tile pairs in
     # 32 bits; meta tensors hold no data.

@@ -282,5 +282,24 @@ def test_run_trial_has_no_silent_cpu_fallback(dataset, tmp_path, monkeypatch):
     settings = tiny_settings(str(tmp_path), True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_trial(settings, dataset, device="cuda")
-    with pytest.raises(NotImplementedError):
-        run_trial(settings, dataset, resume_from=str(tmp_path), device="cpu")
+
+
+@pytest.mark.parametrize("name,build", [
+    ("box_room_sky", lambda cs, p: cs.sky_slam_settings(p, True)),
+    ("box_room_sky_off", lambda cs, p: cs.sky_slam_settings(p, False)),
+    ("courtyard_tpu_r5f", lambda cs, p: cs.courtyard_slam_settings(p)),
+])
+def test_smoke_sky_and_courtyard_settings_are_their_yaml(name, build):
+    """chip_smoke.py's phases 15 and 17 run these configurations as plain dicts:
+    equal to the port's load of the YAML but for the keys flagship_slam_settings
+    overrides on purpose (log prefix, precompile, the fused test compositor)."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    smoke = build(chip_smoke, "/tmp/prefix")
+    want, dataset = load_config(str(REPO / f"cfg/synthetic/{name}.yaml"))
+    assert dataset is not None
+    want.augment({"system": {"log_dir_prefix": "/tmp/prefix", "precompile": True},
+                  "mapper": {"optimizer": {"model_config": {"model": {"render": {
+                      "compositor": "pallas"}}}}}})
+    assert smoke == want.as_plain_dict()

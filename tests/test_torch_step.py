@@ -24,10 +24,10 @@
   port's hash backward then runs without its dpos half.
 - The import boundary: the port runs a step, renders a map cloud from a
   checkpoint it wrote, and runs a tiny single-threaded SLAM trial through
-  ``run_trial`` (at chip_smoke.py's settings, cut down), each with the Fourier
-  field and proposal sampler and with the hash field and OGM sampler, with jax,
-  optax, yaml (and matplotlib) unimportable, and pulls in nothing of
-  ``loner_tpu``.
+  ``run_trial`` (at chip_smoke.py's settings, cut down), resumes it in place,
+  scores a map and its sky floaters, each with the Fourier field and proposal
+  sampler and with the hash field and OGM sampler, with jax, optax, yaml (and
+  matplotlib) unimportable, and pulls in nothing of ``loner_tpu``.
 """
 import os
 import subprocess
@@ -103,8 +103,14 @@ def test_window_buffers_and_rays_match(n_scans):
     np.testing.assert_array_equal(valid_t.numpy(), np.asarray(valid_j))
     scale = max(np.abs(np.asarray(g_j)).max(), 1.0)
     np.testing.assert_allclose(tw.grad.numpy() / scale, np.asarray(g_j) / scale, atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        trays.sample_and_build_rays(bt, tw, 12.0, torch.tensor(shift), (1.0, 10.0), 16, 4, u=u)
+    # Sky rays on buffers without sky directions: appended after each slot's
+    # LiDAR rays, all masked out, the LiDAR rays unchanged.
+    rays_s, _, valid_s = trays.sample_and_build_rays(
+        bt, tw, torch.tensor(12.0), torch.tensor(shift), (1.0, 10.0), 16, 4, u=u,
+        sky_u=torch.rand(3, 4))
+    assert rays_s.shape == (3 * 20, 11) and not valid_s.view(3, 20)[:, 16:].any()
+    np.testing.assert_array_equal(rays_s.detach().view(3, 20, 11)[:, :16].numpy(),
+                                  rays_t.detach().view(3, 16, 11).numpy())
 
 
 def _configs(strategy: str, lr_gamma: float):
@@ -150,18 +156,21 @@ def _hash_configs(encode_impl: str):
     return cfg_j, cfg_t, fcfg_j, fcfg_t
 
 
-def jax_step_draws(k_step, w: int, n_lidar: int, s: int, ogm: bool = False):
+def jax_step_draws(k_step, w: int, n_lidar: int, s: int, ogm: bool = False, n_sky: int = 0):
     """One iteration's draws from JAX's step key, by the key splits of the loss,
-    sample_and_build_rays, render_rays and the samplers (the OGM sampler splits
-    its key into the stratified jitter's and the importance uniforms')."""
+    sample_and_build_rays (LiDAR and sky uniforms), render_rays and the samplers
+    (the OGM sampler splits its key into the stratified jitter's and the
+    importance uniforms')."""
     k_rays, _, k_render = jax.random.split(k_step, 3)
-    k_lidar, _ = jax.random.split(k_rays)
+    k_lidar, k_sky = jax.random.split(k_rays)
     k_sample, k_noise = jax.random.split(k_render)
-    b = w * n_lidar
+    b = w * (n_lidar + n_sky)
     draws = topt.StepDraws(
         ray_u=torch.tensor(np.asarray(jax.random.uniform(k_lidar, (w, n_lidar)))),
         noise=torch.tensor(np.asarray(jax.random.normal(k_noise, (b, s)))),
     )
+    if n_sky:
+        draws.sky_u = torch.tensor(np.asarray(jax.random.uniform(k_sky, (w, n_sky))))
     if ogm:
         k_uniform, k_pdf = jax.random.split(k_sample)
         draws.jitter = torch.tensor(np.asarray(jax.random.uniform(k_uniform, (b, s // 2))))
@@ -530,6 +539,9 @@ def test_port_runs_slam_without_jax_optax_yaml_or_loner_tpu(tmp_path):
         for f in ("checkpoints/final.tar", "trajectory/estimated_trajectory.txt",
                   "full_config.yaml", "world_cube.yaml", "runtime.txt"):
             assert os.path.exists(os.path.join(log_dir, f)), f
+        # Mid-run resume (runtime/resume.py) of that run, in place.
+        assert run_trial(settings, os.path.join(root, "ds"), resume_from=log_dir,
+                         device="cpu") == log_dir
         # The smoke test's reference settings (hash sigma field, OGM), cut the same way.
         settings = Settings(chip_smoke.box_room_settings(os.path.join(root, "out")))
         settings.augment({
@@ -573,6 +585,9 @@ def test_port_runs_slam_without_jax_optax_yaml_or_loner_tpu(tmp_path):
             eval_map_quality.compute_l1_depth, num_frames=2, rays_per_frame=32, n_samples=16)
         out = eval_map_quality.eval_map_quality(log_dir, gt_map, device="cpu", var_threshold=1e6)
         assert out["l1"]["num_rays"] > 0 and 0.0 <= out["statistics"]["f_score"] <= 1.0
+        from loner_tpu_torch.analysis.sky_floaters import sky_floaters
+        floaters = sky_floaters(log_dir, gt_map, n_probe_rays=16, device="cpu")
+        assert 0.0 <= floaters["mean_sky_opacity"] <= 1.0
         split = l1_breakdown.l1_breakdown(log_dir, device="cpu", num_frames=2,
                                           rays_per_frame=32, n_samples=16)
         assert split["num_rays"] == out["l1"]["num_rays"]
