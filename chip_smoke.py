@@ -140,6 +140,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # by ~10%, so gradients are held to a relative L2 error.
 FWD_MAX_ABS = 5e-2  # sigma is O(1)-O(10); 5e-2 is ~2 bf16 ulps at 8
 GRAD_REL_L2 = 1e-2  # ||kernel - plain|| / ||plain|| for dW, db and dpts
+# The f32 kernels against the plain version in f32: summation order only (a
+# ReLU flip at an exact zero is rare in f32).
+F32_FWD_MAX_ABS = 1e-3
+F32_GRAD_REL_L2 = 1e-4
 LOSS_RTOL = 1e-3  # the slice's loss, kernel vs plain sigma path
 TWIST_GRAD_REL_L2 = 2e-2  # the slice's twist gradient, kernel vs plain
 # Composite kernel against its plain version, f32 (the block scan multiplies in
@@ -158,21 +162,6 @@ RENDER_VAR_P99 = 1e-4  # 99th percentile of |var_k - var_p| / (far - near)^2
 WINDOW = 8  # keyframes in the flagship window
 RAY_RANGE = (1.0, 10.0)  # meters, cfg/model_config/tpu_native_model_config.yaml
 WORLD_CUBE = {"scale_factor": 12.0, "shift": [0.0, 0.0, 0.0]}
-# cfg/nerf_config/tpu_fourier.yaml as a plain dict (the card's machine has no PyYAML).
-FLAGSHIP_NERF = {
-    "enable_view_dependence": True, "encoding_sigma": "fourier", "compute_dtype": "bfloat16",
-    "sigma_kernel": "xla",
-    "fourier_sigma": {"n_freqs": 48, "scale": 6.0, "include_input": True, "seed": 1234,
-                      "encode_impl": "vjp"},
-    "dir_encoding_intensity": {"degree": 4, "otype": "SphericalHarmonics"},
-    "intensity_network": {"activation": "ReLU", "n_hidden_layers": 4, "n_neurons": 64,
-                          "otype": "MLP", "output_activation": "None"},
-    "pos_encoding_intensity": {"base_resolution": 16, "log2_hashmap_size": 19,
-                               "n_features_per_level": 2, "n_levels": 16, "otype": "HashGrid"},
-    "sigma_network": {"activation": "ReLU", "n_hidden_layers": 2, "n_neurons": 256,
-                      "otype": "MLP", "output_activation": "None"},
-}
-
 
 # Hash-grid encode, kernel against plain version on the card. Both take the same
 # rounded f32 operations in the same order (no FMA contraction), so the features
@@ -210,6 +199,8 @@ def read_counts() -> dict:
 
     return {"fourier_mlp_fwd": fourier_mlp.counts.fwd_launches,
             "fourier_mlp_bwd": fourier_mlp.counts.bwd_launches,
+            "fourier_mlp_fwd_f32": fourier_mlp.counts.fwd_f32_launches,
+            "fourier_mlp_bwd_f32": fourier_mlp.counts.bwd_f32_launches,
             "composite": composite.counts.composite_launches,
             "hash_encode_fwd": hash_grid.counts.fwd_launches,
             "hash_encode_bwd": hash_grid.counts.bwd_launches,
@@ -328,9 +319,14 @@ def check_kernels(dev, field_cfg, n: int = 8 * 512 * 512, label: str = "flagship
     """The Fourier-MLP pair against its plain version at ``n`` points of
     ``field_cfg``'s head, timed beside bound_ms and library_ms (``label`` names
     the shape in the output); with ``bootstrap``, also timed at the W=1
-    bootstrap's 262,144 points."""
+    bootstrap's 262,144 points. A head that computes in float32 takes the f32
+    kernels (csrc/fourier_mlp_f32.cu), held to F32_FWD_MAX_ABS and
+    F32_GRAD_REL_L2."""
     from loner_tpu_torch.models.field import fourier_bmat, init_field_params
     from loner_tpu_torch.ops import fourier_mlp as fm
+
+    f32 = field_cfg.compute_dtype == torch.float32
+    fwd_max, grad_rel = (F32_FWD_MAX_ABS, F32_GRAD_REL_L2) if f32 else (FWD_MAX_ABS, GRAD_REL_L2)
 
     gen = torch.Generator(device=dev).manual_seed(11)
     mlp = init_field_params(gen, field_cfg, dev)["sigma"]["mlp"]
@@ -341,20 +337,20 @@ def check_kernels(dev, field_cfg, n: int = 8 * 512 * 512, label: str = "flagship
     bmat = fourier_bmat(field_cfg.fourier_sigma, dev)
     pts01 = torch.rand((n, 3), generator=gen, device=dev)
     dout = torch.randn((n, 1), generator=gen, device=dev) / n ** 0.5
-    bf = torch.bfloat16
+    bf = field_cfg.compute_dtype
 
-    out_k = fm.fourier_mlp_fwd_cuda(ws, bs, bmat, pts01, bf)
+    out_k = fm.fourier_mlp_fwd_cuda_any(ws, bs, bmat, pts01, bf)
     out_p = fm.fourier_mlp_fwd_plain(ws, bs, bmat, pts01, bf)
     torch.cuda.synchronize()
     if out_k.shape != (n, 1) or not torch.isfinite(out_k).all():
         raise RuntimeError("forward kernel: wrong shape or non-finite output")
     fwd_err = float((out_k - out_p).abs().max())
     print(f"kernel fourier_mlp_fwd ({label}, N={n}, F={bmat.shape[1]}): max |kernel - plain| {fwd_err:.3e} "
-          f"(tolerance {FWD_MAX_ABS}), sigma range {float(out_p.abs().max()):.3e}", flush=True)
-    if not fwd_err <= FWD_MAX_ABS:
+          f"(tolerance {fwd_max}), sigma range {float(out_p.abs().max()):.3e}", flush=True)
+    if not fwd_err <= fwd_max:
         raise RuntimeError(f"forward kernel disagrees with its plain version: {fwd_err}")
 
-    dws_k, dbs_k, dpts_k = fm.fourier_mlp_bwd_cuda(ws, bs, bmat, pts01, dout, bf)
+    dws_k, dbs_k, dpts_k = fm.fourier_mlp_bwd_cuda_any(ws, bs, bmat, pts01, dout, bf)
     dws_p, dbs_p, dpts_p = fm.fourier_mlp_bwd_plain(ws, bs, bmat, pts01, dout, bf)
     torch.cuda.synchronize()
     pairs = [(f"dw{i}", a, b) for i, (a, b) in enumerate(zip(dws_k, dws_p))]
@@ -367,21 +363,21 @@ def check_kernels(dev, field_cfg, n: int = 8 * 512 * 512, label: str = "flagship
         err, rel = float((a - b).abs().max()), rel_l2(a, b)
         bwd_err = max(bwd_err, err)
         print(f"kernel fourier_mlp_bwd ({label}): {name} {tuple(a.shape)} max |err| {err:.3e} "
-              f"rel L2 {rel:.3e} (tolerance {GRAD_REL_L2})", flush=True)
-        if not rel <= GRAD_REL_L2:
+              f"rel L2 {rel:.3e} (tolerance {grad_rel})", flush=True)
+        if not rel <= grad_rel:
             raise RuntimeError(f"backward kernel disagrees with its plain version on {name}: {rel}")
 
-    again = fm.fourier_mlp_bwd_cuda(ws, bs, bmat, pts01, dout, bf)
+    again = fm.fourier_mlp_bwd_cuda_any(ws, bs, bmat, pts01, dout, bf)
     if not all(torch.equal(a, b) for a, b in zip(dws_k + dbs_k + [dpts_k],
                                                  again[0] + again[1] + [again[2]])):
         raise RuntimeError("backward kernel: two calls differ (it must be deterministic)")
 
     times = {
-        "fwd": cuda_ms(lambda: fm.fourier_mlp_fwd_cuda(ws, bs, bmat, pts01, bf)),
+        "fwd": cuda_ms(lambda: fm.fourier_mlp_fwd_cuda_any(ws, bs, bmat, pts01, bf)),
         "fwd_plain": cuda_ms(lambda: fm.fourier_mlp_fwd_plain(ws, bs, bmat, pts01, bf)),
-        "bwd": cuda_ms(lambda: fm.fourier_mlp_bwd_cuda(ws, bs, bmat, pts01, dout, bf)),
+        "bwd": cuda_ms(lambda: fm.fourier_mlp_bwd_cuda_any(ws, bs, bmat, pts01, dout, bf)),
         "bwd_plain": cuda_ms(lambda: fm.fourier_mlp_bwd_plain(ws, bs, bmat, pts01, dout, bf)),
-        **library_ms(ws, bs, bmat, pts01, dout),
+        **library_ms(ws, bs, bmat, pts01, dout, bf),
     }
     print(f"kernel times ({label}) at N={n} (median of 5, ms): " + json.dumps(times), flush=True)
     # Every product's multiply-adds (2 FLOP each): the forward once; the backward
@@ -389,8 +385,9 @@ def check_kernels(dev, field_cfg, n: int = 8 * 512 * 512, label: str = "flagship
     # sigma or dpts out, the parameters in (and their gradients out).
     macs = sum(w.shape[0] * w.shape[1] for w in ws)
     params = 4 * sum(w.numel() for w in ws) + 4 * sum(b.numel() for b in bs) + bmat.numel() * 4
-    fwd_bound = bound(2 * n * macs, 16 * n + params)
-    bwd_bound = bound(6 * n * macs, 28 * n + 2 * params)
+    peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
+    fwd_bound = bound(2 * n * macs, 16 * n + params, peak)
+    bwd_bound = bound(6 * n * macs, 28 * n + 2 * params, peak)
     for name, b, ms, lib in (("fwd", fwd_bound, times["fwd"], times["fwd_library"]),
                              ("bwd", bwd_bound, times["bwd"], times["bwd_library"])):
         print(f"kernel fourier_mlp_{name} ({label}): {ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
@@ -398,31 +395,30 @@ def check_kernels(dev, field_cfg, n: int = 8 * 512 * 512, label: str = "flagship
     if bootstrap:  # the W=1 bootstrap's call size
         small = 512 * 512
         sub = (pts01[:small].contiguous(), dout[:small].contiguous())
-        t_small = {"fwd": cuda_ms(lambda: fm.fourier_mlp_fwd_cuda(ws, bs, bmat, sub[0], bf)),
-                   "bwd": cuda_ms(lambda: fm.fourier_mlp_bwd_cuda(ws, bs, bmat, sub[0], sub[1],
+        t_small = {"fwd": cuda_ms(lambda: fm.fourier_mlp_fwd_cuda_any(ws, bs, bmat, sub[0], bf)),
+                   "bwd": cuda_ms(lambda: fm.fourier_mlp_bwd_cuda_any(ws, bs, bmat, sub[0], sub[1],
                                                                   bf))}
         print(f"kernel times ({label}) at N={small} (median of 5, ms): " + json.dumps(t_small),
               flush=True)
-    src = "loner_tpu_torch/csrc/fourier_mlp.cu"
+    src = "loner_tpu_torch/csrc/fourier_mlp_f32.cu" if f32 else "loner_tpu_torch/csrc/fourier_mlp.cu"
+    suffix = "_f32" if f32 else ""
     return [
-        {"name": "fourier_mlp_fwd", "route": "cuda", "source": src,
+        {"name": "fourier_mlp_fwd" + suffix, "route": "cuda", "source": src,
          "replaces": "loner_tpu/ops/pallas/fourier_mlp.py:52", "launches": 0,
          "max_abs_err": fwd_err, "ms": times["fwd"], "plain_ms": times["fwd_plain"],
          "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": times["fwd_library"]},
-        {"name": "fourier_mlp_bwd", "route": "cuda", "source": src,
+        {"name": "fourier_mlp_bwd" + suffix, "route": "cuda", "source": src,
          "replaces": "loner_tpu/ops/pallas/fourier_mlp.py:80", "launches": 0,
          "max_abs_err": bwd_err, "ms": times["bwd"], "plain_ms": times["bwd_plain"],
          "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": times["bwd_library"]},
     ]
 
 
-def library_ms(ws, bs, bmat, pts01, dout) -> dict:
-    """The yardstick: the same MLP as bf16 torch.addmm products with sin, cos,
-    concatenation and ReLU as PyTorch ops (a composition of library calls; no
-    single call computes it), and torch.autograd.grad of it with respect to the
-    weights, biases and points. Timed here only; the port never calls it."""
-    bf = torch.bfloat16
-
+def library_ms(ws, bs, bmat, pts01, dout, bf=torch.bfloat16) -> dict:
+    """The yardstick: the same MLP as torch.addmm products in ``bf`` with sin,
+    cos, concatenation and ReLU as PyTorch ops (a composition of library calls;
+    no single call computes it), and torch.autograd.grad of it with respect to
+    the weights, biases and points. Timed here only; the port never calls it."""
     def forward(wsb, bsb, pts):
         proj = pts[:, 0:1] * bmat[0] + pts[:, 1:2] * bmat[1] + pts[:, 2:3] * bmat[2]
         h = torch.cat([torch.sin(proj), torch.cos(proj), pts], dim=-1).to(bf)
@@ -730,14 +726,17 @@ def write_experiment(log_dir: str, field, prop, field_cfg, seed: int = 3) -> Non
 
     from loner_tpu_torch.common.pose import Pose
     from loner_tpu_torch.common.world_cube import WorldCube
+    from loner_tpu_torch.common import yaml_lite
     from loner_tpu_torch.mapping.mapper import build_ckpt, save_checkpoint
     from loner_tpu_torch.models.field import FieldConfig
 
-    if FieldConfig.from_settings(FLAGSHIP_NERF, 3) != field_cfg:
-        raise RuntimeError("FLAGSHIP_NERF does not parse to the slice's field config")
+    nerf = yaml_lite.load_file(os.path.join(REPO, "cfg", "nerf_config", "tpu_fourier.yaml"))
+    if FieldConfig.from_settings(nerf, 3) != field_cfg:
+        raise RuntimeError("cfg/nerf_config/tpu_fourier.yaml does not parse to the slice's "
+                           "field config")
     model_config = {
         "data": {"ray_range": list(RAY_RANGE)},
-        "model": {"num_colors": 3, "nerf_config": FLAGSHIP_NERF,
+        "model": {"num_colors": 3, "nerf_config": nerf,
                   "render": {"N_samples_test": 2048, "chunk": 16384, "compositor": "pallas"},
                   "occ_model": {"prop_n_ctrl": 33, "prop_train_subsample": 8,
                                 "proposal": {"n_freqs": 16, "scale": 3.0, "n_neurons": 64,
@@ -913,226 +912,76 @@ MAP_DEPTH_MEDIAN_MAX = 0.3  # m, |rendered - analytic depth| median of the map c
 ICP_CARD_CPU_TOL = 1e-4  # transform entries, ICP on the card against the CPU
 
 
-def merged(base: dict, changes: dict) -> dict:
-    """``base`` with ``changes`` laid over it, key by key (a sequence config's
-    ``changes:`` overlay)."""
-    out = dict(base)
-    for k, v in changes.items():
-        out[k] = merged(out[k], v) if isinstance(v, dict) and isinstance(out.get(k), dict) else v
-    return out
+def cfg_settings(name: str, log_prefix: str, test_compositor: bool = True,
+                 changes: Optional[dict] = None) -> dict:
+    """The configuration ``cfg/synthetic/<name>`` as the port's ``run_loner``
+    loads it (``load_config``: the port's own YAML reader), with this script's
+    deliberate overrides on top: the log prefix, ``system.precompile`` (kernels
+    built and every program run once before the clock starts) and, with
+    ``test_compositor``, the fused test-render compositor (mapping does not read
+    it); then ``changes``. tests/test_torch_slam.py holds each to its YAML."""
+    from loner_tpu_torch.common.settings import load_config
+
+    settings, _ = load_config(os.path.join(REPO, "cfg", "synthetic", name))
+    settings.augment({"system": {"log_dir_prefix": log_prefix, "precompile": True}})
+    if test_compositor:
+        settings.augment({"mapper": {"optimizer": {"model_config": {"model": {"render": {
+            "compositor": "pallas"}}}}}})
+    settings.augment(changes)
+    return settings.as_plain_dict()
 
 
 def box_room_settings(log_prefix: str) -> dict:
     """cfg/synthetic/box_room.yaml (a bare ``!include ../defaults.yaml``: the
-    reference's model, hash sigma field and OGM sampler) as a plain dict (the
-    card's machine has no PyYAML). On purpose it differs in the log prefix and
-    ``system.precompile`` (kernels built and every program run once before the
-    clock starts). tests/test_torch_slam.py holds the rest equal to the YAML."""
-    schedule_item = lambda n, **kw: {"num_iterations": n, "freeze_poses": False,  # noqa: E731
-                                     **kw, "freeze_rgb_mlp": True}
-    sync = {"enabled": True, "min_buffer_size": 2, "max_time_delta": 3}
-    icp_stage = lambda t: {"threshold": t, "max_iterations": 10, "relative_fitness": 1e-08,  # noqa: E731
-                           "relative_rmse": 1e-08}
-    hash_grid = lambda log2: {"base_resolution": 16, "log2_hashmap_size": log2,  # noqa: E731
-                              "n_features_per_level": 2, "n_levels": 16, "otype": "HashGrid"}
-    mlp = lambda layers: {"activation": "ReLU", "n_hidden_layers": layers,  # noqa: E731
-                          "n_neurons": 64, "otype": "MLP", "output_activation": "None"}
-    return {
-        "calibration": {
-            "lidar_to_camera": {"xyz": [0, 0, 0], "orientation": [0, 0, 0, 1]},
-            "camera_intrinsic": {"k": None, "distortion": None, "new_k": None, "width": None,
-                                 "height": None},
-        },
-        "debug": {"global_enabled": True, "flags": {
-            "use_groundtruth_poses": False, "log_losses": False, "log_times": True,
-            "profile": False, "profile_optimizer": False, "write_frame_point_clouds": False,
-            "write_ray_point_clouds": False, "store_ray": False, "draw_samples": False,
-            "draw_rays_eps": False}},
-        "mapper": {
-            "data_prep_on_cpu": True, "log_level": "DISABLED",
-            "keyframe_manager": {
-                "keyframe_selection": {"strategy": "TEMPORAL", "temporal": {"time_diff_seconds": 3},
-                                       "motion": {"translation_threshold_m": 0.5,
-                                                  "rotation_threshold_deg": 22.5}},
-                "window_selection": {"strategy": "HYBRID", "hybrid_settings": {"num_recent_frames": 1},
-                                     "window_size": 8},
-            },
-            "optimizer": {
-                "freeze_poses": False, "enabled": True, "seed": 0, "detach_rgb_from_poses": True,
-                "detach_rgb_from_sigma": False, "skip_pose_refinement": True,
-                "num_samples": {"lidar": 512, "sky": 64, "camera": 0},
-                "rays_selection": {"strategy": "RANDOM"},
-                "samples_selection": {"strategy": "OGM"},
-                "keyframe_schedule": [
-                    {"num_keyframes": 1, "iteration_schedule": [
-                        {"num_iterations": 1000, "freeze_poses": True, "freeze_sigma_mlp": False,
-                         "freeze_rgb_mlp": True}]},
-                    {"num_keyframes": -1, "iteration_schedule": [
-                        schedule_item(50, latest_kf_only=True, freeze_sigma_mlp=True),
-                        schedule_item(50, freeze_sigma_mlp=False)]},
-                ],
-                "model_config": {
-                    "data": {"ray_range": [1, 10]},
-                    "model": {
-                        "num_colors": 3, "model_type": "nerf_decoupled",
-                        "nerf_config": {
-                            "enable_view_dependence": True,
-                            "dir_encoding_intensity": {"degree": 4, "otype": "SphericalHarmonics"},
-                            "intensity_network": mlp(4),
-                            "pos_encoding_intensity": hash_grid(19),
-                            "pos_encoding_sigma": hash_grid(18),
-                            "sigma_network": mlp(1),
-                        },
-                        "ray_range": [1, 10],
-                        "render": {"N_samples_train": 512, "N_samples_test": 2048, "retraw": True,
-                                   "lindisp": False, "perturb": 1.0, "white_bkgd": False,
-                                   "raw_noise_std": 1.0, "chunk": 16384, "netchunk": 0},
-                        "occ_model": {"voxel_size": 100, "lr": 0.0001, "N_iters_acc": 10},
-                    },
-                    "train": {"lrate_sigma_mlp": 0.01, "lrate_rgb": 0.01, "lrate_pose": 0.001,
-                              "encode_impl": "vjp_bf16", "lrate_gamma": 1.0, "decay_rate": 0.001,
-                              "pose_lrate_gamma": 1.0, "rgb_weight_decay": 1e-05,
-                              "sigma_weight_decay": 0.0},
-                    "loss": {"loss_selection": "L1_JS",
-                             "JS_loss": {"min_js_score": 1.0, "max_js_score": 10.0, "alpha": 1.0},
-                             "decay_los_lambda": False, "los_lambda": 1000.0,
-                             "min_los_lambda": 10.0, "los_lambda_decay_rate": 0.001,
-                             "los_lambda_decay_steps": 15000, "decay_depth_eps": True,
-                             "depth_eps": 3.0, "min_depth_eps": 0.5, "depth_eps_decay_rate": 0.95,
-                             "depth_eps_decay_steps": 1, "depthloss_lambda": 0.005},
-                },
-            },
-        },
-        "system": {
-            "single_threaded": False, "precompile": True, "log_dir_prefix": log_prefix,
-            "lidar_only": True, "sky_segmentation": False, "image_scale_factor": 0.5,
-            "synchronization": dict(sync),
-            "world_cube": {"compute_from_groundtruth": True,
-                           "trajectory_bounding_box": {"x": [-10, 10], "y": [-10, 10],
-                                                       "z": [-10, 10]}},
-            "lidar_fov": {"enabled": False, "range": [[0, 235], [305, 360]]},
-            "lidar_timestamps_relative_to_start": True,
-        },
-        "tracker": {
-            "synchronization": dict(sync),
-            "frame_synthesis": {"strategy": None, "sky_removal": None,
-                                "frame_decimation_rate_hz": 5, "frame_match_tolerance": 0.01,
-                                "frame_delta_t_sec_tolerance": 0.02, "decimate_on_load": True},
-            "icp": {"scan_duration": 0.9, "schedule": [icp_stage(1.5), icp_stage(0.125)],
-                    "downsample": {"type": "UNIFORM", "target_uniform_point_count": 5000,
-                                   "voxel_downsample_size": 0.1}},
-            "motion_compensation": {"enabled": True},
-            "compute_sky_rays": False,
-        },
-    }
+    reference's model, hash sigma field and OGM sampler)."""
+    return cfg_settings("box_room.yaml", log_prefix, test_compositor=False)
 
 
 def flagship_slam_settings(log_prefix: str) -> dict:
-    """cfg/synthetic/box_room_tpu_rt_r4.yaml (box_room_settings with the
-    flagship's changes: Fourier field, proposal sampler) as a plain dict. On
-    purpose it also differs in the test-render compositor (the fused one, as
-    cfg/model_config/tpu_native_model_config.yaml has it; mapping does not read
-    it). tests/test_torch_slam.py holds the rest equal to the YAML."""
-    ray_range = [0.5, 14.0]
-    return merged(box_room_settings(log_prefix), {
-        "mapper": {
-            "keyframe_manager": {"keyframe_selection": {"temporal": {"time_diff_seconds": 3.0}}},
-            "optimizer": {
-                "num_samples": {"sky": 0},
-                "samples_selection": {"strategy": "PROPOSAL"},
-                "model_config": {
-                    "data": {"ray_range": ray_range},
-                    "model": {
-                        "nerf_config": {
-                            "encoding_sigma": "fourier", "compute_dtype": "bfloat16",
-                            "fourier_sigma": {"n_freqs": 48, "scale": 6.0, "include_input": True},
-                            "sigma_network": {"n_hidden_layers": 2, "n_neurons": 256},
-                        },
-                        "ray_range": ray_range,
-                        "render": {"N_samples_test": 1024, "compositor": "pallas"},
-                        "occ_model": {"prop_lr": 0.001, "prop_n_ctrl": 33,
-                                      "proposal": {"n_freqs": 16, "scale": 3.0, "n_neurons": 64,
-                                                   "n_hidden_layers": 2},
-                                      "prop_train_subsample": 8},
-                    },
-                    "train": {"lrate_sigma_mlp": 0.005, "steps_per_dispatch": 3,
-                              "max_inflight_dispatches": 1, "point_chunk": 0},
-                },
-            },
-        },
-        "tracker": {"frame_synthesis": {"decimate_on_load": False}},
-    })
+    """cfg/synthetic/box_room_tpu_rt_r4.yaml: the flagship's Fourier field and
+    proposal sampler at 3 iterations a dispatch, 1 in flight."""
+    return cfg_settings("box_room_tpu_rt_r4.yaml", log_prefix)
 
 
 def sky_slam_settings(log_prefix: str, sky: bool) -> dict:
-    """cfg/synthetic/box_room_sky.yaml (``sky``) or box_room_sky_off.yaml as a
-    plain dict: flagship_slam_settings at 5 iterations a dispatch with the
-    default 2 dispatches in flight; with ``sky``, sky segmentation, the
-    tracker's sky rays and 64 sky rays a keyframe slot. It differs from the YAML
-    where flagship_slam_settings does, on purpose; tests/test_torch_slam.py holds
-    the rest equal to the YAML."""
-    out = merged(flagship_slam_settings(log_prefix), {
-        "system": {"sky_segmentation": sky},
-        "tracker": {"compute_sky_rays": sky},
-        "mapper": {"optimizer": {"num_samples": {"sky": SKY_RAYS if sky else 0},
-                                 "model_config": {"train": {"steps_per_dispatch": 5}}}},
-    })
-    del out["mapper"]["optimizer"]["model_config"]["train"]["max_inflight_dispatches"]
-    return out
+    """cfg/synthetic/box_room_sky.yaml (``sky``: sky segmentation, the tracker's
+    sky rays and 64 sky rays a keyframe slot) or box_room_sky_off.yaml."""
+    return cfg_settings("box_room_sky.yaml" if sky else "box_room_sky_off.yaml", log_prefix)
 
 
 def courtyard_slam_settings(log_prefix: str) -> dict:
-    """cfg/synthetic/courtyard_tpu_r5f.yaml as a plain dict: flagship_slam_settings
-    with ray range 1-50 m, the Fourier field at 96 frequencies and scale 16, the
-    proposal at 24 frequencies, scale 6 and 65 control points, a 3-stage ICP of
-    12 iterations a stage on 10,000-point clouds, and the mapper's poses frozen
-    after the bootstrap. It differs from the YAML where flagship_slam_settings
-    does, on purpose; tests/test_torch_slam.py holds the rest equal to the YAML."""
-    ray_range = [1.0, 50.0]
-    icp_stage = lambda t: {"threshold": t, "max_iterations": 12, "relative_fitness": 1e-08,  # noqa: E731
-                           "relative_rmse": 1e-08}
-    frozen = lambda n, **kw: {"num_iterations": n, "freeze_poses": True,  # noqa: E731
-                              "freeze_sigma_mlp": False, "freeze_rgb_mlp": True, **kw}
-    return merged(flagship_slam_settings(log_prefix), {
-        "tracker": {"icp": {"schedule": [icp_stage(1.5), icp_stage(0.5), icp_stage(0.125)],
-                            "downsample": {"target_uniform_point_count": 10000}}},
-        "mapper": {"optimizer": {
-            "keyframe_schedule": [
-                {"num_keyframes": 1, "iteration_schedule": [frozen(1000)]},
-                {"num_keyframes": -1, "iteration_schedule": [frozen(50, latest_kf_only=True),
-                                                             frozen(50)]}],
-            "model_config": {
-                "data": {"ray_range": ray_range},
-                "model": {"ray_range": ray_range,
-                          "nerf_config": {"fourier_sigma": {"n_freqs": 96, "scale": 16.0}},
-                          "occ_model": {"prop_n_ctrl": 65,
-                                        "proposal": {"n_freqs": 24, "scale": 6.0}}}}}},
-    })
+    """cfg/synthetic/courtyard_tpu_r5f.yaml: ray range 1-50 m, the Fourier field
+    at 96 frequencies and scale 16, a 3-stage ICP on 10,000-point clouds, poses
+    frozen after the bootstrap."""
+    return cfg_settings("courtyard_tpu_r5f.yaml", log_prefix)
 
 
-def write_slam_dataset(root: str, num_scans: int = SLAM_SCANS, scene=None) -> dict:
+def write_slam_dataset(root: str, num_scans: int = SLAM_SCANS, scene=None,
+                       camera: bool = False) -> dict:
     """The box-room sequence (``num_scans`` scans on a 270-degree arc; the room
     of ``scene``, default the closed one) through the port's ScanStreamWriter,
     and its GT map (``build_gt_map``, the reference of phases 13-15); both
-    configurations' SLAM runs share them."""
+    configurations' SLAM runs share them. With ``camera``: one virtual-camera
+    image a scan at the scan's start time, and no GT map."""
     from loner_tpu_torch.analysis.create_lidar_map import build_gt_map
-    from loner_tpu_torch.datasets.scan_stream import ScanStreamWriter
-    from loner_tpu_torch.datasets.synthetic import VirtualLidar, generate_sequence
+    from loner_tpu_torch.datasets.synthetic import (
+        VirtualCamera, VirtualLidar, generate_sequence, write_sequence,
+    )
 
     t0 = time.perf_counter()
     scans, poses, ts, scene, _ = generate_sequence(
         num_scans=num_scans, scene=scene,
         lidar=VirtualLidar(num_channels=SLAM_LIDAR[0], num_columns=SLAM_LIDAR[1]))
-    writer = ScanStreamWriter(root)
-    for scan in scans:
-        writer.add_scan(scan)
-    writer.write_gt(poses, ts)
+    write_sequence(root, scans, poses, ts, scene=scene,
+                   camera=VirtualCamera() if camera else None)
     written = time.perf_counter() - t0
     t0 = time.perf_counter()
-    gt_map = build_gt_map(root)
-    print(f"SLAM dataset: {num_scans} scans of {SLAM_LIDAR[0] * SLAM_LIDAR[1]} rays, "
-          f"{ts[-1] - ts[0] + 0.1:.1f} s of sequence, written in {written:.2f} s; GT map "
-          f"{gt_map.shape[0]} points in {time.perf_counter() - t0:.2f} s", flush=True)
+    gt_map = None if camera else build_gt_map(root)
+    print(f"SLAM dataset: {num_scans} scans of {SLAM_LIDAR[0] * SLAM_LIDAR[1]} rays"
+          + (", one 96 x 64 camera image a scan" if camera else "")
+          + f", {ts[-1] - ts[0] + 0.1:.1f} s of sequence, written in {written:.2f} s"
+          + ("" if gt_map is None else f"; GT map {gt_map.shape[0]} points in "
+             f"{time.perf_counter() - t0:.2f} s"), flush=True)
     return {"dataset": root, "scene": scene, "poses": poses, "ts": ts, "gt_map": gt_map}
 
 
@@ -1525,8 +1374,9 @@ def run_slam(dev, label: str, settings: dict, sequence: dict, out_dir: str, trai
     sigma = state.field_params["sigma"]
     placed = {"field": sigma["mlp"]["w0"].device,
               "sampler state": (state.occ_grid["w0"] if isinstance(state.occ_grid, dict)
-                                else state.occ_grid).device,
-              "icp": loner.tracker._last_relative_dev.device}
+                                else state.occ_grid).device}
+    if loner.tracker._last_relative_dev is not None:  # None after a dropped last frame
+        placed["icp"] = loner.tracker._last_relative_dev.device
     if "table" in sigma:
         placed["hash table"] = sigma["table"].device
     if any(d != dev for d in placed.values()):
@@ -1548,12 +1398,13 @@ def run_slam(dev, label: str, settings: dict, sequence: dict, out_dir: str, trai
     its = int(timing[:, 0].sum())
     boot_ms = 1e3 * timing[0, 1] / timing[0, 0]
     win_ms = 1e3 * timing[1:, 1].sum() / max(timing[1:, 0].sum(), 1)
+    window = settings["mapper"]["keyframe_manager"]["window_selection"]["window_size"]
     print(f"SLAM {label}: {len(timing)} keyframes, {its} mapping iterations; per keyframe "
           "(iterations, s): " + ", ".join(f"({int(n)}, {t:.3f})" for n, t in timing),
           flush=True)
     print(f"SLAM {label}: runtime {runtime:.3f} s for {seq_s:.1f} s of sequence, real-time "
           f"factor {seq_s / runtime:.4f}; ms per mapping iteration: W=1 bootstrap "
-          f"{boot_ms:.3f}, W=8 windows {win_ms:.3f}; tracking latency ({len(track)} updates) "
+          f"{boot_ms:.3f}, W={window} windows {win_ms:.3f}; tracking latency ({len(track)} updates) "
           f"median {1e3 * float(np.median(track[:, 0])):.3f} ms, p95 "
           f"{1e3 * float(np.quantile(track[:, 0], 0.95)):.3f} ms; peak device memory "
           f"{peak_gb:.3f} GB; run_trial {wall:.3f} s; launches {launches}; tensors on "
@@ -1583,7 +1434,7 @@ def run_slam(dev, label: str, settings: dict, sequence: dict, out_dir: str, trai
             "graphs": graphs, "track_p50_ms": 1e3 * float(np.median(track[:, 0])),
             "track_p95_ms": 1e3 * float(np.quantile(track[:, 0], 0.95)), "peak_gb": peak_gb,
             "rtf": seq_s / runtime, "boot_ms": boot_ms, "win_ms": win_ms, "iterations": its,
-            "boot_iterations": int(timing[0, 0]), **icp}
+            "boot_iterations": int(timing[0, 0]), "camera_losses": opt.camera_loss_log, **icp}
 
 
 DISPATCH_ITERS, DISPATCH_K = 7, 3  # two dispatches of 3 iterations, then one single step
@@ -2037,6 +1888,147 @@ def run_courtyard(dev, field_cfg) -> dict:
     return {"kernels": shapes, "slam": run}
 
 
+# Phase 18, the camera branch: box_room_tpu_camera_r5.yaml (threaded, the
+# flagship's widths, a Fourier intensity head) and box_room_camera.yaml
+# (single-threaded, a hash intensity table, the sigma head in f32), each on the
+# SLAM_SCANS-scan box room with one camera image a scan (the one cut).
+CAMERA_RAYS = 128  # camera pixels a keyframe slot, num_samples.camera of both configurations
+CAMERA_POINTS = WINDOW * CAMERA_RAYS * 512  # 524,288: the r5 camera rays' field points
+HASH_CAMERA_POINTS = 3 * CAMERA_RAYS * 64  # 24,576: box_room_camera's (window 3, 64 samples)
+PSNR_IMAGES = 25
+JAX_TPU_PSNR = ("the JAX package's TPU drive of box_room_tpu_camera_r5.yaml on 600 scans: "
+                "22.9-37.3 dB, mean about 30 dB (VERDICT.md:134-136), behaviour, not a bar")
+
+
+def check_intensity_hash(dev) -> dict:
+    """The hash pair at the camera path's intensity tables: box_room_camera.yaml's
+    4 levels x 2 at 2^14 at its camera call size (f32: its sigma head is Fourier,
+    so the intensity table is encoded in f32) and the default 16 x 2 at 2^19 at
+    the r5 camera call size (bf16 and f32), in ray order, each against its plain
+    version (check_hash_case) and timed beside the bound."""
+    from loner_tpu_torch.analysis.ab_compare import hash_points
+    from loner_tpu_torch.models.hash_encoding import HashEncodingConfig
+    from loner_tpu_torch.ops import hash_grid as hg
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    out = {}
+    for label, cfg, n, dtypes in (
+            ("box_room_camera 4 x 2 at 2^14", HashEncodingConfig(n_levels=4, log2_hashmap_size=14),
+             HASH_CAMERA_POINTS, (torch.float32,)),
+            ("defaults 16 x 2 at 2^19", HashEncodingConfig(log2_hashmap_size=19), CAMERA_POINTS,
+             (torch.bfloat16, torch.float32))):
+        table = torch.rand((cfg.total_table_size, 2), generator=gen, device=dev) * 2e-2 - 1e-2
+        pos = torch.from_numpy(hash_points(n, "ray")).to(dev)
+        dout = torch.randn((n, cfg.output_dim), generator=gen, device=dev) * n ** -0.5
+        for dtype in dtypes:
+            fwd_err, bwd_err = check_hash_case(f"intensity {label}", table, pos, dout, cfg, dtype)
+            t = {"fwd": cuda_ms(lambda: hg.hash_encode_fwd_cuda(table, pos, cfg, dtype)),
+                 "bwd_no_dpos": cuda_ms(lambda: hg.hash_encode_bwd_cuda(table, pos, dout, cfg, dtype,
+                                                                        need_dpos=False)),
+                 "fwd_plain": cuda_ms(lambda: hg.hash_encode_fwd_plain(table, pos, cfg, dtype), 3),
+                 "bwd_plain": cuda_ms(lambda: hg.hash_encode_bwd_plain(table, pos, dout, cfg,
+                                                                       dtype), 3)}
+            cost = hash_cost(n, cfg)
+            b = {k: bound(*cost[k], peak_flops=PEAK_F32_FLOPS) for k in ("fwd", "bwd_no_dpos")}
+            key = f"camera: {label}, {n} points, {str(dtype)[6:]}"
+            out[key] = {"fwd": {"max_abs_err": fwd_err, "ms": t["fwd"], "plain_ms": t["fwd_plain"],
+                                "bound_ms": b["fwd"][0], "bound_by": b["fwd"][1],
+                                "library_ms": None},
+                        "bwd": {"max_abs_err": bwd_err, "ms": t["bwd_no_dpos"],
+                                "plain_ms": t["bwd_plain"], "bound_ms": b["bwd_no_dpos"][0],
+                                "bound_by": b["bwd_no_dpos"][1], "library_ms": None,
+                                "variant": "without dpos (camera rays are detached from the poses)"}}
+            print(f"kernel hash_encode {key}: fwd {t['fwd']:.4f} ms (bound {b['fwd'][0]:.4f}, "
+                  f"{b['fwd'][1]}; plain {t['fwd_plain']:.4f}), bwd without dpos "
+                  f"{t['bwd_no_dpos']:.4f} ms (bound {b['bwd_no_dpos'][0]:.4f}, "
+                  f"{b['bwd_no_dpos'][1]}; plain {t['bwd_plain']:.4f})", flush=True)
+        del table, pos, dout
+    return out
+
+
+def check_psnr(dev, label: str, log_dir: str, gated: bool) -> dict:
+    """compute_psnr on PSNR_IMAGES images of the run's dataset, with the kernels'
+    launches; beside it the PSNR of a constant image at the mean value of the same
+    GT images, which the trained head's mean PSNR must beat when ``gated``."""
+    from loner_tpu_torch.analysis.compute_psnr import compute_psnr
+    from loner_tpu_torch.datasets.scan_stream import ScanStreamReader
+    from loner_tpu_torch.models.losses import img_to_mse, mse_to_psnr
+
+    import pickle
+
+    t0 = time.perf_counter()
+    reset_counts()
+    result = compute_psnr(log_dir, num_images=PSNR_IMAGES, device=dev)
+    launches = {k: v for k, v in read_counts().items() if v}
+    wall = time.perf_counter() - t0
+    with open(os.path.join(log_dir, "full_config.pkl"), "rb") as f:
+        reader = ScanStreamReader(pickle.load(f)["dataset_path"])
+    gts = [torch.from_numpy(reader.read_image(r["image"])[0]) for r in result["images"]]
+    mean = float(torch.stack(gts).mean())
+    const = float(np.mean([float(mse_to_psnr(img_to_mse(torch.full_like(g, mean), g)))
+                           for g in gts]))
+    print(f"PSNR {label}: {result['num_images']} images, mean {result['mean']:.4f} dB, min "
+          f"{result['min']:.4f}, max {result['max']:.4f}; a constant image at the GT mean "
+          f"{mean:.4f}: {const:.4f} dB ({'gated: above it' if gated else 'printed'}); "
+          f"{JAX_TPU_PSNR}; {wall:.2f} s; launches {launches}", flush=True)
+    if gated and not result["mean"] > const:
+        raise RuntimeError(f"PSNR {label}: mean {result['mean']} dB is not above the constant "
+                           f"image's {const} dB")
+    return {"mean": result["mean"], "min": result["min"], "max": result["max"],
+            "constant": const, "launches": launches}
+
+
+def run_camera(dev, field_cfg) -> dict:
+    """Phase 18: the kernels at the camera path's call sizes, then the two camera
+    configurations through SLAM, each followed by its PSNR."""
+    import tempfile
+    from dataclasses import replace
+
+    from loner_tpu_torch.common.settings import Settings
+    from loner_tpu_torch.mapping.optimizer import OptimizerConfig
+    from loner_tpu_torch.models.field import FieldConfig
+
+    r5 = cfg_settings("box_room_tpu_camera_r5.yaml", "")
+    small = cfg_settings("box_room_camera.yaml", "")
+    small_field = FieldConfig.from_settings(
+        Settings(small).mapper.optimizer.model_config.model.nerf_config)
+    kernels = {"fourier": check_kernels(dev, field_cfg, n=CAMERA_POINTS, label="camera",
+                                        bootstrap=False),
+               "fourier_f32": check_kernels(dev, small_field, n=HASH_CAMERA_POINTS,
+                                            label="box_room_camera f32", bootstrap=False),
+               "fourier_f32_render": check_kernels(dev, small_field, n=2048 * 1024,
+                                                   label="box_room_camera f32 render chunk",
+                                                   bootstrap=False),
+               "hash": check_intensity_hash(dev)}
+    torch.cuda.empty_cache()
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="loner_tpu_torch_camera_") as data_dir:
+        seq = write_slam_dataset(os.path.join(data_dir, "dataset"), camera=True)
+        for label, settings, train, field_kernel, gated in (
+                ("camera r5", r5, ("fourier_mlp_fwd", "fourier_mlp_bwd"), "fourier_mlp_fwd", True),
+                ("camera hash", small, ("fourier_mlp_fwd_f32", "fourier_mlp_bwd_f32",
+                                        "hash_encode_fwd", "hash_encode_bwd"),
+                 "fourier_mlp_fwd_f32", False)):
+            run = run_slam(dev, label, settings, seq, os.path.join(data_dir, label.split()[1]),
+                           train, ("composite", field_kernel), "pallas",
+                           ate_max=ATE_MAX if gated else None)
+            opt_cfg = OptimizerConfig.from_settings(
+                Settings(settings).mapper.optimizer, Settings(settings).mapper.optimizer.model_config)
+            k = max(int(opt_cfg.steps_per_dispatch), 1)
+            losses = np.concatenate(run.pop("camera_losses"))
+            run["camera_loss"] = (float(losses[:k].mean()), float(losses[-k:].mean()))
+            print(f"SLAM {label}: camera loss {run['camera_loss'][0]:.5f} in the first dispatch "
+                  f"({k} iterations), {run['camera_loss'][1]:.5f} in the last; "
+                  f"{len(losses)} camera iterations; single-threaded "
+                  f"{bool(settings['system']['single_threaded'])}", flush=True)
+            if not np.isfinite(losses).all() or len(losses) < run["iterations"]:
+                raise RuntimeError(f"SLAM {label}: {len(losses)} finite camera losses in "
+                                   f"{run['iterations']} iterations")
+            run["psnr"] = check_psnr(dev, label, run["log_dir"], gated)
+            runs[label] = run
+    return {"kernels": kernels, "runs": runs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs only on a GPU",
@@ -2153,6 +2145,18 @@ def main() -> int:
     phase_done("15 (sky rays)")
     courtyard = run_courtyard(dev, field_cfg)
     phase_done("17 (courtyard)")
+    camera = run_camera(dev, field_cfg)
+    phase_done("18 (camera)")
+    # The f32 pair's record: checked at box_room_camera's render chunk, launched on
+    # its SLAM path.
+    f32_kernels = camera["kernels"]["fourier_f32_render"]
+    for k in f32_kernels:
+        k["launches"] = camera["runs"]["camera hash"]["counts"][k["name"]]
+        k["at_shapes"] = {"box_room_camera: 24,576 points, F 32, 3 x 128, f32": {
+            key: rec[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")}
+            for rec in camera["kernels"]["fourier_f32"] if rec["name"] == k["name"]}
+    kernels += f32_kernels
 
     # Phases 13 and 14's launches, per run and step (map cloud, L1, mesh).
     runs = (("flagship", slam), ("reference", reference), ("flagship drive", slam_drive),
@@ -2165,9 +2169,13 @@ def main() -> int:
     # the sky slice's 6 iterations, the floater probe; the Fourier pair's checks
     # at the sky and the courtyard call sizes.
     paths = {"sky slice": sky_slice["launches"], "resume": resume["counts"]}
+    for name, run in camera["runs"].items():
+        paths[f"{name} PSNR"] = camera["runs"][name]["psnr"]["launches"]
     for name, run in (("sky SLAM", sky["sky"]), ("sky off SLAM", sky["sky off"]),
                       ("sky SLAM 150", sky_short["sky"]), ("sky off SLAM 150", sky_short["sky off"]),
-                      ("courtyard SLAM", courtyard["slam"])):
+                      ("courtyard SLAM", courtyard["slam"]),
+                      ("camera r5 SLAM", camera["runs"]["camera r5"]),
+                      ("camera hash SLAM", camera["runs"]["camera hash"])):
         paths[name] = {**run["counts"], **{f"{k} (map check)": v
                                            for k, v in run["map_launches"].items()}}
         if "eval_launches" in run:
@@ -2180,12 +2188,19 @@ def main() -> int:
             path: ({step: c[k["name"]] for step, c in counts.items()} if path.endswith("eval")
                    else {key: v for key, v in counts.items() if key.split(" ")[0] == k["name"]})
             for path, counts in paths.items()}
-    for k, at_sky, at_court in zip(kernels[:2], sky_kernels, courtyard["kernels"]):
+    for k, at_sky, at_court, at_cam in zip(kernels[:2], sky_kernels, courtyard["kernels"],
+                                           camera["kernels"]["fourier"]):
         k["at_shapes"] = {
             label: {key: rec[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")}
             for label, rec in (("sky: 2,359,296 points, F 48", at_sky),
-                               ("courtyard: 2,097,152 points, F 96", at_court))}
+                               ("courtyard: 2,097,152 points, F 96", at_court),
+                               ("camera: 524,288 points, F 48", at_cam))}
+    for k in kernels:
+        if k["name"] in ("hash_encode_fwd", "hash_encode_bwd"):
+            k.setdefault("at_shapes", {}).update(
+                {label: rec[k["name"].split("_")[-1]]
+                 for label, rec in camera["kernels"]["hash"].items()})
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,9 +24,8 @@ def get_chunk_renderer(
     """A (rays, field_params, occ) -> outputs function, cached on the
     LoadedModel; call it under ``torch.inference_mode()``. ``ret_peak`` adds
     per-ray peak-depth consistency |z at argmax(w) - depth|, computed on the
-    device. The intensity head (``sigma_only=False``) is not ported."""
-    if not sigma_only:
-        raise NotImplementedError("the intensity head is not ported: render sigma only")
+    device. ``sigma_only=False`` also composites the intensity head's colour
+    (``rgb``), through ``raw2outputs``: the fused compositor is sigma-only."""
     key = (n_samples, ret_var, use_occ, sigma_only, ret_peak)
     cache = model.render_cache
     if key in cache:
@@ -40,7 +39,7 @@ def get_chunk_renderer(
     def render_chunk(rays, field_params, occ):
         out = render_rays(
             rays, field_params, field_cfg, sampler, n_samples, perturb=0.0,
-            occ_state=occ, ret_var=ret_var, compositor=compositor,
+            occ_state=occ, ret_var=ret_var, compositor=compositor, sigma_only=sigma_only,
         )
         if ret_peak:
             idx = torch.argmax(out["weights"], dim=-1, keepdim=True)

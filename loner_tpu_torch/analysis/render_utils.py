@@ -103,22 +103,21 @@ def render_depth_chunked(
 
     Deterministic (no perturb, no noise), ``chunk`` rays per field call. The
     rays go to the device once; the outputs come back once, after the last
-    chunk. ``with_peak`` adds per-ray peak-depth consistency in meters.
-    ``with_intensity`` raises: the intensity head is not ported."""
+    chunk. ``with_peak`` adds per-ray peak-depth consistency in meters;
+    ``with_intensity`` the trained intensity head's colour ``rgb`` (N, C)."""
     from loner_tpu_torch.analysis._render_impl import get_chunk_renderer
 
-    if with_intensity:
-        raise NotImplementedError("the intensity head is not ported: with_intensity=False")
     cube = model.world_cube
     dev = model.device
-    render_chunk = get_chunk_renderer(model, n_samples, ret_var, use_occ, ret_peak=with_peak)
+    render_chunk = get_chunk_renderer(model, n_samples, ret_var, use_occ,
+                                      sigma_only=not with_intensity, ret_peak=with_peak)
     occ = model.occ_grid if use_occ else None
 
     n = origins_world.shape[0]
     o_cube = torch.from_numpy(np.asarray(cube.to_cube(origins_world), np.float32)).to(dev)
     d_cube = torch.from_numpy(np.asarray(dirs_world, np.float32)).to(dev)
     keys = ["depth", "opacity"] + (["variance"] if ret_var else []) + (
-        ["peak_depth_consistency"] if with_peak else [])
+        ["peak_depth_consistency"] if with_peak else []) + (["rgb"] if with_intensity else [])
     parts = {k: [] for k in keys}
     with torch.inference_mode():
         for i in range(0, n, chunk):
@@ -136,4 +135,6 @@ def render_depth_chunked(
         result["peak_depth_consistency"] = host["peak_depth_consistency"] * cube.scale_factor
     if ret_var:
         result["variance"] = host["variance"] * cube.scale_factor ** 2
+    if with_intensity:
+        result["rgb"] = host["rgb"]
     return result

@@ -2,7 +2,8 @@
 
 Counterpart of the frame part of ``loner_tpu/analysis/renderer.py``: ray
 directions for a pinhole camera or a panorama, and ``render_dataset_frame``,
-which renders one depth / variance / opacity frame at a pose in ray chunks.
+which renders one depth / variance / opacity (and intensity) frame at a pose in
+ray chunks.
 The sequence, flythrough and PNG writers are not ported (they need
 matplotlib).
 """
@@ -50,8 +51,9 @@ def render_dataset_frame(
     with_peak: bool = False,
 ) -> dict:
     """Render one frame; returns {'depth', 'variance', 'opacity'} as (H, W),
-    plus 'peak_depth_consistency' (H, W) meters when ``with_peak``.
-    ``with_intensity`` raises: the intensity head is not ported."""
+    plus 'intensity' (H, W, C) when ``with_intensity`` (a head trained with
+    ``freeze_rgb_mlp: False``) and 'peak_depth_consistency' (H, W) meters when
+    ``with_peak``."""
     if ray_range is None:
         ray_range = tuple(
             float(x) for x in model.settings.mapper.optimizer.model_config["data"]["ray_range"]
@@ -68,6 +70,8 @@ def render_dataset_frame(
         "variance": out["variance"].reshape(h, w),
         "opacity": out["opacity"].reshape(h, w),
     }
+    if with_intensity:
+        result["intensity"] = out["rgb"].reshape(h, w, -1)
     if with_peak:
         result["peak_depth_consistency"] = out["peak_depth_consistency"].reshape(h, w)
     return result

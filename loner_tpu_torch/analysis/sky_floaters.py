@@ -53,16 +53,8 @@ def probe_rays(mats: np.ndarray, n_probe_rays: int):
     return np.concatenate(origins).astype(np.float32), np.concatenate(dirs).astype(np.float32)
 
 
-def sky_floaters(log_dir: str, gt_map: np.ndarray, voxel_size: float = 0.05,
-                 margin: float = 0.2, ckpt_name: str = "final.tar", n_probe_rays: int = 1024,
-                 device: Union[torch.device, str, None] = None) -> dict:
-    """The two measurements against ``gt_map`` ((N, 3) metres); writes and
-    returns the metrics record."""
-    z_top = float(np.max(gt_map[:, 2])) + margin
-    rendered = np.load(os.path.join(log_dir, "lidar_renders", f"render_full_{voxel_size}.npy"))
-    n_floaters = int((rendered[:, 2] > z_top).sum())
-
-    model = load_experiment(log_dir, ckpt_name, device=device)
+def sky_opacity(model, n_probe_rays: int = 1024) -> np.ndarray:
+    """Rendered opacity of the probe rays (``probe_rays``) of a loaded model."""
     o, d = probe_rays(kf_pose_matrices(model)[0], n_probe_rays)
     cube = model.world_cube
     scale = float(cube.scale_factor)
@@ -78,7 +70,20 @@ def sky_floaters(log_dir: str, gt_map: np.ndarray, voxel_size: float = 0.05,
             torch.full((n,), ray_range[1] / scale, device=dev))
         out = render_rays(rays, model.field_params, model.field_cfg, UniformRaySampler(),
                           n_samples=PROBE_SAMPLES, ret_var=True, compositor=model.compositor)
-        opacity = out["opacity"].cpu().numpy()
+        return out["opacity"].cpu().numpy()
+
+
+def sky_floaters(log_dir: str, gt_map: np.ndarray, voxel_size: float = 0.05,
+                 margin: float = 0.2, ckpt_name: str = "final.tar", n_probe_rays: int = 1024,
+                 device: Union[torch.device, str, None] = None) -> dict:
+    """The two measurements against ``gt_map`` ((N, 3) metres); writes and
+    returns the metrics record."""
+    z_top = float(np.max(gt_map[:, 2])) + margin
+    rendered = np.load(os.path.join(log_dir, "lidar_renders", f"render_full_{voxel_size}.npy"))
+    n_floaters = int((rendered[:, 2] > z_top).sum())
+
+    opacity = sky_opacity(load_experiment(log_dir, ckpt_name, device=device), n_probe_rays)
+    n = len(opacity)
 
     result = {
         "z_top": z_top,

@@ -1,7 +1,7 @@
 """Frame: the unit of tracking.
 
-Counterpart of ``loner_tpu/common/frame.py``, LiDAR only (the camera image is
-not ported): a LidarScan with its tracked pose, ground-truth pose and the
+Counterpart of ``loner_tpu/common/frame.py``: a LidarScan (and, in camera mode,
+the Image matched to it) with its tracked pose, ground-truth pose and the
 LiDAR-to-camera extrinsic. ``build_point_cloud`` returns the (N, 3) numpy
 cloud the ICP takes.
 """
@@ -12,7 +12,7 @@ from typing import Optional
 import numpy as np
 
 from loner_tpu_torch.common.pose import Pose
-from loner_tpu_torch.common.sensors import LidarScan
+from loner_tpu_torch.common.sensors import Image, LidarScan
 
 
 class Frame:
@@ -20,7 +20,9 @@ class Frame:
         self,
         lidar_points: Optional[LidarScan] = None,
         T_lidar_to_camera: Optional[Pose] = None,
+        image: Optional[Image] = None,
     ) -> None:
+        self.image = image
         self.lidar_points = lidar_points if lidar_points is not None else LidarScan()
         self._lidar_to_camera = T_lidar_to_camera
         self._lidar_pose: Optional[Pose] = None
@@ -29,7 +31,7 @@ class Frame:
 
     def clone(self) -> "Frame":
         new = Frame()
-        for attr in ("lidar_points", "_lidar_to_camera", "_lidar_pose", "_gt_lidar_pose"):
+        for attr in ("image", "lidar_points", "_lidar_to_camera", "_lidar_pose", "_gt_lidar_pose"):
             old = getattr(self, attr)
             setattr(new, attr, None if old is None else old.clone())
         new._id = self._id
@@ -52,6 +54,11 @@ class Frame:
 
     def get_lidar_pose(self) -> Optional[Pose]:
         return self._lidar_pose
+
+    def get_camera_pose(self) -> Optional[Pose]:
+        if self._lidar_pose is None or self._lidar_to_camera is None:
+            return None
+        return self._lidar_pose * self._lidar_to_camera
 
     def build_point_cloud(
         self, scan_duration: Optional[float] = None, target_points: Optional[int] = None

@@ -5,7 +5,7 @@ writers (``metrics/statistics.yaml``, ``metrics/l1.yaml``, ``regression.yaml``)
 write JSON text that ``yaml.safe_load`` reads back to the same values: every
 float is spelled with a decimal point, and a non-finite float (the mean of an
 empty cloud) as YAML's ``.nan``, ``.inf`` or ``-.inf``, which
-``read_json_yaml`` reads too. The machine the port runs on need not have PyYAML.
+``read_json_yaml`` reads too. The port reads and writes YAML without PyYAML.
 """
 from __future__ import annotations
 
@@ -14,6 +14,8 @@ import math
 import re
 
 import numpy as np
+
+from loner_tpu_torch.common import yaml_lite
 
 # A JSON string (kept as it is), or a YAML non-finite float outside one.
 _STRING_OR_NON_FINITE = re.compile(r'"(?:\\.|[^"\\])*"|(-?)\.(nan|inf)\b')
@@ -51,7 +53,7 @@ def write_json_yaml(path: str, value) -> None:
 
 def read_json_yaml(path: str):
     """A metrics file: JSON text as this module writes it, else YAML (a file
-    the JAX package wrote), read with PyYAML imported here."""
+    the JAX package wrote), read by the port's own YAML reader."""
     with open(path) as f:
         text = f.read()
     json_text = _STRING_OR_NON_FINITE.sub(
@@ -59,6 +61,4 @@ def read_json_yaml(path: str):
     try:
         return json.loads(json_text)
     except json.JSONDecodeError:
-        import yaml
-
-        return yaml.safe_load(text)
+        return yaml_lite.loads(text, path)

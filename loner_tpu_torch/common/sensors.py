@@ -8,6 +8,7 @@ vectorised numpy.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import numpy as np
@@ -16,6 +17,21 @@ from scipy.spatial.transform import Rotation as _R
 from loner_tpu_torch.common.pose import Pose
 
 NUMERIC_TOLERANCE = 1e-9
+
+
+@dataclass
+class Image:
+    """An RGB (or mono) image and its capture time."""
+
+    image: np.ndarray
+    timestamp: float
+
+    def clone(self) -> "Image":
+        return Image(self.image.copy(), self.timestamp)
+
+    @property
+    def shape(self):
+        return self.image.shape
 
 
 class LidarScan:

@@ -4,14 +4,16 @@ Counterpart of ``loner_tpu/common/settings.py::Settings``: ``load_from_file``
 reads YAML with ``!include`` (resolved relative to the including file),
 ``augment`` deep-overlays a change dict, and ``load_config`` also reads the
 per-sequence form (``baseline:`` + ``changes:``) that ``examples/run_loner.py``
-accepts. ``yaml`` is imported inside the loaders only: a run from a plain dict
-or from ``full_config.pkl`` parses no YAML.
+accepts. YAML is read by the port's own reader (``common/yaml_lite.py``, the
+standard library only), to the values PyYAML's include loader gives.
 """
 from __future__ import annotations
 
 import copy
 import os
 from typing import Any, List, Optional, Tuple
+
+from loner_tpu_torch.common import yaml_lite
 
 
 class Settings(dict):
@@ -62,18 +64,8 @@ class Settings(dict):
 
 
 def _load_yaml_with_includes(filename: str):
-    import yaml
-
-    class IncludeLoader(yaml.SafeLoader):
-        """SafeLoader that resolves ``!include other.yaml`` relative to the file."""
-
-    def include(loader, node):
-        root = os.path.dirname(getattr(loader.stream, "name", "."))
-        return _load_yaml_with_includes(os.path.join(root, loader.construct_scalar(node)))
-
-    IncludeLoader.add_constructor("!include", include)
-    with open(os.path.expanduser(filename), "r") as f:
-        return yaml.load(f, IncludeLoader)
+    """The YAML file, ``!include other.yaml`` resolved relative to the file."""
+    return yaml_lite.load_file(filename)
 
 
 def generate_change_list(changes: dict) -> List[Tuple[Tuple[str, ...], Any]]:

@@ -8,9 +8,12 @@ and a TUM ground-truth trajectory,
       scans/scan_000000.npz    # directions (3,N) f32, distances (N,) f32,
       ...                      #   timestamps (N,) f64 (sorted)
       poses_gt.tum             # optional GT trajectory (TUM format)
+      images/image_000000.npz  # optional camera frames: image (H,W,C) f32 in
+      ...                      #   [0, 1], timestamp f64
 
-``yaml`` is imported only to write ``meta.yaml`` when asked, or to read it
-when it is there. Camera images are not read: the camera branch is not ported.
+``meta.yaml`` is written as JSON text that YAML loaders read to the same values
+(``common/json_yaml.py``) and read by the port's own YAML reader, so either
+package reads the other's datasets, images included.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from loner_tpu_torch.common.json_yaml import read_json_yaml, write_json_yaml
 from loner_tpu_torch.common.pose import Pose
 from loner_tpu_torch.common.sensors import LidarScan
 from loner_tpu_torch.common.trajectory import (
@@ -34,10 +38,7 @@ class ScanStreamWriter:
         os.makedirs(os.path.join(root, "scans"), exist_ok=True)
         self._count = 0
         if meta:
-            import yaml
-
-            with open(os.path.join(root, "meta.yaml"), "w") as f:
-                yaml.safe_dump(meta, f)
+            write_json_yaml(os.path.join(root, "meta.yaml"), meta)
 
     def add_scan(self, scan: LidarScan) -> None:
         path = os.path.join(self._root, "scans", f"scan_{self._count:06d}.npz")
@@ -48,6 +49,15 @@ class ScanStreamWriter:
             timestamps=scan.timestamps,
         )
         self._count += 1
+
+    def add_image(self, image: np.ndarray, timestamp: float) -> None:
+        """A camera frame for the intensity supervision: (H, W, C) float in
+        [0, 1] at ``timestamp``. A LiDAR-only stream never calls this."""
+        img_dir = os.path.join(self._root, "images")
+        os.makedirs(img_dir, exist_ok=True)
+        n = len([f for f in os.listdir(img_dir) if f.endswith(".npz")])
+        np.savez_compressed(os.path.join(img_dir, f"image_{n:06d}.npz"),
+                            image=np.asarray(image, np.float32), timestamp=np.float64(timestamp))
 
     def write_gt(self, poses: np.ndarray, timestamps: np.ndarray) -> None:
         dump_trajectory_to_tum(poses, timestamps, os.path.join(self._root, "poses_gt.tum"))
@@ -70,11 +80,9 @@ class ScanStreamReader:
         self.meta = {}
         meta_path = os.path.join(root, "meta.yaml")
         if os.path.exists(meta_path):
-            import yaml
-
-            with open(meta_path) as f:
-                self.meta = yaml.safe_load(f) or {}
+            self.meta = read_json_yaml(meta_path) or {}
         self._time_spans: Optional[np.ndarray] = None
+        self._image_files: Optional[List[str]] = None
 
     def __len__(self) -> int:
         return len(self._scan_files)
@@ -108,8 +116,25 @@ class ScanStreamReader:
         return self.time_spans()[:, 0]
 
     def has_images(self) -> bool:
-        img_dir = os.path.join(self._root, "images")
-        return os.path.isdir(img_dir) and any(f.endswith(".npz") for f in os.listdir(img_dir))
+        return bool(self.image_files())
+
+    def image_files(self) -> List[str]:
+        """The image files, in name (time) order; [] without an images directory."""
+        if self._image_files is None:
+            img_dir = os.path.join(self._root, "images")
+            self._image_files = sorted(
+                os.path.join(img_dir, f) for f in os.listdir(img_dir) if f.endswith(".npz")
+            ) if os.path.isdir(img_dir) else []
+        return self._image_files
+
+    def read_image(self, idx: int) -> Tuple[np.ndarray, float]:
+        """(image (H, W, C) float32, timestamp)."""
+        data = np.load(self.image_files()[idx])
+        return data["image"], float(data["timestamp"])
+
+    def read_image_timestamp(self, idx: int) -> float:
+        """The image's timestamp, without decoding its pixels."""
+        return float(np.load(self.image_files()[idx])["timestamp"])
 
     def __iter__(self) -> Iterator[Tuple[LidarScan, Optional[Pose]]]:
         return self.iter_from(0)

@@ -1,10 +1,11 @@
 """Synthetic LiDAR scenes: a box room with box obstacles, the reference-scale
-courtyard, moving box actors; analytic raycast.
+courtyard, moving box actors; analytic raycast; a virtual pinhole camera that
+sees a closed-form surface intensity.
 
-Counterpart of ``loner_tpu/datasets/synthetic.py`` (numpy and scipy only; the
-virtual camera is not ported). Depths are closed-form ray/AABB intersections,
-so the same seed gives scans bit-equal to the JAX package's, and ICP, mapping
-and SLAM can be checked against exact ground truth.
+Counterpart of ``loner_tpu/datasets/synthetic.py`` (numpy and scipy only).
+Depths are closed-form ray/AABB intersections, so the same seed gives scans
+and images bit-equal to the JAX package's, and ICP, mapping, SLAM and the
+intensity head can be checked against exact ground truth.
 """
 from __future__ import annotations
 
@@ -150,6 +151,57 @@ class BoxRoomScene:
             if not inside_obstacle:
                 out.append(p)
         return np.stack(out)
+
+
+def surface_intensity(points: np.ndarray) -> np.ndarray:
+    """Deterministic RGB albedo, a smooth function of the world hit position:
+    exact ground truth for the intensity head. (N, 3) -> (N, 3) in [0, 1]."""
+    p = np.asarray(points, np.float64)
+    r = 0.5 + 0.5 * np.sin(1.7 * p[:, 0]) * np.cos(1.3 * p[:, 1])
+    g = 0.5 + 0.5 * np.sin(1.1 * p[:, 1] + 0.5) * np.cos(0.9 * p[:, 2])
+    b = 0.5 + 0.5 * np.sin(0.8 * p[:, 2] + 1.0) * np.cos(1.5 * p[:, 0])
+    return np.clip(np.stack([r, g, b], axis=-1), 0.0, 1.0).astype(np.float32)
+
+
+# Camera axes in the LiDAR frame (camera z = LiDAR x forward, camera x = -LiDAR
+# y right, camera y = -LiDAR z down): the optical-frame extrinsic. Columns are
+# the camera basis vectors in LiDAR coordinates.
+LIDAR_TO_CAMERA_ROT = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+
+
+@dataclass
+class VirtualCamera:
+    """Pinhole camera rendering the analytic scene's surface intensity."""
+
+    width: int = 96
+    height: int = 64
+    fov_deg: float = 70.0
+
+    @property
+    def k(self) -> np.ndarray:
+        fx = 0.5 * self.width / np.tan(np.deg2rad(self.fov_deg) / 2.0)
+        return np.array([[fx, 0.0, self.width / 2.0], [0.0, fx, self.height / 2.0],
+                         [0.0, 0.0, 1.0]])
+
+    def lidar_to_camera(self) -> Pose:
+        mat = np.eye(4)
+        mat[:3, :3] = LIDAR_TO_CAMERA_ROT
+        return Pose(mat)
+
+    def render(self, scene: "BoxRoomScene", lidar_pose: Pose) -> np.ndarray:
+        """(H, W, 3) image in [0, 1] from the camera rigidly attached to
+        ``lidar_pose`` by the optical-frame extrinsic."""
+        from loner_tpu_torch.common.camera import get_ray_directions
+
+        dirs_cam, _, _ = get_ray_directions(self.height, self.width, self.k)
+        cam_pose = lidar_pose * self.lidar_to_camera()
+        rot, t = cam_pose.get_rotation(), cam_pose.get_translation()
+        dirs_w = dirs_cam @ rot.T
+        dirs_w = dirs_w / np.linalg.norm(dirs_w, axis=-1, keepdims=True)
+        origins = np.broadcast_to(t, dirs_w.shape)
+        depth = scene.raycast(origins, dirs_w)
+        hits = origins + dirs_w * depth[:, None]
+        return surface_intensity(hits).reshape(self.height, self.width, 3)
 
 
 @dataclass
@@ -439,3 +491,23 @@ def generate_sequence(
         for i in range(num_scans)
     ]
     return scans, poses, ts, scene, lidar
+
+
+def write_sequence(root: str, scans: List[LidarScan], poses: np.ndarray, ts: np.ndarray,
+                   scene: Optional["BoxRoomScene"] = None,
+                   camera: Optional[VirtualCamera] = None, meta: Optional[dict] = None) -> str:
+    """Write a sequence as a scan-stream dataset at ``root`` (the port's
+    ``ScanStreamWriter``): the scans, the GT trajectory and, with ``camera``,
+    one image a scan rendered at the scan's pose and stamped at its start time,
+    as ``examples/run_loner.py``'s synthetic dataset command writes them.
+    Returns ``root``."""
+    from loner_tpu_torch.datasets.scan_stream import ScanStreamWriter
+
+    writer = ScanStreamWriter(root, meta=meta)
+    for s in scans:
+        writer.add_scan(s)
+    if camera is not None:
+        for i, s in enumerate(scans):
+            writer.add_image(camera.render(scene, Pose(poses[i])), s.get_start_time())
+    writer.write_gt(poses, ts)
+    return root

@@ -45,6 +45,13 @@ class KeyFrame:
     def set_lidar_pose(self, pose: Pose) -> None:
         self._lidar_pose = pose
 
+    def get_camera_pose(self) -> Optional[Pose]:
+        return self._frame.get_camera_pose()
+
+    def get_image(self):
+        """The Image matched to this keyframe's scan, or None."""
+        return self._frame.image
+
     def get_lidar_scan(self):
         return self._frame.lidar_points
 

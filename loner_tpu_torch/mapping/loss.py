@@ -1,7 +1,8 @@
 """The LONER mapping loss: depth MSE + line-of-sight loss (JS dynamic margin
-or decayed-epsilon LOS) + opacity regularizer.
+or decayed-epsilon LOS) + opacity regularizer; and the camera loss, the masked
+MSE of rendered pixel colours.
 
-Counterpart of ``loner_tpu/mapping/loss.py`` (LiDAR loss). Invalid rays are
+Counterpart of ``loner_tpu/mapping/loss.py``. Invalid rays are
 weighted out, not filtered; the sampler's draws and the sigma noise are inputs.
 """
 from __future__ import annotations
@@ -58,6 +59,23 @@ class LossConfig:
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     mask = mask.to(x.dtype)
     return (x * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def compute_camera_loss(rays, intensities, valid, field_params, field_cfg, sampler, occ_state,
+                        n_samples: int, perturb: float, detach_sigma: bool = True,
+                        jitter: Optional[torch.Tensor] = None,
+                        pdf_u: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Render the sampled pixel rays through the intensity head (no sigma noise)
+    and take the masked MSE against the pixels. ``detach_sigma`` stops its
+    gradients into the sigma parameters (the reference's
+    ``detach_rgb_from_sigma``). Returns (mse, rendered rgb (B, C))."""
+    result = render_rays(rays, field_params, field_cfg, sampler, n_samples=n_samples,
+                         perturb=perturb, raw_noise_std=0.0, occ_state=occ_state, jitter=jitter,
+                         pdf_u=pdf_u, sigma_only=False, detach_sigma=detach_sigma)
+    rgb = result["rgb"]
+    err = (rgb - intensities) ** 2
+    return _masked_mean(err, valid[:, None].expand(err.shape)), rgb
 
 
 def compute_lidar_loss(rays, depths_cube, valid, field_params, field_cfg, sampler, occ_state,

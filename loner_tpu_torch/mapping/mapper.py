@@ -15,8 +15,9 @@ import os
 import pickle
 import time
 from dataclasses import replace
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from loner_tpu_torch.common.signals import SharedState, Signal, StopSignal
@@ -58,6 +59,29 @@ def build_ckpt(field_params: Dict[str, Any], occ_state: Any, poses: List[dict],
     return ckpt
 
 
+def build_camera_geometry(calibration) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """(camera-frame pixel directions (H W, 3) f32, LiDAR-to-camera (4, 4) f32)
+    for the camera branch, or None without a calibrated camera (a LiDAR-only
+    run)."""
+    if calibration is None:
+        return None
+    intr = calibration.camera_intrinsic
+    if intr.get("k") is None or intr.get("width") is None:
+        return None
+    from loner_tpu_torch.common.camera import get_ray_directions
+    from loner_tpu_torch.common.pose import Pose
+
+    k = np.asarray(intr.k, np.float64).reshape(3, 3)
+    new_k = intr.get("new_k")
+    new_k = k if new_k is None else np.asarray(new_k, np.float64).reshape(3, 3)
+    dist = intr.get("distortion")
+    dirs, _, _ = get_ray_directions(int(intr.height), int(intr.width), new_k,
+                                    dist=None if dist is None else np.asarray(dist, np.float64),
+                                    k=k)
+    l2c = Pose.from_settings(calibration.lidar_to_camera).matrix
+    return dirs.astype(np.float32), np.asarray(l2c, np.float32)
+
+
 class Mapper:
     def __init__(
         self,
@@ -67,6 +91,7 @@ class Mapper:
         world_cube: WorldCube,
         device: torch.device,
         enable_sky_segmentation: bool = False,
+        calibration=None,
     ) -> None:
         from loner_tpu_torch.mapping.keyframe_manager import KeyFrameManager
         from loner_tpu_torch.mapping.optimizer import Optimizer, OptimizerConfig
@@ -87,8 +112,6 @@ class Mapper:
         if int(settings.get("mesh_devices", 0) or 0) > 1 or isinstance(
                 settings.get("mesh_devices"), (list, tuple)):
             raise NotImplementedError("a device mesh (system.mesh_devices) is not ported")
-        if int(settings.optimizer.num_samples.get("camera", 0)) > 0:
-            raise NotImplementedError("camera samples are not ported")
         # The optimiser's full window class is the keyframe window's size; sky
         # rays are on where the tracker segments sky and the schedule samples it.
         opt_cfg = replace(
@@ -108,6 +131,7 @@ class Mapper:
             seed=seed,
             log_directory=settings.get("log_directory"),
             profile_optimizer=bool(debug.get("profile_optimizer", False)),
+            camera_rays=build_camera_geometry(calibration),
             **{k: bool(debug.get(k, False)) for k in (
                 "log_losses", "write_ray_point_clouds", "store_ray", "draw_samples",
                 "draw_rays_eps")},

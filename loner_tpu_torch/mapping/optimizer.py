@@ -4,10 +4,11 @@ Counterpart of ``loner_tpu/mapping/optimizer.py``. ``make_phase_runner``: one
 iteration samples rays from the device-resident keyframe buffers, builds them
 through the pose twists, draws samples with the occupancy-grid (OGM), proposal
 or uniform sampler, evaluates the sigma field (hash grid or Fourier), composites,
-takes the JS dynamic-margin loss (plus the proposal's linear loss), and makes
-one masked multi-LR Adam step over the sigma (MLP and hash table), proposal and
-twist parameters; every ``occ_update_every`` global steps the OGM grid then
-takes one SGD step. ``Optimizer``: the host-side loop that runs a keyframe
+takes the JS dynamic-margin loss (plus the proposal's linear loss and, in a
+phase that trains the intensity head, the camera loss over pixels drawn from
+the window's images), and makes one masked multi-LR Adam step over the sigma
+(MLP and hash table), proposal, twist and (unfrozen) intensity parameters;
+every ``occ_update_every`` global steps the OGM grid then takes one SGD step. ``Optimizer``: the host-side loop that runs a keyframe
 window through the iteration schedule and writes the optimised poses back.
 
 Freeze flags are gradient masks, and each phase starts a fresh Adam, as in the
@@ -28,9 +29,10 @@ import numpy as np
 import torch
 
 from loner_tpu_torch import convert
-from loner_tpu_torch.mapping.loss import LossConfig, compute_lidar_loss
+from loner_tpu_torch.mapping.loss import LossConfig, compute_camera_loss, compute_lidar_loss
 from loner_tpu_torch.mapping.rays import (
-    DeviceScanPool, WindowBuffers, build_window_buffers, sample_and_build_rays,
+    CameraWindowBuffers, DeviceScanPool, WindowBuffers, build_camera_window_buffers,
+    build_window_buffers, pack_camera_images, sample_and_build_camera_rays, sample_and_build_rays,
 )
 from loner_tpu_torch.models.field import FieldConfig, init_field_params
 from loner_tpu_torch.models.losses import get_logits_grad
@@ -69,7 +71,7 @@ class PhaseSettings:
 @dataclass(frozen=True)
 class OptimizerConfig:
     """Hyper-parameters of the mapping optimization: the JAX package's fields
-    that the port's LiDAR-only iteration reads."""
+    that the port's iteration reads."""
 
     n_lidar_samples: int = 512
     n_sky_samples: int = 64
@@ -103,6 +105,15 @@ class OptimizerConfig:
     # n is enqueued, dispatch n - d has finished, so a tracker ICP queued beside
     # the mapper waits behind at most d dispatches.
     max_inflight_dispatches: int = 2
+    # Camera pixels per window slot in an iteration of a phase that trains the
+    # intensity head (freeze_rgb_mlp: False); 0 builds no camera branch.
+    n_camera_samples: int = 0
+    cameraloss_lambda: float = 1.0
+    # Camera rays from detached poses (no pose gradient from the camera loss),
+    # and the camera loss's gradient into the sigma field (False: it reaches it).
+    detach_rgb_from_poses: bool = True
+    detach_rgb_from_sigma: bool = False
+    lr_rgb: float = 0.01
     loss: LossConfig = LossConfig()
 
     @staticmethod
@@ -137,6 +148,11 @@ class OptimizerConfig:
             encode_impl=str(train.get("encode_impl", "vjp_bf16")),
             steps_per_dispatch=int(train.get("steps_per_dispatch", 10)),
             max_inflight_dispatches=int(train.get("max_inflight_dispatches", 2)),
+            n_camera_samples=int(dict(opt_settings["num_samples"]).get("camera", 0)),
+            cameraloss_lambda=float(dict(model_cfg["loss"]).get("cameraloss_lambda", 1.0)),
+            detach_rgb_from_poses=bool(dict(opt_settings).get("detach_rgb_from_poses", True)),
+            detach_rgb_from_sigma=bool(dict(opt_settings).get("detach_rgb_from_sigma", False)),
+            lr_rgb=float(train.get("lrate_rgb", 0.01)),
             loss=LossConfig.from_settings(model_cfg["loss"]),
         )
 
@@ -151,6 +167,9 @@ class StepDraws:
     noise:  (B, S) standard normals, the sigma noise (raw_noise_std > 0)
     pdf_u:  (B, S/2) uniforms of the OGM sampler's importance half
     sky_u:  (W, n_sky) uniforms that pick the sky directions (sky rays on)
+    cam_u, cam_jitter, cam_pdf_u: the camera branch's pixel picks (W, n_camera)
+            and its sampler's draws, shaped as jitter and pdf_u for B_cam =
+            W * n_camera rays (a phase that trains the intensity head)
 
     B = W * (n_lidar + n_sky) rays.
     """
@@ -160,6 +179,9 @@ class StepDraws:
     noise: Optional[torch.Tensor] = None
     pdf_u: Optional[torch.Tensor] = None
     sky_u: Optional[torch.Tensor] = None
+    cam_u: Optional[torch.Tensor] = None
+    cam_jitter: Optional[torch.Tensor] = None
+    cam_pdf_u: Optional[torch.Tensor] = None
 
 
 def sky_rays_per_slot(cfg: "OptimizerConfig") -> int:
@@ -168,8 +190,9 @@ def sky_rays_per_slot(cfg: "OptimizerConfig") -> int:
 
 
 def draw_step(generator: torch.Generator, cfg: "OptimizerConfig", window_size: int,
-              device: torch.device) -> StepDraws:
-    """One iteration's draws from ``generator`` on ``device``."""
+              device: torch.device, camera: bool = False) -> StepDraws:
+    """One iteration's draws from ``generator`` on ``device``; with ``camera``,
+    the camera branch's too."""
     n_sky = sky_rays_per_slot(cfg)
     b, s = window_size * (cfg.n_lidar_samples + n_sky), cfg.n_samples_per_ray
     ogm = cfg.samples_strategy == "OGM"
@@ -180,12 +203,20 @@ def draw_step(generator: torch.Generator, cfg: "OptimizerConfig", window_size: i
         pdf_u=torch.empty((b, s // 2), device=device) if ogm else None,
         sky_u=torch.empty((window_size, n_sky), device=device) if n_sky else None,
     )
+    if camera:
+        bc = window_size * cfg.n_camera_samples
+        draws.cam_u = torch.empty((window_size, cfg.n_camera_samples), device=device)
+        if cfg.perturb > 0:
+            draws.cam_jitter = torch.empty((bc, s // 2 if ogm else s), device=device)
+        if ogm:
+            draws.cam_pdf_u = torch.empty((bc, s // 2), device=device)
     return fill_draws(draws, generator)
 
 
-# The order of the draws. ``sky_u`` comes last, so a configuration without sky
-# rays draws the same numbers whether or not the port has them.
-DRAW_FIELDS = ("ray_u", "jitter", "noise", "pdf_u", "sky_u")
+# The order of the draws. ``sky_u`` and the camera's come last, so a
+# configuration without them draws the same numbers whether or not the port has
+# them.
+DRAW_FIELDS = ("ray_u", "jitter", "noise", "pdf_u", "sky_u", "cam_u", "cam_jitter", "cam_pdf_u")
 
 
 def fill_draws(draws: StepDraws, generator: torch.Generator) -> StepDraws:
@@ -247,12 +278,14 @@ def training_field_cfg(cfg: "OptimizerConfig", field_cfg: FieldConfig) -> FieldC
 def iteration_loss(cfg: "OptimizerConfig", field_cfg: FieldConfig, sigma: Dict[str, Any],
                    occ_state, twists: torch.Tensor, intensity: Dict[str, Any],
                    buffers: WindowBuffers, world_scale, world_shift: torch.Tensor,
-                   draws: StepDraws, it_idx: float = 0.0,
-                   global_step: float = 0.0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                   draws: StepDraws, it_idx: float = 0.0, global_step: float = 0.0,
+                   camera: Optional[CameraWindowBuffers] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One iteration's forward: rays, samples, field, compositing, the mapping
-    loss and (PROPOSAL) the proposal's linear loss. ``occ_state`` is the OGM
-    grid or the proposal params. Returns (total, aux); ``aux["loss"]`` is the
-    mapping loss alone."""
+    loss, (PROPOSAL) the proposal's linear loss and, with ``camera`` buffers,
+    ``cameraloss_lambda`` times the camera loss (``aux["camera_loss"]``).
+    ``occ_state`` is the OGM grid or the proposal params. Returns (total, aux);
+    ``aux["loss"]`` is the mapping loss alone."""
     use_prop = cfg.samples_strategy == "PROPOSAL"
     if cfg.samples_strategy == "OGM":
         sampler = OccGridRaySampler()
@@ -282,6 +315,17 @@ def iteration_loss(cfg: "OptimizerConfig", field_cfg: FieldConfig, sigma: Dict[s
         logits = proposal_logits(occ_state, aux["points"][:, ::sub].detach())
         denom = torch.clamp(aux["valid"].sum().to(logits.dtype) * z_sub.shape[1], min=1.0)
         loss = loss + (logits_grad * logits).sum() / denom
+    if camera is not None:
+        cam_rays, cam_intens, cam_valid = sample_and_build_camera_rays(
+            camera, twists, world_scale, world_shift, cfg.ray_range, cfg.n_camera_samples,
+            buffers.slot_valid, draws.cam_u, detach_poses=cfg.detach_rgb_from_poses)
+        cam_mse, _ = compute_camera_loss(
+            cam_rays, cam_intens, cam_valid, {"sigma": sigma, "intensity": intensity}, field_cfg,
+            sampler, occ_state, cfg.n_samples_per_ray, cfg.perturb,
+            detach_sigma=cfg.detach_rgb_from_sigma, jitter=draws.cam_jitter,
+            pdf_u=draws.cam_pdf_u)
+        aux["camera_loss"] = cam_mse
+        loss = loss + cfg.cameraloss_lambda * cam_mse
     return loss, aux
 
 
@@ -289,7 +333,8 @@ def make_phase_runner(cfg: OptimizerConfig, field_cfg: FieldConfig, phase: Phase
                       window_size: int, point_pad: int, sky_pad: int,
                       device: torch.device, extras_mode: str = "none",
                       graphs: Optional[bool] = None, window: Optional[WindowBuffers] = None,
-                      pool=None):
+                      pool=None, has_camera: bool = True,
+                      camera: Optional[CameraWindowBuffers] = None):
     """Build the runner of one optimization phase (a ``phase_graph.PhaseProgram``).
 
     ``run_phase(field_params, occ_state, twists, buffers, pose_mask, world_scale,
@@ -305,13 +350,18 @@ def make_phase_runner(cfg: OptimizerConfig, field_cfg: FieldConfig, phase: Phase
     CUDA device; the CPU has none). ``graphs=False`` on the card runs the same
     iterations eagerly, for comparisons and profiles. ``window`` and ``pool``:
     static window buffers and a graph memory pool shared with other runners.
+
+    A phase with ``freeze_rgb_mlp: False`` trains the intensity head (its own
+    Adam group at ``lr_rgb``); with ``n_camera_samples`` > 0 and camera geometry
+    (``has_camera``: the JAX package's flag; a run without a calibrated camera
+    builds no camera branch) its iterations add the camera loss, and
+    ``run_phase`` then takes ``camera=`` buffers (``CameraWindowBuffers``).
+    ``camera``: static camera buffers shared with other runners.
     """
     from loner_tpu_torch.mapping.phase_graph import PhaseProgram
 
     if cfg.samples_strategy not in ("OGM", "PROPOSAL", "UNIFORM"):
         raise ValueError(f"unknown samples_strategy {cfg.samples_strategy!r}")
-    if not phase.freeze_rgb_mlp:
-        raise NotImplementedError("camera / intensity phases are not ported yet")
     if extras_mode != "none":
         raise NotImplementedError("per-iteration debug records are not ported yet")
     if cfg.rays_strategy not in ("RANDOM", "MASK", "FIXED"):
@@ -322,7 +372,8 @@ def make_phase_runner(cfg: OptimizerConfig, field_cfg: FieldConfig, phase: Phase
     if graphs and device.type != "cuda":
         raise ValueError(f"CUDA graphs need a CUDA device, not {device}")
     return PhaseProgram(cfg, field_cfg, phase, window_size, device, graphs=graphs,
-                        extras_mode=extras_mode, window=window, pool=pool)
+                        extras_mode=extras_mode, window=window, pool=pool,
+                        has_camera=has_camera, camera=camera)
 
 
 @dataclass
@@ -355,7 +406,13 @@ class Optimizer:
     one set of static window buffers, into which each keyframe's window is
     copied once. ``warm_up`` captures every program the schedule can reach; a
     program first met later (no warm-up, or a point pad grown by a larger scan)
-    is captured then, counted in ``late_captures`` and logged."""
+    is captured then, counted in ``late_captures`` and logged.
+
+    ``camera_rays``: (camera-frame pixel directions (H W, 3), LiDAR-to-camera
+    (4, 4)), the geometry of the camera branch, or None on a LiDAR-only run
+    (camera samples are then disabled, as in the JAX package). A window whose
+    schedule trains the intensity head packs its keyframes' images into the
+    window class's static camera buffers, once a keyframe."""
 
     def __init__(
         self,
@@ -371,6 +428,7 @@ class Optimizer:
         seed: int = 0,
         log_directory: Optional[str] = None,
         profile_optimizer: bool = False,
+        camera_rays: Optional[Tuple[np.ndarray, np.ndarray]] = None,
         **debug_dumps: bool,
     ) -> None:
         unknown = sorted(set(debug_dumps) - set(_DEBUG_DUMPS))
@@ -390,6 +448,11 @@ class Optimizer:
         self._freeze_poses = freeze_poses
         self._log_directory = log_directory
         self._profile_optimizer = profile_optimizer
+        self._camera_rays = camera_rays
+        if camera_rays is None and cfg.n_camera_samples > 0:
+            print("Warning: num_samples.camera > 0 but no camera geometry (LiDAR-only run): "
+                  "camera-sample supervision is disabled.")
+        self._cameras: Dict[int, CameraWindowBuffers] = {}  # W -> static camera buffers
 
         self._generator = torch.Generator(device=self._device).manual_seed(int(seed))
         self.state = MapState(*self._init_state(self._generator))
@@ -402,6 +465,8 @@ class Optimizer:
         self.late_captures = 0
         self.last_losses: Optional[np.ndarray] = None
         self.last_depth_eps: Optional[np.ndarray] = None
+        self.last_camera_losses: Optional[np.ndarray] = None
+        self.camera_loss_log: List[np.ndarray] = []  # each keyframe's camera losses
 
     def _init_state(self, generator: torch.Generator):
         field_params = init_field_params(generator, self._field_cfg, self._device)
@@ -448,8 +513,30 @@ class Optimizer:
         if cache_key not in self._runner_cache:
             self._runner_cache[cache_key] = make_phase_runner(
                 self._cfg, self._field_cfg, phase, w, p, ps, self._device,
-                window=self._windows[(w, p, ps)], pool=self.graph_pool)
+                window=self._windows[(w, p, ps)], pool=self.graph_pool,
+                has_camera=self._camera_rays is not None, camera=self._cameras.get(w))
         return self._runner_cache[cache_key]
+
+    def _uses_camera(self, phase: PhaseSettings) -> bool:
+        return (not phase.freeze_rgb_mlp and self._cfg.n_camera_samples > 0
+                and self._camera_rays is not None)
+
+    def _static_camera(self, images: List[Optional[np.ndarray]], w: int) -> CameraWindowBuffers:
+        """The window class's static camera buffers, holding ``images`` (one per
+        slot, None without an image): one host-to-device copy of the pixels."""
+        cam_dirs, l2c = self._camera_rays
+        static = self._cameras.get(w)
+        if static is None:
+            static = self._cameras[w] = build_camera_window_buffers(
+                images, cam_dirs, l2c, w, self._field_cfg.num_colors, self._device)
+            return static
+        intens, has = pack_camera_images(images, cam_dirs.shape[0], w, self._field_cfg.num_colors)
+        host = torch.from_numpy(intens)
+        if self._device.type == "cuda":
+            host = host.pin_memory()
+        static.intensities.copy_(host, non_blocking=True)
+        static.has_image.copy_(torch.from_numpy(has))
+        return static
 
     def _static_window(self, buffers: WindowBuffers) -> WindowBuffers:
         """The static buffers of this window class, holding ``buffers``' values.
@@ -498,7 +585,15 @@ class Optimizer:
         if self._device.type == "cuda" and self._field_cfg.sigma_kernel == "fused":
             from loner_tpu_torch.ops import fourier_mlp, hash_grid
 
-            (hash_grid if self._field_cfg.encoding_sigma == "hash" else fourier_mlp)._lib()
+            fcfg = self._field_cfg
+            if fcfg.encoding_sigma == "hash":
+                hash_grid._lib()
+            elif fcfg.compute_dtype == torch.float32:
+                fourier_mlp._lib_f32()
+            else:
+                fourier_mlp._lib()
+            if self._cfg.n_camera_samples > 0 and fcfg.encoding_intensity == "hash":
+                hash_grid._lib()
         rng = np.random.default_rng(0)
         d = rng.normal(size=(3, max(int(n_points), 1))).astype(np.float32)
         d /= np.linalg.norm(d, axis=0, keepdims=True) + 1e-9
@@ -526,11 +621,12 @@ class Optimizer:
         for (_, w), eff in needed.items():
             buffers = self._static_window(build_window_buffers(
                 [d] * w, [depths] * w, [None] * w, w, device=self._device))
+            camera = self._static_camera([None] * w, w) if self._uses_camera(eff) else None
             runner = self._get_runner(eff, w, buffers.dirs.shape[1], buffers.sky_dirs.shape[1])
             ready.append(runner.warm_up(
                 field_params, occ, torch.zeros((w, 6), device=self._device), buffers,
                 torch.ones((w,), device=self._device), self._world_scale, self._world_shift,
-                self._generator))
+                self._generator, camera=camera))
         if ready:
             torch.cat(ready).cpu()  # waits for the device
         return time.time() - t0
@@ -556,6 +652,12 @@ class Optimizer:
         buffers = self._static_window(
             self._scan_pool.build_window(window, w, self._cfg.rays_strategy == "MASK"))
         p, ps = buffers.dirs.shape[1], buffers.sky_dirs.shape[1]
+        effective = [self._effective_phase(phase) for phase in phases]
+        camera = None
+        if any(self._uses_camera(eff) for eff in effective):
+            # Empty slots hold the last keyframe's image, masked by slot validity.
+            images = [window[min(i, m - 1)].get_image() for i in range(w)]
+            camera = self._static_camera([None if im is None else im.image for im in images], w)
 
         twists = np.zeros((w, 6), np.float32)
         anchored = np.zeros((w,), np.float32)
@@ -563,7 +665,6 @@ class Optimizer:
             j = min(i, m - 1)
             twists[i] = window[j].pose_twist(self._use_gt_poses)
             anchored[i] = 1.0 if (window[j].is_anchored or i >= m) else 0.0
-        effective = [self._effective_phase(phase) for phase in phases]
         masks = []
         for eff in effective:
             pose_mask = 1.0 - anchored
@@ -580,7 +681,7 @@ class Optimizer:
         up = host.to(self._device, non_blocking=True)
         twists = up[: w * 6].view(w, 6)
 
-        all_losses, all_eps = [], []
+        all_losses, all_eps, cam_losses = [], [], []
         with optimizer_trace(self._log_directory, self._profile_optimizer, self._keyframe_count):
             for n, eff in enumerate(effective):
                 runner = self._get_runner(eff, w, p, ps)
@@ -593,17 +694,23 @@ class Optimizer:
                     up[w * 6 + n * w : w * 6 + (n + 1) * w], self._world_scale,
                     self._world_shift, self.state.global_step, self._generator,
                     num_iterations=eff.num_iterations,
+                    camera=camera if self._uses_camera(eff) else None,
                 )
                 self.state.global_step += eff.num_iterations
                 all_losses.append(losses)
                 all_eps.append(eps)
+                if runner.last_camera_losses is not None:
+                    cam_losses.append(runner.last_camera_losses)
 
         # One copy to the host for the poses and the phase's loss logs.
-        host = torch.cat([twists.reshape(-1)] + all_losses + all_eps).cpu().numpy()
+        host = torch.cat([twists.reshape(-1)] + all_losses + all_eps + cam_losses).cpu().numpy()
         twists_np = host[: w * 6].reshape(w, 6)
         n_log = sum(int(x.numel()) for x in all_losses)
         self.last_losses = host[w * 6 : w * 6 + n_log]
-        self.last_depth_eps = host[w * 6 + n_log :]
+        self.last_depth_eps = host[w * 6 + n_log : w * 6 + 2 * n_log]
+        self.last_camera_losses = host[w * 6 + 2 * n_log:] if cam_losses else None
+        if cam_losses:
+            self.camera_loss_log.append(self.last_camera_losses)
         if not np.isfinite(twists_np).all():
             raise RuntimeError("Fatal: Encountered invalid pose tensor.")
         if not np.isfinite(self.last_losses).all():

@@ -10,11 +10,14 @@ phase runs as single replays, and at most ``max_inflight_dispatches``
 dispatches are in flight (``optimizer.run_dispatches``).
 
 The program owns the static state of one (phase flags, window class W, point
-pad) runner: the leaf tensors of the sigma MLP, the hash table, the twists and
-the proposal parameters; Adam's moments and step (``capturable=True`` on the
+pad) runner: the leaf tensors of the sigma MLP, the hash table, the twists,
+the proposal parameters and, in a phase that trains it, the intensity head; Adam's moments and step (``capturable=True`` on the
 card); the pose mask, world scale and shift; the window buffers; the draw
 tensors; the iteration index and global step as device scalars; and the
-per-iteration loss and ``depth_eps`` record. A phase copies the incoming
+per-iteration loss, ``depth_eps`` and camera-loss record; in a camera phase the
+camera buffers (``CameraWindowBuffers``: pixel directions, the window's images
+(W, H W, C), their mask and the extrinsic), refreshed per window by copy like
+the window buffers. A phase copies the incoming
 parameters in, resets Adam in place (the JAX package's fresh ``tx.init`` per
 phase) and returns copies, never the static tensors.
 
@@ -42,7 +45,7 @@ import torch
 
 from loner_tpu_torch.common.cuda_graphs import CountedGraph
 from loner_tpu_torch.mapping import optimizer as _opt
-from loner_tpu_torch.mapping.rays import WindowBuffers
+from loner_tpu_torch.mapping.rays import CameraWindowBuffers, WindowBuffers
 from loner_tpu_torch.models.losses import get_logits_grad
 from loner_tpu_torch.models.occupancy_grid import occ_grid_update
 
@@ -60,22 +63,38 @@ def clone_window(src: WindowBuffers) -> WindowBuffers:
         "dirs", "depths", "counts", "sky_dirs", "sky_counts", "slot_valid")))
 
 
+CAMERA_FIELDS = ("cam_dirs", "intensities", "has_image", "lidar_to_camera")
+
+
+def copy_camera(dst: CameraWindowBuffers, src: CameraWindowBuffers) -> None:
+    for name in CAMERA_FIELDS:
+        getattr(dst, name).copy_(getattr(src, name))
+
+
+def clone_camera(src: CameraWindowBuffers) -> CameraWindowBuffers:
+    return CameraWindowBuffers(*(getattr(src, name).clone() for name in CAMERA_FIELDS))
+
+
 class PhaseProgram:
     """The runner of one phase (see the module docstring). Call it as the JAX
     package's ``run_phase``: ``(field_params, occ_state, twists, buffers,
     pose_mask, world_scale, world_shift, global_step0, generator,
-    num_iterations=None, draws=None) -> (field_params, occ_state, twists, losses,
-    depth_eps)``.
+    num_iterations=None, draws=None, camera=None) -> (field_params, occ_state,
+    twists, losses, depth_eps)``; a camera phase's camera losses are then in
+    ``last_camera_losses``.
 
     ``window``: static window buffers the program reads (shared by the
     Optimizer's runners of one window class); without it the program keeps its
     own, and a call copies ``buffers`` in unless they are that object. ``pool``:
     the graph memory pool its graphs share. ``graph_class``: the graph type
-    (``CountedGraph``; the tests pass one that runs on the CPU)."""
+    (``CountedGraph``; the tests pass one that runs on the CPU). ``has_camera``
+    and ``camera``: camera geometry exists, and the static camera buffers
+    (shared like ``window``)."""
 
     def __init__(self, cfg, field_cfg, phase, window_size: int, device: torch.device,
                  graphs: bool, extras_mode: str = "none",
-                 window: Optional[WindowBuffers] = None, pool=None, graph_class=None) -> None:
+                 window: Optional[WindowBuffers] = None, pool=None, graph_class=None,
+                 has_camera: bool = True, camera: Optional[CameraWindowBuffers] = None) -> None:
         self.cfg = cfg
         self.field_cfg = _opt.training_field_cfg(cfg, field_cfg)
         self.w = window_size
@@ -88,6 +107,10 @@ class PhaseProgram:
         self._use_occ = cfg.samples_strategy == "OGM"
         self._optimize_poses = not phase.freeze_poses
         self._optimize_sigma = not phase.freeze_sigma_mlp
+        self._optimize_rgb = not phase.freeze_rgb_mlp
+        self.use_camera = self._optimize_rgb and cfg.n_camera_samples > 0 and has_camera
+        self._camera = camera
+        self.last_camera_losses: Optional[torch.Tensor] = None
         self._window = window
         # One pool for the program's graphs unless the caller shares one.
         self.pool = pool if pool is not None or not (graphs and self._cuda) else (
@@ -105,7 +128,8 @@ class PhaseProgram:
         return bool(self._steps)
 
     # -- static state ----------------------------------------------------------
-    def _build(self, field_params, occ_state, twists, buffers: WindowBuffers) -> None:
+    def _build(self, field_params, occ_state, twists, buffers: WindowBuffers,
+               camera: Optional[CameraWindowBuffers]) -> None:
         cfg, dev = self.cfg, self.device
 
         def leaf(t: torch.Tensor) -> torch.Tensor:
@@ -118,26 +142,38 @@ class PhaseProgram:
         self.sigma_params = list(self.sigma["mlp"].values()) + (
             [self.sigma["table"]] if "table" in self.sigma else [])
         self.tw = leaf(twists)
-        self._base_lr = [cfg.lr_sigma, cfg.lr_pose]
-        groups = [{"params": self.sigma_params}, {"params": [self.tw]}]
+        # Adam groups: (params, base rate, decays with lr_gamma).
+        groups = [(self.sigma_params, cfg.lr_sigma, True), ([self.tw], cfg.lr_pose, True)]
         self.occ = None
         if self._use_prop:
             # ``bmat`` is a fixed projection, never trained: it stays out of Adam.
             self.occ = {k: v.detach().clone() if k == "bmat" else leaf(v)
                         for k, v in occ_state.items()}
-            groups.append({"params": [v for k, v in self.occ.items() if k != "bmat"]})
-            self._base_lr.append(cfg.prop_lr)
+            groups.append(([v for k, v in self.occ.items() if k != "bmat"], cfg.prop_lr, False))
         elif occ_state is not None:
             self.occ = occ_state.detach().clone()
-        # lr_gamma != 1 decays the sigma and pose rates per step (the proposal's
-        # stays): the rates are device scalars the iteration multiplies.
+        # The intensity head, trained in its own group at lr_rgb when unfrozen.
+        self.intensity: Dict[str, Any] = {}
+        if self._optimize_rgb:
+            src = field_params["intensity"]
+            self.intensity = {"mlp": {k: leaf(v) for k, v in src["mlp"].items()}}
+            if "table" in src:
+                self.intensity["table"] = leaf(src["table"])
+            groups.append((list(self.intensity["mlp"].values()) + (
+                [self.intensity["table"]] if "table" in self.intensity else []), cfg.lr_rgb, True))
+        if self.use_camera and self._camera is None:
+            if camera is None:
+                raise ValueError("a phase with camera samples needs camera buffers")
+            self._camera = clone_camera(camera)
+        # lr_gamma != 1 decays the sigma, pose and intensity rates per step (the
+        # proposal's stays): the rates are device scalars the iteration multiplies.
         decay = cfg.lr_gamma != 1.0
-        for i, (g, lr) in enumerate(zip(groups, self._base_lr)):
-            g["lr"] = torch.tensor(lr, device=dev) if decay and i < 2 else lr
-        self.params: List[torch.Tensor] = [p for g in groups for p in g["params"]]
-        self.adam = torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8,
-                                     capturable=self._cuda)
-        self._decayed = self.adam.param_groups[:2] if decay else []
+        self.params: List[torch.Tensor] = [p for g in groups for p in g[0]]
+        self.adam = torch.optim.Adam(
+            [{"params": ps, "lr": torch.tensor(lr, device=dev) if decay and d else lr}
+             for ps, lr, d in groups], betas=(0.9, 0.999), eps=1e-8, capturable=self._cuda)
+        self._decayed = [(g, lr) for g, (_, lr, d) in zip(self.adam.param_groups, groups)
+                         if decay and d]
         self.mask = torch.zeros((self.w,), dtype=self.tw.dtype, device=dev)
         self.scale = torch.zeros((), dtype=torch.float32, device=dev)
         self.shift = torch.zeros((3,), dtype=torch.float32, device=dev)
@@ -146,18 +182,25 @@ class PhaseProgram:
         self.it = torch.zeros((), dtype=torch.float32, device=dev)  # iteration in the phase
         self.gstep = torch.zeros((), dtype=torch.float32, device=dev)  # global step
         self.slot = torch.zeros((), dtype=torch.int64, device=dev)
-        self.history = torch.zeros((2, max(HISTORY, self.k)), dtype=torch.float32, device=dev)
+        self.history = torch.zeros((3, max(HISTORY, self.k)), dtype=torch.float32, device=dev)
         self.draws = None  # the draw graph's static tensors, made at capture
         self._built = True
 
     def _seat(self, field_params, occ_state, twists, buffers, pose_mask, world_scale,
-              world_shift, step0: int) -> None:
+              world_shift, step0: int, camera: Optional[CameraWindowBuffers] = None) -> None:
         """Phase start: the incoming state into the static tensors, a fresh Adam."""
         with torch.no_grad():
             for k, v in field_params["sigma"]["mlp"].items():
                 self.sigma["mlp"][k].copy_(v)
             if "table" in self.sigma:
                 self.sigma["table"].copy_(field_params["sigma"]["table"])
+            if self.intensity:
+                for k, v in field_params["intensity"]["mlp"].items():
+                    self.intensity["mlp"][k].copy_(v)
+                if "table" in self.intensity:
+                    self.intensity["table"].copy_(field_params["intensity"]["table"])
+            if self.use_camera and camera is not None and camera is not self._camera:
+                copy_camera(self._camera, camera)
             self.tw.copy_(twists)
             if self._use_prop:
                 for k, v in occ_state.items():
@@ -178,7 +221,7 @@ class PhaseProgram:
             for state in self.adam.state.values():
                 for v in state.values():
                     v.zero_()
-            for g, lr in zip(self._decayed, self._base_lr):
+            for g, lr in self._decayed:
                 g["lr"].fill_(lr)
 
     # -- one iteration ----------------------------------------------------------
@@ -191,11 +234,12 @@ class PhaseProgram:
             p.grad = None
         # Frozen poses build the rays from detached twists, so nothing below
         # the rays (the hash encode's dpos among it) is differentiated for them.
-        # The sigma-only iteration reads no intensity head.
+        # A phase with a frozen intensity head reads none.
         total, aux = _opt.iteration_loss(
             cfg, self.field_cfg, self.sigma, self.occ,
-            self.tw if self._optimize_poses else self.tw.detach(), {}, self._window,
-            self.scale, self.shift, d, self.it, self.gstep)
+            self.tw if self._optimize_poses else self.tw.detach(), self.intensity, self._window,
+            self.scale, self.shift, d, self.it, self.gstep,
+            camera=self._camera if self.use_camera else None)
         total.backward()
         # Freezing is a gradient mask: every parameter gets a gradient (zero
         # where frozen), so Adam's moments move as the JAX package's do.
@@ -208,7 +252,7 @@ class PhaseProgram:
                 p.grad.zero_()
         self.adam.step()
         with torch.no_grad():
-            for g in self._decayed:
+            for g, _ in self._decayed:
                 g["lr"].mul_(cfg.lr_gamma)
             if occ_step:
                 # After the Adam step, at the forward's sample points, as the JAX
@@ -217,25 +261,30 @@ class PhaseProgram:
                                               aux["depths_gt_m"][:, None].detach())
                 self.occ.copy_(occ_grid_update(self.occ, aux["points"],
                                                logits_grad * aux["valid"][:, None], cfg.occ_lr))
-            # The mapping loss is recorded, not the total with the proposal term.
-            record = torch.stack([aux["loss"].detach(), aux["depth_eps"].detach().float()])
-            self.history.index_copy_(1, self.slot.view(1), record.view(2, 1))
+            # The mapping loss is recorded, not the total with the proposal and
+            # camera terms; the camera loss beside it (0 without a camera branch).
+            cam = aux.get("camera_loss")
+            record = torch.stack([aux["loss"].detach(), aux["depth_eps"].detach().float(),
+                                  cam.detach() if cam is not None else torch.zeros_like(aux["loss"])])
+            self.history.index_copy_(1, self.slot.view(1), record.view(3, 1))
             self.slot.add_(1)
             self.it.add_(1.0)
             self.gstep.add_(1.0)
 
     # -- capture -----------------------------------------------------------------
     def capture(self, field_params, occ_state, twists, buffers, pose_mask, world_scale,
-                world_shift, generator: Optional[torch.Generator]) -> None:
+                world_shift, generator: Optional[torch.Generator],
+                camera: Optional[CameraWindowBuffers] = None) -> None:
         """Seat the statics from this state (their values do not matter), run
         the warm-up iterations, capture both iteration variants and, with a
         generator, the draw graph. Draws nothing from ``generator``."""
         if not self._built:
-            self._build(field_params, occ_state, twists, buffers)
+            self._build(field_params, occ_state, twists, buffers, camera)
         self._seat(field_params, occ_state, twists, buffers, pose_mask, world_scale,
-                   world_shift, 0)
+                   world_shift, 0, camera)
         scratch = torch.Generator(device=self.device).manual_seed(0)
-        self.draws = _opt.draw_step(scratch, self.cfg, self.w, self.device)
+        self.draws = _opt.draw_step(scratch, self.cfg, self.w, self.device,
+                                    camera=self.use_camera)
         variants = (False, True) if self._use_occ else (False,)
         side = torch.cuda.Stream(self.device) if self._cuda else None
         if side is not None:
@@ -262,25 +311,27 @@ class PhaseProgram:
         self.captures += 1
 
     def warm_up(self, field_params, occ_state, twists, buffers, pose_mask, world_scale,
-                world_shift, generator: torch.Generator) -> torch.Tensor:
+                world_shift, generator: torch.Generator,
+                camera: Optional[CameraWindowBuffers] = None) -> torch.Tensor:
         """Make the program ready before the first keyframe without drawing from
         ``generator``: with graphs, capture it; without, run one iteration on a
         scratch generator. Returns a tensor to wait on."""
         if self.graphs:
             if not self.captured:
                 self.capture(field_params, occ_state, twists, buffers, pose_mask, world_scale,
-                             world_shift, generator)
+                             world_shift, generator, camera)
             return self.history[0, :1]
         scratch = torch.Generator(device=self.device).manual_seed(17)
         return self(field_params, occ_state, twists, buffers, pose_mask, world_scale,
-                    world_shift, 0, scratch, num_iterations=1)[3]
+                    world_shift, 0, scratch, num_iterations=1, camera=camera)[3]
 
     # -- a phase -----------------------------------------------------------------
     def __call__(self, field_params: Dict[str, Any], occ_state, twists: torch.Tensor,
                  buffers: WindowBuffers, pose_mask: torch.Tensor, world_scale,
                  world_shift: torch.Tensor, global_step0: int,
                  generator: Optional[torch.Generator], num_iterations: Optional[int] = None,
-                 draws: Optional[Sequence] = None):
+                 draws: Optional[Sequence] = None,
+                 camera: Optional[CameraWindowBuffers] = None):
         n_iters = self._phase_iterations if num_iterations is None else num_iterations
         if draws is None and generator is None:
             raise ValueError("run_phase needs a generator or the draws")
@@ -288,12 +339,12 @@ class PhaseProgram:
             raise ValueError(f"{len(draws)} draws for {n_iters} iterations")
         if self.graphs and not self.captured:
             self.capture(field_params, occ_state, twists, buffers, pose_mask, world_scale,
-                         world_shift, generator if draws is None else None)
+                         world_shift, generator if draws is None else None, camera)
         elif not self._built:
-            self._build(field_params, occ_state, twists, buffers)
+            self._build(field_params, occ_state, twists, buffers, camera)
         step0 = int(global_step0)
         self._seat(field_params, occ_state, twists, buffers, pose_mask, world_scale,
-                   world_shift, step0)
+                   world_shift, step0, camera)
         if self.graphs and draws is None and self._draw_generator is not generator:
             self._capture_draws(generator)
 
@@ -304,7 +355,7 @@ class PhaseProgram:
             occ_step = self._use_occ and (step0 + i) % self.cfg.occ_update_every == 0
             if not self.graphs:
                 d = draws[i] if draws is not None else _opt.draw_step(
-                    generator, self.cfg, self.w, self.device)
+                    generator, self.cfg, self.w, self.device, camera=self.use_camera)
                 self._iteration(d, occ_step)
                 return
             if draws is None:
@@ -333,7 +384,14 @@ class PhaseProgram:
         new_sigma = {"mlp": {k: v.detach().clone() for k, v in self.sigma["mlp"].items()}}
         if "table" in self.sigma:
             new_sigma["table"] = self.sigma["table"].detach().clone()
-        new_field = {"sigma": new_sigma, "intensity": field_params["intensity"]}
+        new_intensity = field_params["intensity"]
+        if self.intensity:
+            new_intensity = {"mlp": {k: v.detach().clone()
+                                     for k, v in self.intensity["mlp"].items()}}
+            if "table" in self.intensity:
+                new_intensity["table"] = self.intensity["table"].detach().clone()
+        new_field = {"sigma": new_sigma, "intensity": new_intensity}
+        self.last_camera_losses = log[2].clone() if self.use_camera else None
         if self._use_prop:
             occ = {k: v.detach().clone() for k, v in self.occ.items()}
         else:

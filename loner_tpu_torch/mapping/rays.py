@@ -1,12 +1,13 @@
 """Differentiable ray building from keyframe point buffers, on the device.
 
-Counterpart of ``loner_tpu/mapping/rays.py``: LiDAR and sky rays. Every
+Counterpart of ``loner_tpu/mapping/rays.py``: LiDAR, sky and camera rays. Every
 keyframe's point buffer is padded to one size and stays on the device for the
 whole window optimisation; each iteration samples ray indices, applies the pose
 twists, scales into the world cube and computes near/far there. Gradients flow
 from the loss through the LiDAR rays' origins and directions to the twists; sky
-rays are built from detached poses. Invalid slots and rays are masked, never
-filtered.
+rays are built from detached poses. Camera rays come from the window's images
+(``CameraWindowBuffers``): pixels drawn per slot, cast from the camera pose.
+Invalid slots and rays are masked, never filtered.
 """
 from __future__ import annotations
 
@@ -167,6 +168,88 @@ def sample_and_build_rays(buffers: WindowBuffers, twists: torch.Tensor,
     valid = valid & (far > near + 1.0 / world_scale)
     valid = valid & (origins.abs().max(dim=-1).values <= 1.0)
     return pack_rays(origins, dirs_w, near, far), depths_cube, valid
+
+
+@dataclass
+class CameraWindowBuffers:
+    """Device-resident window of keyframe camera images, fixed shape.
+
+    cam_dirs:        (HW, 3) camera-frame pixel ray directions (one calibration a run)
+    intensities:     (W, HW, C) per-slot pixel values in [0, 1] (zeros without an image)
+    has_image:       (W,) bool, False for slots without a matched image
+    lidar_to_camera: (4, 4) extrinsic (LiDAR pose -> camera pose)
+    """
+
+    cam_dirs: torch.Tensor
+    intensities: torch.Tensor
+    has_image: torch.Tensor
+    lidar_to_camera: torch.Tensor
+
+
+def pack_camera_images(images: List[Optional[np.ndarray]], hw: int, window_size: int,
+                       num_colors: int = 3) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-slot (H, W, C) images in [0, 1] (or None) -> ((W, HW, C) f32 pixels,
+    (W,) bool). A mono image is broadcast to ``num_colors``."""
+    intens = np.zeros((window_size, hw, num_colors), np.float32)
+    has = np.zeros((window_size,), bool)
+    for i, img in enumerate(images[:window_size]):
+        if img is None:
+            continue
+        flat = np.asarray(img, np.float32).reshape(-1, img.shape[-1] if img.ndim == 3 else 1)
+        if flat.shape[-1] != num_colors:
+            flat = np.broadcast_to(flat[:, :1], (flat.shape[0], num_colors))
+        n = min(flat.shape[0], hw)
+        intens[i, :n] = flat[:n]
+        has[i] = True
+    return intens, has
+
+
+def build_camera_window_buffers(images: List[Optional[np.ndarray]], cam_dirs: np.ndarray,
+                                lidar_to_camera: np.ndarray, window_size: int,
+                                num_colors: int = 3,
+                                device: torch.device = torch.device("cpu")) -> CameraWindowBuffers:
+    """Pack per-slot images into fixed-shape device buffers; slots without an
+    image hold zeros and are masked by ``has_image``."""
+    intens, has = pack_camera_images(images, cam_dirs.shape[0], window_size, num_colors)
+    return CameraWindowBuffers(
+        torch.from_numpy(np.asarray(cam_dirs, np.float32)).to(device),
+        torch.from_numpy(intens).to(device), torch.from_numpy(has).to(device),
+        torch.from_numpy(np.asarray(lidar_to_camera, np.float32)).to(device))
+
+
+def sample_and_build_camera_rays(cam: CameraWindowBuffers, twists: torch.Tensor, world_scale,
+                                 world_shift: torch.Tensor, ray_range: Tuple[float, float],
+                                 n_camera: int, slot_valid: torch.Tensor, u: torch.Tensor,
+                                 detach_poses: bool = True):
+    """Pick pixels per slot by ``u`` ((W, n_camera) uniforms) and build their
+    rays from the camera pose (LiDAR pose times the extrinsic), in cube
+    coordinates: near = ray_range[0] / scale, far = the cube's exit. With
+    ``detach_poses`` (the default) no gradient reaches the twists. Returns
+    (rays (B, 11), intensities (B, C), valid (B,)), B = W n_camera; a ray is
+    valid where its slot is and has an image and its origin lies in the cube."""
+    w = twists.shape[0]
+    hw = cam.cam_dirs.shape[0]
+    idx = torch.clamp(torch.floor(u * hw).long(), max=hw - 1)
+    dirs_c = cam.cam_dirs[idx.reshape(-1)].reshape(w, n_camera, 3)
+    intens = torch.gather(cam.intensities, 1,
+                          idx[..., None].expand(w, n_camera, cam.intensities.shape[-1]))
+
+    mats = se3.twist_to_matrix(twists)
+    if detach_poses:
+        mats = mats.detach()
+    cam_mats = mats @ cam.lidar_to_camera[None]
+    dirs_w = (cam_mats[:, None, :3, :3] * dirs_c[:, :, None, :]).sum(dim=-1)
+    dirs_w = dirs_w / torch.linalg.norm(dirs_w, dim=-1, keepdim=True)
+    origins = ((cam_mats[:, None, :3, 3] + world_shift) / world_scale).expand(dirs_w.shape)
+
+    b = w * n_camera
+    origins = origins.reshape(b, 3)
+    dirs_w = dirs_w.reshape(b, 3)
+    near = torch.full((b,), ray_range[0], dtype=origins.dtype, device=origins.device) / world_scale
+    far = get_far_val(origins, dirs_w)
+    valid = (slot_valid & cam.has_image)[:, None].expand(w, n_camera).reshape(b)
+    valid = valid & (origins.abs().max(dim=-1).values <= 1.0)
+    return pack_rays(origins, dirs_w, near, far), intens.reshape(b, -1), valid
 
 
 class DeviceScanPool:

@@ -12,8 +12,14 @@ Two sigma heads:
   outside any kernel;
 - ``fourier``: the fused Fourier-feature + MLP function of
   ``ops/fourier_mlp.py`` (the JAX package's ``sigma_kernel: pallas`` path).
-The intensity parameters are initialised and carried, not used: the camera
-branch is not ported yet.
+
+The intensity head (``query_field(sigma_only=False)``) encodes the position by
+a hash table (``encoding_intensity: hash``, through the same hash kernels) or
+Fourier features (``fourier``), appends the spherical-harmonics encoding of the
+view direction, and runs a bias-free ReLU MLP and a sigmoid. That MLP is a
+plain product in the JAX package too (``mlp_apply_vjp``, outside any Pallas
+kernel): here it is ``torch.matmul`` on values rounded to the compute dtype
+where the JAX package rounds them, with the JAX package's bf16 cotangents.
 """
 from __future__ import annotations
 
@@ -21,12 +27,13 @@ import functools
 import math
 from dataclasses import dataclass, field as dc_field
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from loner_tpu_torch.models.hash_encoding import HashEncodingConfig, hash_encode, init_hash_table
+from loner_tpu_torch.models.sh_encoding import sh_encode
 from loner_tpu_torch.ops.fourier_mlp import fourier_sigma_fused
 
 BMAT_FIXTURE = Path(__file__).resolve().parent / "fourier_bmats.npz"
@@ -55,6 +62,9 @@ class FourierConfig:
 
     @staticmethod
     def from_settings(cfg: dict) -> "FourierConfig":
+        if str(cfg.get("encode_impl", "vjp")) != "vjp":
+            raise NotImplementedError("the port's Fourier encodes are the JAX package's "
+                                      "encode_impl: vjp (every config in cfg/)")
         return FourierConfig(
             n_freqs=int(cfg.get("n_freqs", 64)),
             scale=float(cfg.get("scale", 6.0)),
@@ -247,12 +257,135 @@ def query_sigma(params: Dict[str, Any], pos: torch.Tensor, cfg: FieldConfig) -> 
     )
 
 
+def _round(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Round float32 values to ``dtype`` and hold them in float32."""
+    return x if dtype == torch.float32 else x.to(dtype).to(torch.float32)
+
+
+class _MLPFunction(torch.autograd.Function):
+    """The JAX package's ``mlp_apply_vjp`` in ``dtype`` for a bias-free ReLU MLP
+    (the intensity head's): the input, weights and hidden activations rounded
+    to ``dtype``, the last layer in f32; backward with cotangents rounded to
+    ``dtype`` (the ReLU mask from the saved activations) and f32 weight
+    gradients. Values are held in float32: a product of two bf16 values is exact
+    there, so a float32 matmul is the bf16 product with f32 accumulation up to
+    the order of summation. In float32 it is plain autograd's arithmetic."""
+
+    @staticmethod
+    def forward(ctx, x, dtype, *ws):
+        h = _round(x, dtype)
+        acts = [h]
+        for i, w in enumerate(ws):
+            h = h @ _round(w, dtype)
+            if i < len(ws) - 1:
+                h = torch.relu(_round(h, dtype))
+                acts.append(h)
+        ctx.save_for_backward(*acts, *ws)
+        ctx.dtype = dtype
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        dtype = ctx.dtype
+        saved = ctx.saved_tensors
+        n = len(saved) // 2
+        acts, ws = saved[:n], saved[n:]
+        dws: List[Optional[torch.Tensor]] = [None] * n
+        gz = gh = _round(g, dtype)
+        for i in range(n - 1, -1, -1):
+            dws[i] = acts[i].t() @ gz
+            gh = _round(gz @ _round(ws[i], dtype).t(), dtype)
+            if i > 0:
+                gz = torch.where(acts[i] > 0, gh, torch.zeros((), dtype=gh.dtype, device=gh.device))
+        return (gh, None, *dws)
+
+
+def mlp_apply_vjp(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Bias-free ReLU MLP in ``dtype`` with the JAX package's custom VJP
+    (``_MLPFunction``). Returns the last layer in f32."""
+    if any(k.startswith("b") for k in params):
+        raise ValueError("the intensity MLP has no biases")
+    n = sum(1 for k in params if k.startswith("w"))
+    return _MLPFunction.apply(x, dtype, *(params[f"w{i}"] for i in range(n)))
+
+
+def _fourier_proj(pos01: torch.Tensor, bmat: torch.Tensor) -> torch.Tensor:
+    # Three rounded products and two rounded sums, in the fused kernel's order.
+    return pos01[:, 0:1] * bmat[0] + pos01[:, 1:2] * bmat[1] + pos01[:, 2:3] * bmat[2]
+
+
+class _FourierEncodeFunction(torch.autograd.Function):
+    """The JAX package's ``fourier_encode_vjp``: sin/cos of the f32 phase,
+    emitted and saved in ``dtype``; backward dproj = g_sin cos - g_cos sin in
+    ``dtype``, dpos = dproj B^T (f32 accumulation) + g_pts."""
+
+    @staticmethod
+    def forward(ctx, pos01, bmat, dtype, include_input):
+        proj = _fourier_proj(pos01, bmat)
+        feats = [_round(torch.sin(proj), dtype), _round(torch.cos(proj), dtype)]
+        if include_input:
+            feats.append(_round(pos01, dtype))
+        out = torch.cat(feats, dim=-1)
+        ctx.save_for_backward(out, bmat)
+        ctx.meta = (dtype, include_input)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, bmat = ctx.saved_tensors
+        dtype, include_input = ctx.meta
+        f = bmat.shape[1]
+        g = _round(g, dtype)
+        dproj = _round(_round(g[:, :f] * out[:, f:2 * f], dtype)
+                       - _round(g[:, f:2 * f] * out[:, :f], dtype), dtype)
+        dpos = dproj @ _round(bmat, dtype).t()
+        if include_input:
+            dpos = dpos + g[:, 2 * f:]
+        return dpos, None, None, None
+
+
+def fourier_encode(pos01: torch.Tensor, cfg: FourierConfig, dtype: torch.dtype) -> torch.Tensor:
+    """(N, 3) in [0, 1] -> (N, 2F [+3]) Fourier features in ``dtype``, with the
+    JAX package's custom VJP (``fourier_encode_vjp``)."""
+    return _FourierEncodeFunction.apply(pos01, fourier_bmat(cfg, pos01.device), dtype,
+                                        cfg.include_input)
+
+
+def query_intensity(params: Dict[str, Any], pos: torch.Tensor, dirs: torch.Tensor,
+                    cfg: FieldConfig) -> torch.Tensor:
+    """Intensity head. pos, dirs: (N, 3) in [-1, 1]. Returns (N, C) colours in
+    (0, 1). The hash table is encoded in the training encode's dtype when the
+    sigma head is a hash grid too (the JAX package passes its training encode
+    to both tables then), else in f32 (its plain ``hash_encode``)."""
+    pos01 = (pos + 1.0) * 0.5
+    if cfg.encoding_intensity == "fourier":
+        h_x = fourier_encode(pos01, cfg.fourier_intensity, cfg.compute_dtype)
+    else:
+        dtype = cfg.hash_encode_dtype if cfg.encoding_sigma != "fourier" else torch.float32
+        h_x = hash_encode(params["intensity"]["table"], pos01, cfg.pos_encoding_intensity,
+                          dtype, plain=cfg.sigma_kernel == "plain")
+    if cfg.enable_view_dependence:
+        h_d = sh_encode((dirs + 1.0) * 0.5, cfg.sh_degree)
+        h_x = torch.cat([h_x, h_d], dim=-1)
+    return torch.sigmoid(mlp_apply_vjp(params["intensity"]["mlp"], h_x, cfg.compute_dtype))
+
+
 def query_field(params: Dict[str, Any], pos: torch.Tensor, dirs: Optional[torch.Tensor],
-                cfg: FieldConfig, sigma_only: bool = False) -> torch.Tensor:
-    """Field query. Only ``sigma_only=True`` is ported: returns (N, 1) raw
-    sigma with NaN/inf clamped to the compute dtype's range."""
-    if not sigma_only:
-        raise NotImplementedError("the intensity head is not ported yet")
-    sigma = query_sigma(params, pos, cfg)
+                cfg: FieldConfig, sigma_only: bool = False,
+                detach_sigma: bool = True) -> torch.Tensor:
+    """Field query. pos, dirs: (N, 3) in [-1, 1] (dirs: unit view directions).
+    Returns (N, 1) raw sigma if ``sigma_only``, else (N, C + 1) [colour.., sigma];
+    sigma's NaN/inf clamped to the compute dtype's range. ``detach_sigma`` (with
+    colours) stops gradients into the sigma parameters."""
+    sigma_params = params
+    if detach_sigma and not sigma_only:
+        sigma_params = {"sigma": {"mlp": {k: v.detach() for k, v in params["sigma"]["mlp"].items()},
+                                  **({"table": params["sigma"]["table"].detach()}
+                                     if "table" in params["sigma"] else {})}}
+    sigma = query_sigma(sigma_params, pos, cfg)
     finfo = torch.finfo(cfg.compute_dtype)
-    return torch.nan_to_num(sigma, posinf=finfo.max, neginf=finfo.min)
+    sigma = torch.nan_to_num(sigma, posinf=finfo.max, neginf=finfo.min)
+    if sigma_only:
+        return sigma
+    return torch.cat([query_intensity(params, pos, dirs, cfg), sigma], dim=-1)

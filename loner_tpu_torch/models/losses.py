@@ -63,3 +63,11 @@ def js_divergence_gaussian(mean1, std1, mean2, std2):
     return 0.5 * kl_divergence_gaussian(mean1, std1, mean_m, std_m) + 0.5 * (
         kl_divergence_gaussian(mean2, std2, mean_m, std_m)
     )
+
+
+def img_to_mse(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return torch.mean((x - y) ** 2)
+
+
+def mse_to_psnr(x: torch.Tensor) -> torch.Tensor:
+    return -10.0 * torch.log(x) / torch.log(torch.tensor(10.0, dtype=x.dtype, device=x.device))

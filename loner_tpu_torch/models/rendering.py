@@ -1,8 +1,8 @@
 """Volume rendering: stratified, occupancy-grid and proposal-guided sampling,
 alpha compositing.
 
-Counterpart of ``loner_tpu/models/rendering.py`` on the sigma-only path.
-Random numbers are inputs: the stratified jitter, the importance sampler's
+Counterpart of ``loner_tpu/models/rendering.py``: depth renders through the
+sigma head, and colour renders through the intensity head too. Random numbers are inputs: the stratified jitter, the importance sampler's
 uniforms and the sigma noise arrive as tensors, so a test can hand the port the
 draws the JAX package made.
 
@@ -107,11 +107,17 @@ class _PositiveCumprod(torch.autograd.Function):
 def raw2outputs(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
                 noise: Optional[torch.Tensor] = None, raw_noise_std: float = 0.0,
                 softplus: bool = False, far: Optional[torch.Tensor] = None,
-                ret_var: bool = False) -> Dict[str, torch.Tensor]:
-    """Alpha compositing, sigma only. raw: (N, S, 1); z_vals: (N, S);
-    rays_d: (N, 3); noise: (N, S) standard normals; far: (N, 1).
-    Depth uses the far-appended residual bin: sum(w z) + (1 - sum w) far."""
-    sigmas = raw[..., 0]
+                ret_var: bool = False, sigma_only: bool = True, num_colors: int = 3,
+                white_bkgd: bool = False) -> Dict[str, torch.Tensor]:
+    """Alpha compositing. raw: (N, S, 1), or (N, S, C + 1) [colour.., sigma]
+    when not ``sigma_only``; z_vals: (N, S); rays_d: (N, 3); noise: (N, S)
+    standard normals; far: (N, 1). Depth uses the far-appended residual bin:
+    sum(w z) + (1 - sum w) far. With colours, ``rgb`` = sum(w c) (+ 1 - sum w
+    on a white background)."""
+    if sigma_only:
+        sigmas = raw[..., 0]
+    else:
+        rgbs, sigmas = raw[..., :num_colors], raw[..., num_colors]
     deltas = z_vals[:, 1:] - z_vals[:, :-1]
     # The last delta from z_vals, not from the (B, 0) deltas of a one-sample ray.
     deltas = torch.cat([deltas, torch.full_like(z_vals[:, :1], 1e10)], dim=-1)
@@ -133,6 +139,11 @@ def raw2outputs(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
     else:
         depth = (weights * z_vals).sum(dim=-1)
     out = {"depth": depth, "weights": weights, "opacity": opacity}
+    if not sigma_only:
+        rgb = (weights[..., None] * rgbs).sum(dim=-2)
+        if white_bkgd:
+            rgb = rgb + (1.0 - opacity[..., None])
+        out["rgb"] = rgb
     if ret_var:
         out["variance"] = (weights * (depth[:, None] - z_vals) ** 2).sum(dim=-1)
     return out
@@ -228,9 +239,13 @@ def render_rays(rays: torch.Tensor, field_params, field_cfg, sampler, n_samples:
                 perturb: float = 0.0, raw_noise_std: float = 0.0, occ_state=None,
                 ret_var: bool = False, jitter: Optional[torch.Tensor] = None,
                 noise: Optional[torch.Tensor] = None, pdf_u: Optional[torch.Tensor] = None,
-                compositor: str = "xla") -> Dict[str, torch.Tensor]:
-    """Render a batch of (N, 11) rays through the sigma field. Returns
-    depth / weights / opacity [/ variance] / z_vals / points.
+                compositor: str = "xla", sigma_only: bool = True, detach_sigma: bool = True,
+                white_bkgd: bool = False) -> Dict[str, torch.Tensor]:
+    """Render a batch of (N, 11) rays through the sigma field, and the intensity
+    head unless ``sigma_only`` (view directions from the rays' viewdir columns;
+    ``detach_sigma`` stops the colour loss's gradients into the sigma
+    parameters). Returns depth / weights / opacity [/ variance] [/ rgb] / z_vals
+    / points.
 
     The field is evaluated in blocks of ``POINT_BLOCK`` points (the JAX package's
     ``point_chunk``): the values do not change, and one test-render chunk of
@@ -239,7 +254,7 @@ def render_rays(rays: torch.Tensor, field_params, field_cfg, sampler, n_samples:
 
     ``compositor="pallas"`` (the JAX package's config word) takes the fused
     compositor of ``ops/composite.py`` when it applies, by the JAX rule:
-    ``ret_var`` and no sigma noise. It is the CUDA kernel on a CUDA tensor and
+    ``sigma_only``, ``ret_var`` and no sigma noise. It is the CUDA kernel on a CUDA tensor and
     its plain version on a CPU tensor; ``"plain"`` takes the plain version on
     every device (the reference the kernel is held to on the card). Otherwise,
     and for ``"xla"``, compositing is ``raw2outputs``."""
@@ -253,11 +268,14 @@ def render_rays(rays: torch.Tensor, field_params, field_cfg, sampler, n_samples:
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]  # (N, S, 3)
     n_rays, s = pts.shape[:2]
     flat = pts.reshape(-1, 3)
-    raw = torch.cat([query_field(field_params, flat[i : i + POINT_BLOCK], None, field_cfg,
-                                 sigma_only=True)
+    flat_dirs = None if sigma_only else rays[:, None, 6:9].expand(n_rays, s, 3).reshape(-1, 3)
+    raw = torch.cat([query_field(field_params, flat[i : i + POINT_BLOCK],
+                                 None if sigma_only else flat_dirs[i : i + POINT_BLOCK],
+                                 field_cfg, sigma_only=sigma_only, detach_sigma=detach_sigma)
                      for i in range(0, max(flat.shape[0], 1), POINT_BLOCK)])
     softplus = field_cfg.density_activation == "softplus"
-    if compositor != "xla" and ret_var and (raw_noise_std == 0 or noise is None):
+    if (compositor != "xla" and sigma_only and ret_var
+            and (raw_noise_std == 0 or noise is None)):
         from loner_tpu_torch.ops.composite import composite_rays
 
         depth, opacity, var, weights = composite_rays(
@@ -269,6 +287,7 @@ def render_rays(rays: torch.Tensor, field_params, field_cfg, sampler, n_samples:
         out = raw2outputs(
             raw.reshape(n_rays, s, -1), z_vals, rays_d, noise=noise,
             raw_noise_std=raw_noise_std, softplus=softplus, far=far, ret_var=ret_var,
+            sigma_only=sigma_only, num_colors=field_cfg.num_colors, white_bkgd=white_bkgd,
         )
     out["z_vals"] = z_vals
     out["points"] = pts

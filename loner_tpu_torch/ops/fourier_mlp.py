@@ -2,8 +2,10 @@
 
 PyTorch counterpart of ``loner_tpu/ops/pallas/fourier_mlp.py``. On a CUDA tensor
 the forward and the backward are the hand-written Hopper kernels of
-``csrc/fourier_mlp.cu``; on a CPU tensor they are the plain PyTorch version
-below, which computes the same function with bf16 rounding at the same places:
+``csrc/fourier_mlp.cu`` (bf16, wgmma) and, for a head that computes in float32,
+of ``csrc/fourier_mlp_f32.cu`` (f32 on the CUDA cores: the Pallas kernel's f32
+mode); on a CPU tensor they are the plain PyTorch version below, which computes
+the same function with bf16 rounding at the same places:
 
   forward   x = [bf16 sin(pts01 B), bf16 cos(pts01 B), bf16 pts01]
             h_i = bf16(relu(h_{i-1} W_i + b_i)),  sigma = h W_L + b_L   (f32 out)
@@ -25,15 +27,17 @@ import torch
 
 
 class LaunchCounts:
-    """Kernel launches made by the wrappers of this module."""
+    """Kernel launches made by the wrappers of this module: the bf16 pair's and
+    the f32 pair's."""
 
     def __init__(self) -> None:
-        self.fwd_launches = 0
-        self.bwd_launches = 0
+        self.reset()
 
     def reset(self) -> None:
         self.fwd_launches = 0
         self.bwd_launches = 0
+        self.fwd_f32_launches = 0
+        self.bwd_f32_launches = 0
 
 
 counts = LaunchCounts()
@@ -367,6 +371,114 @@ def fourier_mlp_bwd_cuda(ws, bs, bmat, pts01, dout, dtype):
     return dws, dbs, dpts
 
 
+# ---------------------------------------------------------------------------
+# The f32 kernels (csrc/fourier_mlp_f32.cu)
+# ---------------------------------------------------------------------------
+
+F32_MAX_LAYERS = 8
+F32_MAX_SMEM = 227 * 1024  # an H100 block's dynamic shared memory
+F32_TILES = (64, 32, 16, 8, 4)  # points a block, the largest whose shared memory fits
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_f32() -> ctypes.CDLL:
+    from loner_tpu_torch.ops.build import load_library
+
+    lib = load_library("fourier_mlp_f32")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.lt_fourier_mlp_f32_fwd.argtypes = [p, p, ll, i, i, i, p, p, i, p]
+    lib.lt_fourier_mlp_f32_bwd.argtypes = [p, p, ll, i, i, i, p, p, p, p, i, p, i, p]
+    for fn in (lib.lt_fourier_mlp_f32_fwd, lib.lt_fourier_mlp_f32_bwd):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def f32_tile(f: int, h: int, n_layers: int, backward: bool) -> int:
+    """Points a block of the f32 kernels takes: the largest of ``F32_TILES`` whose
+    shared memory (features, activations, gradient buffers, f32) fits; raises
+    ValueError, before any launch, for a head that no tile fits."""
+    if not 2 <= n_layers <= F32_MAX_LAYERS or f < 1 or h < 1:
+        raise ValueError(f"the f32 Fourier-MLP kernels take 2..{F32_MAX_LAYERS} layers, got "
+                         f"{n_layers} (F = {f}, H = {h})")
+    k0 = 2 * f + 3
+    for tp in F32_TILES:
+        floats = (k0 + (n_layers - 1) * h + 2 * max(h, k0)) if backward else (k0 + 2 * h)
+        if 4 * tp * floats <= F32_MAX_SMEM:
+            return tp
+    raise ValueError(f"the f32 Fourier-MLP kernels hold a tile's activations in shared memory: "
+                     f"F = {f}, {n_layers} layers of {h} do not fit")
+
+
+def _f32_args(ws, bs, bmat, pts01):
+    dev = pts01.device
+    n_layers, f = len(ws), bmat.shape[1]
+    k0, h = ws[0].shape
+    if pts01.dtype != torch.float32 or pts01.dim() != 2 or pts01.shape[1] != 3:
+        raise ValueError(f"pts01 must be (N, 3) float32, got {tuple(pts01.shape)} {pts01.dtype}")
+    if bmat.dtype != torch.float32 or bmat.shape[0] != 3 or bmat.device != dev:
+        raise ValueError("bmat must be (3, F) float32 on the points' device")
+    if k0 != 2 * f + 3:
+        raise ValueError(f"w0 has {k0} rows; the kernel needs 2F + 3 = {2 * f + 3} (include_input)")
+    for i, w in enumerate(ws):
+        want = (k0, h) if i == 0 else (h, 1) if i == n_layers - 1 else (h, h)
+        if tuple(w.shape) != want or w.device != dev:
+            raise ValueError(f"w{i} must be {want} on {dev}, got {tuple(w.shape)} on {w.device}")
+    params = torch.cat([t for w, b in zip(ws, bs)
+                        for t in (w.reshape(-1).float(), b.reshape(-1).float())]).contiguous()
+    return pts01.contiguous(), bmat.contiguous(), params, f, h, n_layers
+
+
+def fourier_mlp_fwd_cuda_f32(ws, bs, bmat, pts01) -> torch.Tensor:
+    """The f32 forward kernel: (N, 3) -> (N, 1) f32."""
+    pts, bm, params, f, h, n_layers = _f32_args(ws, bs, bmat, pts01)
+    n = pts.shape[0]
+    out = torch.empty((n, 1), dtype=torch.float32, device=pts.device)
+    if n == 0:
+        return out
+    tp = f32_tile(f, h, n_layers, backward=False)
+    if -(-n // tp) > MAX_TILE_PAIRS:
+        raise ValueError(f"{n} points: the f32 Fourier-MLP forward takes at most "
+                         f"{tp * MAX_TILE_PAIRS} per call; split the call")
+    with torch.cuda.device(pts.device):
+        _check(_lib_f32().lt_fourier_mlp_f32_fwd(
+            _ptr(pts), _ptr(bm), n, f, h, n_layers, _ptr(params), _ptr(out), tp,
+            _stream(pts.device)), "lt_fourier_mlp_f32_fwd")
+    counts.fwd_f32_launches += 1
+    return out
+
+
+def fourier_mlp_bwd_cuda_f32(ws, bs, bmat, pts01, dout):
+    """The f32 backward kernels (a persistent tile pass with per-block partials,
+    then their sum in block order): returns (dws, dbs, dpts)."""
+    pts, bm, params, f, h, n_layers = _f32_args(ws, bs, bmat, pts01)
+    n, dev = pts.shape[0], pts.device
+    if dout.shape != (n, 1) or dout.device != dev:
+        raise ValueError(f"dout must be ({n}, 1) on {dev}, got {tuple(dout.shape)}")
+    if n == 0:
+        return ([torch.zeros_like(w, dtype=torch.float32) for w in ws],
+                [torch.zeros(b.numel(), dtype=torch.float32, device=dev) for b in bs],
+                torch.zeros((0, 3), dtype=torch.float32, device=dev))
+    tp = f32_tile(f, h, n_layers, backward=True)
+    grid = max(1, min(2 * _sms(dev), -(-n // tp)))
+    count = params.numel()
+    partial = torch.zeros((grid, count), dtype=torch.float32, device=dev)
+    grads = torch.empty((count,), dtype=torch.float32, device=dev)
+    dpts = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _check(_lib_f32().lt_fourier_mlp_f32_bwd(
+            _ptr(pts), _ptr(bm), n, f, h, n_layers, _ptr(params),
+            _ptr(dout.to(torch.float32).contiguous()), _ptr(dpts), _ptr(partial), grid,
+            _ptr(grads), tp, _stream(dev)), "lt_fourier_mlp_f32_bwd")
+    counts.bwd_f32_launches += 1
+    dws, dbs, at = [], [], 0
+    for w, b in zip(ws, bs):
+        dws.append(grads[at : at + w.numel()].view(w.shape))
+        at += w.numel()
+        dbs.append(grads[at : at + b.numel()])
+        at += b.numel()
+    return dws, dbs, dpts
+
+
 def wgmma_selftest(w: torch.Tensor, a: torch.Tensor, x: torch.Tensor, g: torch.Tensor):
     """The kernels' three operand forms on 64 x 64 bf16 matrices on the card:
     (A W, A W^T, X^T G), each through ``csrc/fourier_mlp.cu::selftest_kernel``."""
@@ -392,8 +504,22 @@ def _select(pts01: torch.Tensor, plain: bool):
     if plain or pts01.device.type == "cpu":
         return fourier_mlp_fwd_plain, fourier_mlp_bwd_plain
     if pts01.device.type == "cuda":
-        return fourier_mlp_fwd_cuda, fourier_mlp_bwd_cuda
+        return fourier_mlp_fwd_cuda_any, fourier_mlp_bwd_cuda_any
     raise ValueError(f"no Fourier-MLP implementation for device {pts01.device}")
+
+
+def fourier_mlp_fwd_cuda_any(ws, bs, bmat, pts01, dtype) -> torch.Tensor:
+    """The CUDA forward of ``dtype``: the bf16 kernel, or the f32 one."""
+    if dtype == torch.float32:
+        return fourier_mlp_fwd_cuda_f32(ws, bs, bmat, pts01)
+    return fourier_mlp_fwd_cuda(ws, bs, bmat, pts01, dtype)
+
+
+def fourier_mlp_bwd_cuda_any(ws, bs, bmat, pts01, dout, dtype):
+    """The CUDA backward of ``dtype``: the bf16 kernels, or the f32 ones."""
+    if dtype == torch.float32:
+        return fourier_mlp_bwd_cuda_f32(ws, bs, bmat, pts01, dout)
+    return fourier_mlp_bwd_cuda(ws, bs, bmat, pts01, dout, dtype)
 
 
 class FourierMLPFunction(torch.autograd.Function):

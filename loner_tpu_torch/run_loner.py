@@ -14,8 +14,9 @@ and never falls back to the CPU: without a CUDA card, ask for ``cpu``.
 ``<dataset_dir>`` may be ``auto`` for a sequence config that names its
 dataset. ``--resume`` continues a run (written by either package) in its own
 directory from its newest full checkpoint, with the configuration and dataset
-of its ``full_config.pkl`` (``runtime/resume.py``). Sweeps, trial pools and
-camera images are not ported.
+of its ``full_config.pkl`` (``runtime/resume.py``). In camera mode
+(``system.lidar_only: False``) the dataset's images are fed in time order with
+the scans. Sweeps and trial pools are not ported.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from loner_tpu_torch.common.device import resolve_device
+from loner_tpu_torch.common.sensors import Image
 from loner_tpu_torch.common.settings import Settings, load_config
 from loner_tpu_torch.datasets.scan_stream import ScanStreamReader, apply_fov_mask
 from loner_tpu_torch.runtime.loner import Loner
@@ -52,8 +54,6 @@ def run_trial(
     if settings.system.get("seed_cache_only", False):
         raise NotImplementedError("system.seed_cache_only: the port has no compilation cache")
     reader = ScanStreamReader(dataset_path)
-    if not settings.system.lidar_only and reader.has_images():
-        raise NotImplementedError("camera images are not ported")
 
     gt_poses = reader.gt_poses()
     if gt_poses is not None and settings.system.world_cube.compute_from_groundtruth:
@@ -85,6 +85,18 @@ def run_trial(
             scan0 = apply_fov_mask(scan0, fov.range)
         loner.warm_up(len(scan0))
 
+    # The camera stream, replayed in time order with the scans.
+    image_files = [] if settings.system.lidar_only else reader.image_files()
+    next_img = 0
+    if resume_idx > 0 and image_files:
+        # Skip the images before the resume by their timestamps, keeping those
+        # within the match tolerance of the first resumed scan's start.
+        resume_start = reader.read_scan(resume_idx).get_start_time()
+        tol = float(settings.tracker.frame_synthesis.get("frame_match_tolerance", 0.01))
+        while (next_img < len(image_files)
+               and reader.read_image_timestamp(next_img) < resume_start - tol):
+            next_img += 1
+
     gt_offset = None
     if resume_idx > 0 and reader.gt_interpolator is not None:
         # The original run's zero-origin offset, its first scan's GT: the first
@@ -99,6 +111,12 @@ def run_trial(
             init_time = scan.get_start_time()
         if duration is not None and scan.get_start_time() - init_time > duration:
             break
+        while next_img < len(image_files):
+            img, img_ts = reader.read_image(next_img)
+            if img_ts > scan.get_start_time():
+                break
+            loner.process_rgb(Image(img, img_ts))
+            next_img += 1
         if fov.enabled:
             scan = apply_fov_mask(scan, fov.range)
         if len(scan) == 0:

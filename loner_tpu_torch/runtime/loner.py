@@ -6,14 +6,16 @@ device. On a CUDA device the tracker's ICP runs on its own stream beside the
 mapper's work on the default stream. The threads start at the first scan,
 after ``warm_up`` has captured the CUDA graphs (``common/cuda_graphs.py``).
 
-Kept from the JAX package: the signals (LiDAR [synchronous], frame,
+Kept from the JAX package: the signals (LiDAR and rgb [synchronous], frame,
 keyframe-update), the 2-phase StopSignal shutdown, the single-threaded
 deterministic mode (deep-copying queues), the dumps of ``world_cube.yaml``,
 ``full_config.yaml`` and ``full_config.pkl``, and the output directory
 ``outputs/<experiment>_<MMDDYY_HHMMSS>/[config_<i>/][trial_<j>/]``. The two
 YAML files are written as JSON text (``common/json_yaml.py``): every float has a decimal
 point, which ``yaml.safe_load`` reads back to the same values: no YAML writer
-is needed. The camera branch (rgb signal) is not ported.
+is needed. In camera mode (``system.lidar_only: False``) images come in through
+``process_rgb``; the tracker matches them to scans and the mapper gets the
+camera calibration, which supervises the intensity head.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import torch
 
 from loner_tpu_torch.common.json_yaml import write_json_yaml
 from loner_tpu_torch.common.pose import Pose
-from loner_tpu_torch.common.sensors import LidarScan
+from loner_tpu_torch.common.sensors import Image, LidarScan
 from loner_tpu_torch.common.settings import Settings
 from loner_tpu_torch.common.signals import SharedState, Signal, StopSignal
 from loner_tpu_torch.common.world_cube import WorldCube, compute_world_cube
@@ -45,13 +47,14 @@ class Loner:
             settings = Settings.load_from_file(settings)
         self._settings = settings
         self._device = torch.device(device)
-        if not bool(settings.system.lidar_only):
-            raise NotImplementedError("the camera branch (system.lidar_only: False) is not ported")
         self._single_threaded = bool(settings.system.single_threaded)
+        self._lidar_only = bool(settings.system.lidar_only)
 
         self._worker_error: Optional[tuple] = None  # (thread name, exception)
         self._lidar_signal = Signal(synchronous=True, single_process=self._single_threaded,
                                     abort=lambda: self._worker_error is not None)
+        self._rgb_signal = Signal(synchronous=True, single_process=self._single_threaded,
+                                  abort=lambda: self._worker_error is not None)
         self._frame_signal = Signal(single_process=self._single_threaded)
         self._keyframe_update_signal = Signal(single_process=self._single_threaded)
 
@@ -138,7 +141,7 @@ class Loner:
         for sub in ("mapper", "tracker"):
             s[sub]["experiment_name"] = self._experiment_name
             s[sub]["log_directory"] = self._log_directory
-            s[sub]["lidar_only"] = True
+            s[sub]["lidar_only"] = self._lidar_only
         s["mapper"]["mesh_devices"] = s.system.get("mesh_devices", 0) or 0
 
         # Debug flags ANDed with the global enable.
@@ -162,8 +165,10 @@ class Loner:
 
         self._mapper = Mapper(s.mapper, self._frame_signal, self._keyframe_update_signal,
                               self._world_cube, self._device,
-                              enable_sky_segmentation=bool(s.system.sky_segmentation))
-        self._tracker = Tracker(s, None, self._lidar_signal, self._frame_signal, self._device)
+                              enable_sky_segmentation=bool(s.system.sky_segmentation),
+                              calibration=None if self._lidar_only else s.calibration)
+        self._tracker = Tracker(s, self._rgb_signal, self._lidar_signal, self._frame_signal,
+                                self._device)
 
         print(f"Starting LONER SLAM (PyTorch) on {self._device}")
 
@@ -201,6 +206,7 @@ class Loner:
         if not self._single_threaded:
             print("Stopping LONER SLAM workers")
             self._lidar_signal.emit(StopSignal())
+            self._rgb_signal.emit(StopSignal())
             while not self._tracker.processed_stop_signal:
                 self._check_workers()
                 self._logger.update()
@@ -249,6 +255,18 @@ class Loner:
         self._start_workers()
         try:
             self._lidar_signal.emit((lidar_scan, gt_pose))
+        except RuntimeError:
+            self._check_workers()
+            raise
+        if self._single_threaded:
+            self._tracker.update()
+            self._mapper.update()
+
+    def process_rgb(self, image: Image) -> None:
+        self._logger.update()
+        self._start_workers()
+        try:
+            self._rgb_signal.emit(image)
         except RuntimeError:
             self._check_workers()
             raise

@@ -26,7 +26,7 @@ import numpy as np
 
 from loner_tpu_torch.common.frame import Frame
 from loner_tpu_torch.common.pose import Pose
-from loner_tpu_torch.common.sensors import LidarScan
+from loner_tpu_torch.common.sensors import Image, LidarScan
 from loner_tpu_torch.common.trajectory import load_tum_trajectory
 from loner_tpu_torch.datasets.scan_stream import ScanStreamReader, apply_fov_mask
 from loner_tpu_torch.mapping.mapper import load_checkpoint
@@ -82,11 +82,15 @@ def rebuild_keyframe_frames(reader: ScanStreamReader, settings, states, t_l2c: O
                             ) -> List[Frame]:
     """The checkpointed keyframes' Frames: their scans re-read, the original
     motion compensation replayed from the tracked-pose chain
-    (``tracking_only.txt``'s poses and times), and with ``compute_sky_rays``
-    their sky rays found again."""
-    if not settings.system.lidar_only:
-        raise NotImplementedError("resuming a run with camera images is not ported")
+    (``tracking_only.txt``'s poses and times), with ``compute_sky_rays``
+    their sky rays found again, and in camera mode their matched images (the
+    first image whose timestamp lies in the scan's span, within the frame
+    match tolerance; a keyframe without one trains no camera rays)."""
     spans = reader.time_spans()
+    image_times: List[float] = []
+    if not settings.system.lidar_only:
+        image_times = [reader.read_image_timestamp(i) for i in range(len(reader.image_files()))]
+    tol = float(settings.tracker.frame_synthesis.get("frame_match_tolerance", 0.01))
     gt_interp = reader.gt_interpolator
     # The original run's zero-origin offset.
     gt0_inv = None if gt_interp is None else Pose(np.linalg.inv(reader.gt_poses()[0]))
@@ -99,6 +103,10 @@ def rebuild_keyframe_frames(reader: ScanStreamReader, settings, states, t_l2c: O
         frame = Frame(scan, t_l2c)
         if gt_interp is not None and gt_interp.contains(kf_time):
             frame._gt_lidar_pose = gt0_inv * gt_interp.at(kf_time)
+        s0, s1 = scan.get_start_time(), scan.get_end_time()
+        match = next((i for i, t in enumerate(image_times) if s0 - tol <= t <= s1 + tol), None)
+        if match is not None:
+            frame.image = Image(*reader.read_image(match))
 
         # The tracker compensated each scan between its predecessor's tracked
         # pose at that scan's middle time and its own, at arrival.

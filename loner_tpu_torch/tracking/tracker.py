@@ -37,8 +37,7 @@ from loner_tpu_torch.tracking.icp import ICPGraph, ICPResult, run_icp_schedule
 class Tracker:
     def __init__(self, settings, rgb_signal: Optional[Signal], lidar_signal: Signal,
                  frame_signal: Signal, device: torch.device) -> None:
-        if rgb_signal is not None:
-            raise NotImplementedError("the camera branch (rgb signal) is not ported")
+        self._rgb_slot = rgb_signal.register() if rgb_signal is not None else None
         self._lidar_slot = lidar_signal.register()
         self._frame_signal = frame_signal
         self._settings = settings.tracker
@@ -144,6 +143,14 @@ class Tracker:
                    > 1.0 / self._frame_rate):
                 time.sleep(0.01)
 
+        if self._rgb_slot is not None and self._rgb_slot.has_value():
+            val = self._rgb_slot.get_value()
+            # The rgb stream's StopSignal is only drained: the LiDAR stream's,
+            # which ``Loner.stop`` emits first, flushes the ICP and stops.
+            if not isinstance(val, StopSignal):
+                self._frame_synthesizer.process_image(val)
+                did_work = True
+
         if self._lidar_slot.has_value():
             val = self._lidar_slot.get_value()
             if isinstance(val, StopSignal):
@@ -187,8 +194,9 @@ class Tracker:
             did_work = self.update()
             time.sleep(1e-4 if did_work else 5e-3)
         # Drain leftovers so no producer can rendezvous on a dead consumer.
-        while self._lidar_slot.has_value():
-            self._lidar_slot.get_value()
+        for slot in (self._lidar_slot, self._rgb_slot):
+            while slot is not None and slot.has_value():
+                slot.get_value()
         print("Tracking Done.")
 
     # -- core -----------------------------------------------------------------

@@ -18,7 +18,10 @@ with dpos and without, at ray-ordered and random points and at the edge cases
 of the kernels' warp-level work; the table gradient, summed by float atomics
 (combined first over the lanes of a warp) in an order that changes per run over
 up to ~10^4 terms an entry (cancelling sums, so no elementwise bound fits),
-relative L2 1e-5, as chip_smoke.py holds it.
+relative L2 1e-5, as chip_smoke.py holds it. The f32 Fourier-MLP kernels
+(csrc/fourier_mlp_f32.cu) against the plain version in f32: forward max abs
+1e-4, gradients relative L2 1e-4 (summation order only), two backward calls
+equal to the bit.
 """
 import numpy as np
 import pytest
@@ -240,6 +243,43 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         tfm.fourier_mlp_fwd_cuda(ws, bs, bmat, pts, torch.float32)
     with pytest.raises(ValueError):
         tfm.fourier_mlp_fwd_cuda([ws[0][:-3]] + ws[1:], bs, bmat, pts, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,h,n_hidden,n", [(32, 128, 3, 24581), (8, 32, 2, 300),
+                                            (48, 256, 2, 7001), (96, 256, 2, 1000), (5, 12, 1, 9)])
+def test_f32_kernels_match_plain(cuda_device, f, h, n_hidden, n):
+    """box_room_camera.yaml's sigma head (32 frequencies, 3 x 128, f32) among others."""
+    ws, bs, bmat, pts, dout = _operands(f, h, n_hidden, n, cuda_device)
+    out = tfm.fourier_mlp_fwd_cuda_f32(ws, bs, bmat, pts)
+    ref = tfm.fourier_mlp_fwd_plain(ws, bs, bmat, pts, torch.float32)
+    assert float((out - ref).abs().max()) <= 1e-4
+    got = tfm.fourier_mlp_bwd_cuda_f32(ws, bs, bmat, pts, dout)
+    want = tfm.fourier_mlp_bwd_plain(ws, bs, bmat, pts, dout, torch.float32)
+    for a, b in zip(got[0] + got[1] + [got[2]], want[0] + want[1] + [want[2]]):
+        b = b.reshape(a.shape)
+        assert float(torch.linalg.norm(a - b) / torch.linalg.norm(b).clamp_min(1e-30)) <= 1e-4
+    again = tfm.fourier_mlp_bwd_cuda_f32(ws, bs, bmat, pts, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got[0] + got[1] + [got[2]],
+                                                 again[0] + again[1] + [again[2]]))
+
+
+@pytest.mark.parametrize("f,h,n_layers,backward,tile", [
+    (32, 128, 4, True, 64), (32, 128, 4, False, 64), (48, 256, 3, True, 32),
+    (96, 256, 3, True, 32), (128, 256, 8, True, 16), (8, 32, 2, True, 64)])
+def test_f32_tile_fits_shared_memory(f, h, n_layers, backward, tile):
+    """The f32 kernels' tile: the largest of F32_TILES whose features, activations
+    and gradient buffers fit a block's shared memory."""
+    assert tfm.f32_tile(f, h, n_layers, backward) == tile
+    k0 = 2 * f + 3
+    floats = (k0 + (n_layers - 1) * h + 2 * max(h, k0)) if backward else k0 + 2 * h
+    assert 4 * tile * floats <= tfm.F32_MAX_SMEM
+
+
+@pytest.mark.parametrize("f,h,n_layers", [(8, 32, 1), (8, 32, 9), (2048, 2048, 3)])
+def test_f32_guard_raises_before_any_launch(f, h, n_layers):
+    with pytest.raises(ValueError):
+        tfm.f32_tile(f, h, n_layers, backward=True)
 
 
 def test_cpu_tensors_take_the_plain_version():

@@ -272,9 +272,9 @@ def test_iterate_optimizer_at_ogm_and_hash_matches_jax(monkeypatch):
         k_rest, sub = jax.random.split(k_rest)
         queue += [(w, jax.random.fold_in(jax.random.fold_in(sub, i), 1)) for i in range(n)]
 
-    def jax_draws(generator, cfg, window_size, device):
+    def jax_draws(generator, cfg, window_size, device, camera=False):
         w, k_step = queue.pop(0)
-        assert w == window_size
+        assert w == window_size and not camera
         return jax_step_draws(k_step, w, cfg.n_lidar_samples, cfg.n_samples_per_ray, ogm=True)
 
     monkeypatch.setattr(topt, "draw_step", jax_draws)

@@ -208,8 +208,14 @@ def test_render_dataset_frame_matches_jax(jax_dirs):
     for key in ("depth", "variance", "opacity"):
         assert frame_t[key].shape == (8, 16)
     _assert_renders_match(frame_t, frame_j, RTOL["float32"])
-    with pytest.raises(NotImplementedError):
-        tr.render_dataset_frame(mt, pose, dirs, (8, 16), n_samples=8, with_intensity=True)
+    # The intensity head is ported: its frame matches JAX's too.
+    frame_j = jr.render_dataset_frame(mj, pose, dirs, (8, 16), n_samples=N_SAMPLES, chunk=CHUNK,
+                                      with_intensity=True)
+    frame_t = tr.render_dataset_frame(mt, pose, dirs, (8, 16), n_samples=N_SAMPLES, chunk=CHUNK,
+                                      with_intensity=True)
+    assert frame_t["intensity"].shape == (8, 16, 3)
+    np.testing.assert_allclose(frame_t["intensity"], np.asarray(frame_j["intensity"]),
+                               rtol=RTOL["float32"], atol=1e-6)
 
 
 def test_jax_renders_a_port_written_experiment_as_the_port_does(tmp_path):
@@ -326,8 +332,9 @@ def test_render_rays_takes_the_fused_compositor_by_the_jax_rule(monkeypatch):
 def test_what_is_not_ported_raises(jax_dirs, tmp_path):
     mt = tru.load_experiment(str(jax_dirs["float32"]), device=CPU)
     o, d = _scan_rays(np.eye(4))
-    with pytest.raises(NotImplementedError):
-        tru.render_depth_chunked(mt, o, d, RAY_RANGE, n_samples=8, with_intensity=True)
+    # The intensity head is ported: colours come back with the depths.
+    out = tru.render_depth_chunked(mt, o, d, RAY_RANGE, n_samples=8, with_intensity=True)
+    assert out["rgb"].shape == (o.shape[0], 3) and np.isfinite(out["rgb"]).all()
     # An occupancy-grid checkpoint (OGM) is ported: it loads as the grid and
     # renders through the OGM sampler as the JAX package renders it.
     ckpt = tmapper.load_checkpoint(str(jax_dirs["float32"] / "checkpoints" / "final.tar"))

@@ -157,7 +157,10 @@ def test_draws_with_sky_keep_the_sky_off_draws():
     on = topt.draw_step(torch.Generator().manual_seed(3), sky_cfg, W, CPU)
     assert on.sky_u.shape == (W, N_SKY) and on.noise.shape == (W * (N_LIDAR + N_SKY), S)
     torch.testing.assert_close(on.ray_u, off.ray_u, rtol=0, atol=0)
-    assert topt.DRAW_FIELDS[-1] == "sky_u"
+    # sky_u comes after every LiDAR draw; only the camera branch's come after it.
+    sky_at = topt.DRAW_FIELDS.index("sky_u")
+    assert topt.DRAW_FIELDS[:sky_at] == ("ray_u", "jitter", "noise", "pdf_u")
+    assert all(name.startswith("cam_") for name in topt.DRAW_FIELDS[sky_at + 1:])
 
 
 def test_run_phase_with_sky_at_proposal_and_fourier_matches_jax():

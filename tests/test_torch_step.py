@@ -323,8 +323,10 @@ def test_make_phase_runner_rejects_what_is_not_ported():
     with pytest.raises(RuntimeError, match="encode_impl"):
         topt.make_phase_runner(topt.OptimizerConfig(encode_impl="pallas"), tfield.FieldConfig(),
                                topt.PhaseSettings(), *args)
-    with pytest.raises(NotImplementedError):
-        topt.make_phase_runner(cfg_t, fcfg_t, topt.PhaseSettings(freeze_rgb_mlp=False), *args)
+    # The intensity head is ported: a phase that trains it builds, and without
+    # camera samples it has no camera branch.
+    runner = topt.make_phase_runner(cfg_t, fcfg_t, topt.PhaseSettings(freeze_rgb_mlp=False), *args)
+    assert not runner.use_camera
     with pytest.raises(NotImplementedError):
         topt.make_phase_runner(cfg_t, fcfg_t, topt.PhaseSettings(), *args, extras_mode="ray")
 
@@ -605,4 +607,67 @@ def test_port_runs_slam_without_jax_optax_yaml_or_loner_tpu(tmp_path):
     proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0 and "slam boundary ok" in proc.stdout, (
+        proc.stdout + proc.stderr)
+
+
+def test_port_runs_a_camera_trial_without_jax_optax_yaml_or_loner_tpu(tmp_path):
+    """The camera branch at the import boundary: ``box_room_camera.yaml`` read
+    from cfg/ by the port's YAML reader, a tiny single-threaded camera trial, its
+    mid-run resume (keyframes re-matched to their images) and ``compute_psnr``,
+    with jax, optax and yaml unimportable."""
+    script = textwrap.dedent("""
+        import importlib.abc, os, sys
+        BLOCKED = ("jax", "optax", "yaml", "matplotlib")
+
+        class Absent(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"{name} is not installed")
+                return None
+
+        sys.meta_path.insert(0, Absent())
+        import torch
+        from loner_tpu_torch.analysis.compute_psnr import compute_psnr
+        from loner_tpu_torch.common.settings import load_config
+        from loner_tpu_torch.datasets import synthetic as syn
+        from loner_tpu_torch.run_loner import run_trial
+
+        torch.set_num_threads(1)
+        root = sys.argv[1]
+        scans, poses, ts, scene, _ = syn.generate_sequence(
+            num_scans=12, lidar=syn.VirtualLidar(num_channels=16, num_columns=64), rate_hz=5.0)
+        ds = syn.write_sequence(os.path.join(root, "ds"), scans, poses, ts, scene=scene,
+                                camera=syn.VirtualCamera())
+        settings, _ = load_config("cfg/synthetic/box_room_camera.yaml")
+        settings.augment({
+            "system": {"log_dir_prefix": os.path.join(root, "out") + "/"},
+            "mapper": {"log_level": "VERBOSE", "optimizer": {
+                "num_samples": {"lidar": 16, "camera": 16},
+                "keyframe_schedule": [
+                    {"num_keyframes": 1, "iteration_schedule": [
+                        {"num_iterations": 3, "freeze_poses": True, "freeze_rgb_mlp": False}]},
+                    {"num_keyframes": -1, "iteration_schedule": [
+                        {"num_iterations": 2, "freeze_rgb_mlp": False}]}],
+                "model_config": {"model": {
+                    "render": {"N_samples_train": 16},
+                    "nerf_config": {"fourier_sigma": {"n_freqs": 8},
+                                    "sigma_network": {"n_neurons": 32},
+                                    "intensity_network": {"n_neurons": 16}},
+                    "occ_model": {"proposal": {"n_freqs": 8, "n_neurons": 16}}}}}},
+        })
+        log_dir = run_trial(settings, ds, experiment_name="camera", duration=1.2, device="cpu")
+        assert run_trial(settings, ds, resume_from=log_dir, device="cpu") == log_dir
+        result = compute_psnr(log_dir, num_images=2, n_samples=16, device="cpu")
+        assert os.path.exists(os.path.join(log_dir, "metrics", "psnr.yaml"))
+        assert result["num_images"] >= 1
+        bad = sorted(m for m in sys.modules
+                     if m == "loner_tpu" or m.startswith("loner_tpu."))
+        assert not bad, bad
+        assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        print("camera boundary ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and "camera boundary ok" in proc.stdout, (
         proc.stdout + proc.stderr)

@@ -104,5 +104,5 @@ def test_tracker_rejects_what_is_not_ported():
     s["tracker"]["icp"]["device"] = 1
     with pytest.raises(NotImplementedError):
         TTracker(TSettings(s), None, TSignal(), TSignal(), torch.device("cpu"))
-    with pytest.raises(NotImplementedError):
-        TTracker(TSettings(_settings(True)), TSignal(), TSignal(), TSignal(), torch.device("cpu"))
+    # The camera branch is ported: an rgb signal is taken.
+    TTracker(TSettings(_settings(True)), TSignal(), TSignal(), TSignal(), torch.device("cpu"))
