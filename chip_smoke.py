@@ -10,9 +10,10 @@ nothing of JAX. Phases, each of which raises on failure:
 2. Build: compiles the CUDA sources of loner_tpu_torch/csrc into build/, one
    nvcc process per source, all started together; prints each kernel's
    ptxas -v report and fails if a hash-grid kernel spills; counts each
-   kernel's HGMMA (wgmma) and UBLKCP / UTMALDG (bulk / tensor copies)
-   instructions in the built SASS (cuobjdump), and fails if a Fourier-MLP
-   kernel has no HGMMA (the composite and hash kernels use none).
+   kernel's HGMMA (wgmma), HMMA (mma.sync), UBLKCP / UTMALDG (bulk / tensor
+   copies) and LDGSTS (cp.async) instructions in the built SASS (cuobjdump), and
+   fails if a bf16 Fourier-MLP kernel has no HGMMA or an f32 one no HMMA (the
+   composite and hash kernels use none).
 3. Kernels: the fused Fourier-MLP forward and backward kernels against their
    plain PyTorch version on the card, at the flagship shapes (2,097,152
    points, 48 frequencies, 99 -> 256 -> 256 -> 1, bf16), each timed with CUDA
@@ -106,6 +107,16 @@ nothing of JAX. Phases, each of which raises on failure:
    threaded SLAM on the first COURTYARD_SCANS scans of the 64 x 1024 courtyard
    drive (the one cut), with phase 9's checks but for the map quality (ATE
    printed, not gated).
+18. Camera: the f32 kernels' fragment self-test (one split-TF32 m16n8k8
+   product in each operand form against float64); the Fourier pair at the
+   camera rays' 524,288 points; the f32 pair (csrc/fourier_mlp_f32.cu,
+   box_room_camera.yaml's head) against its plain version in f32 at its SLAM
+   call size (24,576 points) and at a render chunk (2,097,152), with the
+   plain version in float64 beside it, timed beside both bounds (CUDA cores
+   and split TF32), library_ms, its resident blocks an SM and ptxas's
+   registers and spills; the hash pair at the intensity tables; then
+   box_room_tpu_camera_r5.yaml and box_room_camera.yaml through SLAM with
+   one virtual-camera image a scan, each followed by its PSNR.
 
 Each phase prints its seconds.
 
@@ -144,6 +155,10 @@ GRAD_REL_L2 = 1e-2  # ||kernel - plain|| / ||plain|| for dW, db and dpts
 # ReLU flip at an exact zero is rare in f32).
 F32_FWD_MAX_ABS = 1e-3
 F32_GRAD_REL_L2 = 1e-4
+# One split-TF32 m16n8k8 product of O(1) values against float64: ~1e-6 (eight
+# products, each within ~2^-21 of exact); one TF32 product would be off ~1e-3,
+# a wrong fragment mapping O(1).
+MMA_SELFTEST_MAX_ABS = 1e-5
 LOSS_RTOL = 1e-3  # the slice's loss, kernel vs plain sigma path
 TWIST_GRAD_REL_L2 = 2e-2  # the slice's twist gradient, kernel vs plain
 # Composite kernel against its plain version, f32 (the block scan multiplies in
@@ -177,12 +192,26 @@ HASH_DTABLE_REL_L2 = 1e-5
 # output written once) over the HBM rate.
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+# f32-accurate products either run on the CUDA cores (67 TFLOP/s) or on the TF32
+# tensor cores as three products each (split TF32: 495 / 3 = 165 TFLOP/s of
+# f32-accurate work): the least time for f32 work is the lesser of the two, so
+# a kernel's share stays at or below 100% whichever unit it uses.
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
     t_ops, t_bytes = 1e3 * flops / peak_flops, 1e3 * nbytes / PEAK_HBM_BYTES
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def f32_bound(flops: float, nbytes: float):
+    """bound() for f32-accurate work: its operations at the lesser of the CUDA-core
+    time and the split-TF32 tensor-core time (PEAK_TF32_FLOPS). Returns (ms, by,
+    CUDA-core ms, tensor-core ms)."""
+    t_cuda, t_tensor = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * 3 * flops / PEAK_TF32_FLOPS
+    ms, by = bound(flops, nbytes, peak_flops=1e3 * flops / min(t_cuda, t_tensor))
+    return ms, by, t_cuda, t_tensor
 
 
 def reset_counts() -> None:
@@ -230,6 +259,21 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+def print_ptxas(lib: str, prefix: str = "ptxas") -> None:
+    """Each kernel's registers, stack and spills from csrc/<lib>.cu's ptxas -v report."""
+    import re
+
+    from loner_tpu_torch.ops.build import ptxas_report
+
+    func = None
+    for line in ptxas_report(lib).splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            func = kernel_name(m.group(1))
+        elif func and ("Used" in line or "spill" in line):
+            print(f"{prefix} {lib} {func}: {line.replace('ptxas info    :', '').strip()}", flush=True)
+
+
 def ptxas_spills() -> None:
     """Prints each built kernel's ptxas -v report (registers, shared memory,
     spills); fails if a hash-grid kernel spills."""
@@ -237,49 +281,69 @@ def ptxas_spills() -> None:
 
     from loner_tpu_torch.ops.build import ptxas_report
 
-    for lib in ("fourier_mlp", "composite", "hash_grid"):
-        for line in ptxas_report(lib).splitlines():
-            if "Compiling entry" in line or "Used" in line or "spill" in line:
-                print(f"ptxas {lib}: {line.strip()}", flush=True)
+    for lib in ("fourier_mlp", "fourier_mlp_f32", "composite", "hash_grid"):
+        print_ptxas(lib)
     spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", ptxas_report("hash_grid"))
     if any(int(b) for b in spills):
         raise RuntimeError("a hash-grid kernel spills registers (ptxas -v above)")
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's name and integer template arguments from its mangled name, e.g.
+    fwd_kernel<256>, composite_kernel<1,8,1>, fwd_f32_kernel<72,128,4>."""
+    import re
+
+    found = None
+    for m in re.finditer(r"\d+", mangled):
+        run = m.group(0)
+        for i in range(len(run)):  # "_GLOBAL__N_1" runs into the name's length
+            k = int(run[i:])
+            name = mangled[m.end() : m.end() + k]
+            if len(name) == k and name.endswith("kernel"):
+                # The latest start wins: an anonymous namespace's hash may end in
+                # digits that read as a longer name ending at the same place.
+                found = (m.end(), name)
+                break
+    if found is None:
+        return mangled
+    end, name = found
+    rest = mangled[end + len(name) :]
+    args = re.findall(r"L[a-z](\d+)E", rest[: rest.find("Ev")]) if rest[:1] == "I" else []
+    return name + (f"<{','.join(args)}>" if args else "")
+
+
 def sass_counts() -> dict:
-    """HGMMA and bulk / tensor-copy instructions of each kernel in the built
-    libraries (cuobjdump -sass). Fails if a Fourier-MLP kernel has no HGMMA (the
-    composite and hash kernels use none, by design)."""
+    """HGMMA, HMMA, bulk / tensor-copy and cp.async instructions of each kernel in
+    the built libraries (cuobjdump -sass). Fails if a bf16 Fourier-MLP kernel has
+    no HGMMA or an f32 one no HMMA (the composite and hash kernels use none)."""
     import re
     import shutil
 
     from loner_tpu_torch.ops.build import _target
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    ops = ("HGMMA", "HMMA", "UBLKCP", "UTMALDG", "LDGSTS")
     counts = {}
-    for lib in ("fourier_mlp", "composite", "hash_grid"):
+    for lib in ("fourier_mlp", "fourier_mlp_f32", "composite", "hash_grid"):
         sass = subprocess.run([tool, "-sass", str(_target(lib))], capture_output=True, text=True,
                               check=True, timeout=300).stdout
         func = None
         for line in sass.splitlines():
             m = re.match(r"\s+Function : (\S+)", line)
             if m:
-                # The kernel's name and template arguments, e.g. fwd_kernel<256>,
-                # composite_kernel<1,8,1>.
-                d = re.search(r"(\d+)([a-z_]+kernel)(?:I((?:L[a-z]\d+E)+)E)?", m.group(1))
-                args = re.findall(r"L[a-z](\d+)E", d.group(3) or "")
-                func = d.group(2) + (f"<{','.join(args)}>" if args else "")
-                counts[func] = {"HGMMA": 0, "UBLKCP": 0, "UTMALDG": 0}
+                func = kernel_name(m.group(1))
+                counts[func] = dict.fromkeys(ops, 0)
                 continue
             m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
             if m and func and m.group(1) in counts[func]:
                 counts[func][m.group(1)] += 1
     for name, c in sorted(counts.items()):
-        print(f"SASS {name}: HGMMA {c['HGMMA']}, UBLKCP {c['UBLKCP']}, UTMALDG {c['UTMALDG']}",
-              flush=True)
+        print(f"SASS {name}: " + ", ".join(f"{op} {c[op]}" for op in ops), flush=True)
     for name, c in counts.items():
         if name.split("<")[0] in ("fwd_kernel", "bwd_tile_kernel", "dw_kernel") and not c["HGMMA"]:
             raise RuntimeError(f"{name} has no HGMMA (wgmma) instruction")
+        if name.split("<")[0] in ("fwd_f32_kernel", "bwd_f32_kernel") and not c["HMMA"]:
+            raise RuntimeError(f"{name} has no HMMA (mma.sync) instruction")
     return counts
 
 
@@ -321,7 +385,10 @@ def check_kernels(dev, field_cfg, n: int = 8 * 512 * 512, label: str = "flagship
     the shape in the output); with ``bootstrap``, also timed at the W=1
     bootstrap's 262,144 points. A head that computes in float32 takes the f32
     kernels (csrc/fourier_mlp_f32.cu), held to F32_FWD_MAX_ABS and
-    F32_GRAD_REL_L2."""
+    F32_GRAD_REL_L2, with the plain version in float64 printed beside them (how
+    far f32 summation order alone moves the plain version: ReLU masks flip at
+    pre-activations within an f32 rounding of zero), timed beside both bounds
+    of f32 work (f32_bound) with its resident blocks an SM."""
     from loner_tpu_torch.models.field import fourier_bmat, init_field_params
     from loner_tpu_torch.ops import fourier_mlp as fm
 
@@ -356,16 +423,29 @@ def check_kernels(dev, field_cfg, n: int = 8 * 512 * 512, label: str = "flagship
     pairs = [(f"dw{i}", a, b) for i, (a, b) in enumerate(zip(dws_k, dws_p))]
     pairs += [(f"db{i}", a, b.reshape(a.shape)) for i, (a, b) in enumerate(zip(dbs_k, dbs_p))]
     pairs.append(("dpts", dpts_k, dpts_p))
-    bwd_err = 0.0
-    for name, a, b in pairs:
+    exact = plain_f64(ws, bs, bmat, pts01, dout) if f32 else None
+    if f32:
+        print(f"kernel fourier_mlp_fwd ({label}): plain f32 against plain f64 max abs "
+              f"{float((out_p.double() - exact[0]).abs().max()):.3e}, kernel against plain f64 "
+              f"{float((out_k.double() - exact[0]).abs().max()):.3e}", flush=True)
+    bwd_err, missed = 0.0, []
+    for k, (name, a, b) in enumerate(pairs):
         if a.shape != b.shape or not torch.isfinite(a).all():
             raise RuntimeError(f"backward kernel: {name} has the wrong shape or is non-finite")
         err, rel = float((a - b).abs().max()), rel_l2(a, b)
         bwd_err = max(bwd_err, err)
-        print(f"kernel fourier_mlp_bwd ({label}): {name} {tuple(a.shape)} max |err| {err:.3e} "
-              f"rel L2 {rel:.3e} (tolerance {grad_rel})", flush=True)
+        line = (f"kernel fourier_mlp_bwd ({label}): {name} {tuple(a.shape)} max |err| {err:.3e} "
+                f"rel L2 {rel:.3e} (tolerance {grad_rel})")
+        if f32:
+            e64 = exact[1][k].reshape(a.shape)
+            line += (f"; against plain f64: kernel {rel_l2(a, e64):.3e}, plain f32 "
+                     f"{rel_l2(b, e64):.3e}")
+        print(line, flush=True)
         if not rel <= grad_rel:
-            raise RuntimeError(f"backward kernel disagrees with its plain version on {name}: {rel}")
+            missed.append(f"{name}: {rel}")
+    del exact
+    if missed:
+        raise RuntimeError(f"backward kernel disagrees with its plain version on {missed}")
 
     again = fm.fourier_mlp_bwd_cuda_any(ws, bs, bmat, pts01, dout, bf)
     if not all(torch.equal(a, b) for a, b in zip(dws_k + dbs_k + [dpts_k],
@@ -385,13 +465,22 @@ def check_kernels(dev, field_cfg, n: int = 8 * 512 * 512, label: str = "flagship
     # sigma or dpts out, the parameters in (and their gradients out).
     macs = sum(w.shape[0] * w.shape[1] for w in ws)
     params = 4 * sum(w.numel() for w in ws) + 4 * sum(b.numel() for b in bs) + bmat.numel() * 4
-    peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
-    fwd_bound = bound(2 * n * macs, 16 * n + params, peak)
-    bwd_bound = bound(6 * n * macs, 28 * n + 2 * params, peak)
+    if f32:
+        fwd_bound = f32_bound(2 * n * macs, 16 * n + params)
+        bwd_bound = f32_bound(6 * n * macs, 28 * n + 2 * params)
+    else:
+        fwd_bound = bound(2 * n * macs, 16 * n + params)
+        bwd_bound = bound(6 * n * macs, 28 * n + 2 * params)
     for name, b, ms, lib in (("fwd", fwd_bound, times["fwd"], times["fwd_library"]),
                              ("bwd", bwd_bound, times["bwd"], times["bwd_library"])):
-        print(f"kernel fourier_mlp_{name} ({label}): {ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
-              f"{100 * b[0] / ms:.1f}% of the bound; library composition {lib:.4f} ms", flush=True)
+        line = (f"kernel fourier_mlp_{name} ({label}): {ms:.4f} ms (plain {times[name + '_plain']:.4f}), "
+                f"bound {b[0]:.4f} ms ({b[1]}), {100 * b[0] / ms:.1f}% of the bound; library "
+                f"composition {lib:.4f} ms")
+        if f32:
+            blocks = fm.f32_occupancy(bmat.shape[1], ws[0].shape[1], n_layers, name == "bwd", dev)
+            line += (f"; bounds: CUDA cores {b[2]:.4f} ms, split TF32 {b[3]:.4f} ms; {blocks} "
+                     f"resident block(s) an SM")
+        print(line, flush=True)
     if bootstrap:  # the W=1 bootstrap's call size
         small = 512 * 512
         sub = (pts01[:small].contiguous(), dout[:small].contiguous())
@@ -412,6 +501,32 @@ def check_kernels(dev, field_cfg, n: int = 8 * 512 * 512, label: str = "flagship
          "max_abs_err": bwd_err, "ms": times["bwd"], "plain_ms": times["bwd_plain"],
          "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": times["bwd_library"]},
     ]
+
+
+def plain_f64(ws, bs, bmat, pts01, dout):
+    """The plain version's function in float64 from the same f32 features:
+    (sigma, [dW..., db..., dpts]) in the order of check_kernels' pairs."""
+    from loner_tpu_torch.ops import fourier_mlp as fm
+
+    f = bmat.shape[1]
+    x = fm._features(pts01, bmat, torch.float32).double()
+    ws, bs = [w.double() for w in ws], [b.double() for b in bs]
+    acts, h = [], x
+    for w, b in zip(ws[:-1], bs[:-1]):
+        h = torch.relu(h @ w + b)
+        acts.append(h)
+    out = h @ ws[-1] + bs[-1]
+    n_layers = len(ws)
+    dws, dbs = [None] * n_layers, [None] * n_layers
+    g = dout.double()
+    for i in range(n_layers - 1, 0, -1):
+        dws[i], dbs[i] = acts[i - 1].T @ g, g.sum(dim=0)
+        g = torch.where(acts[i - 1] > 0, g @ ws[i].T, 0.0)
+    del acts
+    dws[0], dbs[0] = x.T @ g, g.sum(dim=0)
+    dx = g @ ws[0].T
+    dproj = dx[:, :f] * x[:, f : 2 * f] - dx[:, f : 2 * f] * x[:, :f]
+    return out, dws + dbs + [dx[:, 2 * f :] + dproj @ bmat.double().T]
 
 
 def library_ms(ws, bs, bmat, pts01, dout, bf=torch.bfloat16) -> dict:
@@ -1978,6 +2093,25 @@ def check_psnr(dev, label: str, log_dir: str, gated: bool) -> dict:
             "constant": const, "launches": launches}
 
 
+def check_mma_selftest(dev) -> None:
+    """One split-TF32 m16n8k8 product in each operand form of the f32 kernels (A W,
+    A W^T, G^T H) against float64, through their fragment loads and weight image:
+    a wrong fragment mapping fails here, before the kernels' own checks."""
+    from loner_tpu_torch.ops import fourier_mlp as fm
+
+    gen = torch.Generator().manual_seed(3)
+    a, w, g, h = (torch.randn(shape, generator=gen) for shape in ((16, 8), (8, 8), (8, 16), (8, 8)))
+    outs = fm.mma_tf32_selftest(*(t.to(dev) for t in (a, w, g, h)))
+    torch.cuda.synchronize()
+    a, w, g, h = (t.double() for t in (a, w, g, h))
+    errs = [float((got.double().cpu() - want).abs().max())
+            for got, want in zip(outs, (a @ w, a @ w.T, g.T @ h))]
+    print(f"mma split-TF32 fragment self-test, max |err| against float64 (A W, A W^T, G^T H): "
+          f"{errs} (tolerance {MMA_SELFTEST_MAX_ABS})", flush=True)
+    if not max(errs) <= MMA_SELFTEST_MAX_ABS:
+        raise RuntimeError(f"the f32 kernels' mma fragments are wrong: {errs}")
+
+
 def run_camera(dev, field_cfg) -> dict:
     """Phase 18: the kernels at the camera path's call sizes, then the two camera
     configurations through SLAM, each followed by its PSNR."""
@@ -1988,6 +2122,8 @@ def run_camera(dev, field_cfg) -> dict:
     from loner_tpu_torch.mapping.optimizer import OptimizerConfig
     from loner_tpu_torch.models.field import FieldConfig
 
+    check_mma_selftest(dev)
+    print_ptxas("fourier_mlp_f32", prefix="phase 18: ptxas")
     r5 = cfg_settings("box_room_tpu_camera_r5.yaml", "")
     small = cfg_settings("box_room_camera.yaml", "")
     small_field = FieldConfig.from_settings(
@@ -1999,6 +2135,10 @@ def run_camera(dev, field_cfg) -> dict:
                "fourier_f32_render": check_kernels(dev, small_field, n=2048 * 1024,
                                                    label="box_room_camera f32 render chunk",
                                                    bootstrap=False),
+               # A head of no resident build: the flagship's (48, 256 x 2) in f32.
+               "fourier_f32_streamed": check_kernels(
+                   dev, replace(field_cfg, compute_dtype=torch.float32), n=HASH_CAMERA_POINTS,
+                   label="flagship head f32, streamed", bootstrap=False),
                "hash": check_intensity_hash(dev)}
     torch.cuda.empty_cache()
     runs = {}

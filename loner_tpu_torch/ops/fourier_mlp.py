@@ -3,9 +3,10 @@
 PyTorch counterpart of ``loner_tpu/ops/pallas/fourier_mlp.py``. On a CUDA tensor
 the forward and the backward are the hand-written Hopper kernels of
 ``csrc/fourier_mlp.cu`` (bf16, wgmma) and, for a head that computes in float32,
-of ``csrc/fourier_mlp_f32.cu`` (f32 on the CUDA cores: the Pallas kernel's f32
-mode); on a CPU tensor they are the plain PyTorch version below, which computes
-the same function with bf16 rounding at the same places:
+of ``csrc/fourier_mlp_f32.cu`` (the Pallas kernel's f32 mode: split-TF32
+``mma.sync`` products, as accurate as f32 ones); on a CPU tensor they are the
+plain PyTorch version below, which computes the same function with bf16 rounding
+at the same places:
 
   forward   x = [bf16 sin(pts01 B), bf16 cos(pts01 B), bf16 pts01]
             h_i = bf16(relu(h_{i-1} W_i + b_i)),  sigma = h W_L + b_L   (f32 out)
@@ -375,38 +376,52 @@ def fourier_mlp_bwd_cuda(ws, bs, bmat, pts01, dout, dtype):
 # The f32 kernels (csrc/fourier_mlp_f32.cu)
 # ---------------------------------------------------------------------------
 
-F32_MAX_LAYERS = 8
-F32_MAX_SMEM = 227 * 1024  # an H100 block's dynamic shared memory
-F32_TILES = (64, 32, 16, 8, 4)  # points a block, the largest whose shared memory fits
+def _bind_f32(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The C signatures of a build of ``csrc/fourier_mlp_f32.cu``."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.lt_fourier_mlp_f32_fwd.argtypes = [p, p, ll, i, i, i, p, p, i, p]
+    lib.lt_fourier_mlp_f32_bwd.argtypes = [p, p, ll, i, i, i, p, p, p, p, i, p, p]
+    for fn in (lib.lt_fourier_mlp_f32_tile, lib.lt_fourier_mlp_f32_occupancy):
+        fn.argtypes = [i, i, i, i]
+    lib.lt_mma_tf32_selftest.argtypes = [p] * 8
+    for fn in (lib.lt_fourier_mlp_f32_fwd, lib.lt_fourier_mlp_f32_bwd, lib.lt_fourier_mlp_f32_tile,
+               lib.lt_fourier_mlp_f32_occupancy, lib.lt_mma_tf32_selftest):
+        fn.restype = ctypes.c_int
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _lib_f32() -> ctypes.CDLL:
     from loner_tpu_torch.ops.build import load_library
 
-    lib = load_library("fourier_mlp_f32")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.lt_fourier_mlp_f32_fwd.argtypes = [p, p, ll, i, i, i, p, p, i, p]
-    lib.lt_fourier_mlp_f32_bwd.argtypes = [p, p, ll, i, i, i, p, p, p, p, i, p, i, p]
-    for fn in (lib.lt_fourier_mlp_f32_fwd, lib.lt_fourier_mlp_f32_bwd):
-        fn.restype = ctypes.c_int
-    return lib
+    return _bind_f32(load_library("fourier_mlp_f32"))
 
 
-def f32_tile(f: int, h: int, n_layers: int, backward: bool) -> int:
-    """Points a block of the f32 kernels takes: the largest of ``F32_TILES`` whose
-    shared memory (features, activations, gradient buffers, f32) fits; raises
-    ValueError, before any launch, for a head that no tile fits."""
-    if not 2 <= n_layers <= F32_MAX_LAYERS or f < 1 or h < 1:
-        raise ValueError(f"the f32 Fourier-MLP kernels take 2..{F32_MAX_LAYERS} layers, got "
-                         f"{n_layers} (F = {f}, H = {h})")
-    k0 = 2 * f + 3
-    for tp in F32_TILES:
-        floats = (k0 + (n_layers - 1) * h + 2 * max(h, k0)) if backward else (k0 + 2 * h)
-        if 4 * tp * floats <= F32_MAX_SMEM:
-            return tp
-    raise ValueError(f"the f32 Fourier-MLP kernels hold a tile's activations in shared memory: "
-                     f"F = {f}, {n_layers} layers of {h} do not fit")
+@functools.lru_cache(maxsize=None)
+def f32_tiles(f: int, h: int, n_layers: int) -> Tuple[int, int]:
+    """Points a block of the f32 forward and of the backward takes per round of
+    its loop (``csrc/fourier_mlp_f32.cu::lt_fourier_mlp_f32_tile``: the resident
+    build of the head's padded shape, else the streamed kernels); raises
+    ValueError, before any launch, for a head whose layout fits neither."""
+    lib = _lib_f32()
+    tiles = (lib.lt_fourier_mlp_f32_tile(f, h, n_layers, 0),
+             lib.lt_fourier_mlp_f32_tile(f, h, n_layers, 1))
+    if min(tiles) < 1:
+        raise ValueError(f"the f32 Fourier-MLP kernels take 2..8 layers whose tile fits a "
+                         f"block's shared memory; F = {f}, {n_layers} layers of {h} does not")
+    return tiles
+
+
+@functools.lru_cache(maxsize=None)
+def f32_occupancy(f: int, h: int, n_layers: int, backward: bool, device: torch.device) -> int:
+    """Resident blocks an SM of the f32 forward or backward kernel for this head
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    f32_tiles(f, h, n_layers)
+    with torch.cuda.device(device):
+        blocks = _lib_f32().lt_fourier_mlp_f32_occupancy(f, h, n_layers, int(backward))
+    if blocks < 1:
+        raise RuntimeError(f"the f32 Fourier-MLP kernel fits no block on an SM ({blocks})")
+    return blocks
 
 
 def _f32_args(ws, bs, bmat, pts01):
@@ -419,6 +434,8 @@ def _f32_args(ws, bs, bmat, pts01):
         raise ValueError("bmat must be (3, F) float32 on the points' device")
     if k0 != 2 * f + 3:
         raise ValueError(f"w0 has {k0} rows; the kernel needs 2F + 3 = {2 * f + 3} (include_input)")
+    if n_layers < 2:
+        raise ValueError(f"the f32 kernels take a hidden layer and an output layer, got {n_layers}")
     for i, w in enumerate(ws):
         want = (k0, h) if i == 0 else (h, 1) if i == n_layers - 1 else (h, h)
         if tuple(w.shape) != want or w.device != dev:
@@ -429,46 +446,50 @@ def _f32_args(ws, bs, bmat, pts01):
 
 
 def fourier_mlp_fwd_cuda_f32(ws, bs, bmat, pts01) -> torch.Tensor:
-    """The f32 forward kernel: (N, 3) -> (N, 1) f32."""
+    """The f32 forward kernel: (N, 3) -> (N, 1) f32. A persistent grid of
+    resident blocks an SM times SMs, over tiles of ``f32_tiles``' points."""
     pts, bm, params, f, h, n_layers = _f32_args(ws, bs, bmat, pts01)
-    n = pts.shape[0]
-    out = torch.empty((n, 1), dtype=torch.float32, device=pts.device)
+    n, dev = pts.shape[0], pts.device
+    tile = f32_tiles(f, h, n_layers)[0]
+    out = torch.empty((n, 1), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    tp = f32_tile(f, h, n_layers, backward=False)
-    if -(-n // tp) > MAX_TILE_PAIRS:
-        raise ValueError(f"{n} points: the f32 Fourier-MLP forward takes at most "
-                         f"{tp * MAX_TILE_PAIRS} per call; split the call")
-    with torch.cuda.device(pts.device):
+    grid = min(f32_occupancy(f, h, n_layers, False, dev) * _sms(dev), -(-n // tile))
+    with torch.cuda.device(dev):
         _check(_lib_f32().lt_fourier_mlp_f32_fwd(
-            _ptr(pts), _ptr(bm), n, f, h, n_layers, _ptr(params), _ptr(out), tp,
-            _stream(pts.device)), "lt_fourier_mlp_f32_fwd")
+            _ptr(pts), _ptr(bm), n, f, h, n_layers, _ptr(params), _ptr(out), grid,
+            _stream(dev)), "lt_fourier_mlp_f32_fwd")
     counts.fwd_f32_launches += 1
     return out
 
 
-def fourier_mlp_bwd_cuda_f32(ws, bs, bmat, pts01, dout):
-    """The f32 backward kernels (a persistent tile pass with per-block partials,
-    then their sum in block order): returns (dws, dbs, dpts)."""
+def fourier_mlp_bwd_cuda_f32(ws, bs, bmat, pts01, dout, grid: Optional[int] = None):
+    """The f32 backward kernels: a persistent pass of ``grid`` blocks (default
+    min(SMs, tiles); only tests set it) that each write one partial of their
+    tiles' dW and db, then the partials' sum in block order. Returns (dws, dbs,
+    dpts)."""
     pts, bm, params, f, h, n_layers = _f32_args(ws, bs, bmat, pts01)
     n, dev = pts.shape[0], pts.device
     if dout.shape != (n, 1) or dout.device != dev:
         raise ValueError(f"dout must be ({n}, 1) on {dev}, got {tuple(dout.shape)}")
+    tile = f32_tiles(f, h, n_layers)[1]
     if n == 0:
         return ([torch.zeros_like(w, dtype=torch.float32) for w in ws],
                 [torch.zeros(b.numel(), dtype=torch.float32, device=dev) for b in bs],
                 torch.zeros((0, 3), dtype=torch.float32, device=dev))
-    tp = f32_tile(f, h, n_layers, backward=True)
-    grid = max(1, min(2 * _sms(dev), -(-n // tp)))
-    count = params.numel()
-    partial = torch.zeros((grid, count), dtype=torch.float32, device=dev)
-    grads = torch.empty((count,), dtype=torch.float32, device=dev)
+    tiles = -(-n // tile)
+    if grid is None:
+        grid = min(_sms(dev), tiles)
+    if not 1 <= grid <= tiles:
+        raise ValueError(f"grid must be 1..{tiles} blocks for {n} points, got {grid}")
+    partial = torch.empty((grid, params.numel()), dtype=torch.float32, device=dev)
+    grads = torch.empty((params.numel(),), dtype=torch.float32, device=dev)
     dpts = torch.empty((n, 3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         _check(_lib_f32().lt_fourier_mlp_f32_bwd(
             _ptr(pts), _ptr(bm), n, f, h, n_layers, _ptr(params),
             _ptr(dout.to(torch.float32).contiguous()), _ptr(dpts), _ptr(partial), grid,
-            _ptr(grads), tp, _stream(dev)), "lt_fourier_mlp_f32_bwd")
+            _ptr(grads), _stream(dev)), "lt_fourier_mlp_f32_bwd")
     counts.bwd_f32_launches += 1
     dws, dbs, at = [], [], 0
     for w, b in zip(ws, bs):
@@ -477,6 +498,20 @@ def fourier_mlp_bwd_cuda_f32(ws, bs, bmat, pts01, dout):
         dbs.append(grads[at : at + b.numel()])
         at += b.numel()
     return dws, dbs, dpts
+
+
+def mma_tf32_selftest(a: torch.Tensor, w: torch.Tensor, g: torch.Tensor, h: torch.Tensor):
+    """One split-TF32 m16n8k8 product in each operand form of the f32 kernels, on
+    the card, through their fragment loads and weight image
+    (``csrc/fourier_mlp_f32.cu::selftest_kernel``): (A W, A W^T, G^T H) for A
+    (16, 8), W (8, 8), G (8, 16), H (8, 8), f32."""
+    dev = a.device
+    args = [t.to(torch.float32).contiguous() for t in (a, w, g, h)]
+    outs = [torch.empty((16, 8), dtype=torch.float32, device=dev) for _ in range(3)]
+    with torch.cuda.device(dev):
+        _check(_lib_f32().lt_mma_tf32_selftest(*[_ptr(t) for t in args + outs], _stream(dev)),
+               "lt_mma_tf32_selftest")
+    return outs
 
 
 def wgmma_selftest(w: torch.Tensor, a: torch.Tensor, x: torch.Tensor, g: torch.Tensor):

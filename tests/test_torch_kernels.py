@@ -19,9 +19,10 @@ of the kernels' warp-level work; the table gradient, summed by float atomics
 (combined first over the lanes of a warp) in an order that changes per run over
 up to ~10^4 terms an entry (cancelling sums, so no elementwise bound fits),
 relative L2 1e-5, as chip_smoke.py holds it. The f32 Fourier-MLP kernels
-(csrc/fourier_mlp_f32.cu) against the plain version in f32: forward max abs
-1e-4, gradients relative L2 1e-4 (summation order only), two backward calls
-equal to the bit.
+(csrc/fourier_mlp_f32.cu, split-TF32 products) against the plain version in
+f32: forward max abs 1e-4, gradients relative L2 1e-4, two backward calls equal
+to the bit; the split products emulated on the CPU meet the same bounds, one
+TF32 product does not.
 """
 import numpy as np
 import pytest
@@ -245,41 +246,200 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         tfm.fourier_mlp_fwd_cuda([ws[0][:-3]] + ws[1:], bs, bmat, pts, torch.bfloat16)
 
 
+# box_room_camera.yaml's head (32 frequencies, 3 x 128; a resident build) at its
+# SLAM call size and at the design's edges: 1 point, a 32-point tile - 1 and + 1,
+# 131 and 133 tiles (an H100's 132 SMs - 1 and + 1), one block over all 769 tiles
+# and 7 blocks of ~110 tiles each; courtyard_tiny.yaml's head (32, 2 x 64; resident).
+# The streamed kernels: the bf16 heads of cfg/ asked for in f32 (48 and 96 x 256 x 2,
+# box_room_tpu.yaml's 64 x 256 x 4), box_room_camera's head at 16 frequencies, a
+# 384-wide head (forward tiles of 32 points, backward of 16) and smaller heads
+# (64-point tiles), at 1 point, a 32-point backward tile + 1, and 3 blocks over ~73
+# tiles each.
+F32_KERNEL_CASES = [(32, 128, 3, 24581, None), (8, 32, 2, 300, None), (5, 12, 1, 9, None),
+                    (32, 64, 2, 5000, None), (32, 128, 3, 1, None), (32, 128, 3, 31, None),
+                    (32, 128, 3, 33, None), (32, 128, 3, 32 * 131, None),
+                    (32, 128, 3, 32 * 133 - 5, None), (32, 128, 3, 24581, 1),
+                    (32, 128, 3, 24581, 7), (48, 256, 2, 7001, None), (96, 256, 2, 1000, None),
+                    (64, 256, 4, 3001, None), (16, 128, 3, 2000, None), (48, 256, 2, 1, None),
+                    (48, 256, 2, 33, None), (48, 256, 2, 7001, 3), (48, 384, 2, 500, None)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("f,h,n_hidden,n", [(32, 128, 3, 24581), (8, 32, 2, 300),
-                                            (48, 256, 2, 7001), (96, 256, 2, 1000), (5, 12, 1, 9)])
-def test_f32_kernels_match_plain(cuda_device, f, h, n_hidden, n):
-    """box_room_camera.yaml's sigma head (32 frequencies, 3 x 128, f32) among others."""
+@pytest.mark.parametrize("f,h,n_hidden,n,grid", F32_KERNEL_CASES)
+def test_f32_kernels_match_plain(cuda_device, f, h, n_hidden, n, grid):
+    """The split-TF32 kernels against the plain version in f32; ``grid`` makes a
+    block carry its dW and db accumulators over many tiles."""
     ws, bs, bmat, pts, dout = _operands(f, h, n_hidden, n, cuda_device)
     out = tfm.fourier_mlp_fwd_cuda_f32(ws, bs, bmat, pts)
     ref = tfm.fourier_mlp_fwd_plain(ws, bs, bmat, pts, torch.float32)
     assert float((out - ref).abs().max()) <= 1e-4
-    got = tfm.fourier_mlp_bwd_cuda_f32(ws, bs, bmat, pts, dout)
+    got = tfm.fourier_mlp_bwd_cuda_f32(ws, bs, bmat, pts, dout, grid=grid)
     want = tfm.fourier_mlp_bwd_plain(ws, bs, bmat, pts, dout, torch.float32)
     for a, b in zip(got[0] + got[1] + [got[2]], want[0] + want[1] + [want[2]]):
         b = b.reshape(a.shape)
         assert float(torch.linalg.norm(a - b) / torch.linalg.norm(b).clamp_min(1e-30)) <= 1e-4
-    again = tfm.fourier_mlp_bwd_cuda_f32(ws, bs, bmat, pts, dout)
+    again = tfm.fourier_mlp_bwd_cuda_f32(ws, bs, bmat, pts, dout, grid=grid)
     assert all(torch.equal(a, b) for a, b in zip(got[0] + got[1] + [got[2]],
                                                  again[0] + again[1] + [again[2]]))
 
 
-@pytest.mark.parametrize("f,h,n_layers,backward,tile", [
-    (32, 128, 4, True, 64), (32, 128, 4, False, 64), (48, 256, 3, True, 32),
-    (96, 256, 3, True, 32), (128, 256, 8, True, 16), (8, 32, 2, True, 64)])
-def test_f32_tile_fits_shared_memory(f, h, n_layers, backward, tile):
-    """The f32 kernels' tile: the largest of F32_TILES whose features, activations
-    and gradient buffers fit a block's shared memory."""
-    assert tfm.f32_tile(f, h, n_layers, backward) == tile
-    k0 = 2 * f + 3
-    floats = (k0 + (n_layers - 1) * h + 2 * max(h, k0)) if backward else k0 + 2 * h
-    assert 4 * tile * floats <= tfm.F32_MAX_SMEM
+@pytest.mark.cuda
+def test_f32_mma_fragment_layout(cuda_device):
+    """One m16n8k8 split-TF32 product in each operand form of the f32 kernels
+    (A W, A W^T, G^T H) against float64: a wrong fragment mapping or weight image
+    is off by O(1); one TF32 product would be off by ~1e-3."""
+    gen = torch.Generator().manual_seed(3)
+    a, w, g, h = (torch.randn(shape, generator=gen) for shape in ((16, 8), (8, 8), (8, 16), (8, 8)))
+    outs = tfm.mma_tf32_selftest(*(t.to(cuda_device) for t in (a, w, g, h)))
+    torch.cuda.synchronize()
+    a, w, g, h = (t.double() for t in (a, w, g, h))
+    for got, want in zip(outs, (a @ w, a @ w.T, g.T @ h)):
+        assert float((got.double().cpu() - want).abs().max()) <= 1e-5
 
 
-@pytest.mark.parametrize("f,h,n_layers", [(8, 32, 1), (8, 32, 9), (2048, 2048, 3)])
-def test_f32_guard_raises_before_any_launch(f, h, n_layers):
+# Which build takes a head (points a block takes per round, forward / backward):
+# the resident one for the f32 heads of cfg/ (box_room_camera.yaml and
+# box_room_tiny_tpu.yaml: 32 x 128 x 3, and 33 x 120 padded to it; courtyard_tiny:
+# 32 x 64 x 2), the streamed one at the largest tile that fits for every other head
+# of 2-8 layers (the bf16 heads of cfg/ asked for in f32, F 16 at 128 x 3, eight
+# layers of 256, a 384-wide head, the tests' small heads).
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,h,n_layers,tiles", [
+    (32, 128, 4, (128, 32)), (33, 120, 4, (128, 32)), (32, 64, 3, (128, 32)),
+    (48, 256, 3, (64, 32)), (96, 256, 3, (64, 32)), (64, 256, 5, (64, 32)),
+    (16, 128, 4, (64, 64)), (128, 256, 8, (64, 16)), (48, 384, 3, (32, 16)),
+    (8, 32, 3, (64, 64)), (5, 12, 2, (64, 64))])
+def test_f32_kernels_choose_their_build(cuda_device, f, h, n_layers, tiles):
+    assert tfm.f32_tiles(f, h, n_layers) == tiles
+    for backward in (False, True):
+        assert tfm.f32_occupancy(f, h, n_layers, backward, cuda_device) >= 1
+
+
+# Nine layers; F = H = 2048; H = 512, whose streamed forward fits a block and whose
+# backward does not: the library takes none of them, and says so before any launch.
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,h,n_layers", [(8, 32, 9), (2048, 2048, 3), (96, 512, 3)])
+def test_f32_guard_raises_for_heads_no_kernel_takes(cuda_device, f, h, n_layers):
+    ws, bs, bmat, pts, dout = _operands(f, h, n_layers - 1, 64, cuda_device)
+    before = (tfm.counts.fwd_f32_launches, tfm.counts.bwd_f32_launches)
     with pytest.raises(ValueError):
-        tfm.f32_tile(f, h, n_layers, backward=True)
+        tfm.fourier_mlp_fwd_cuda_f32(ws, bs, bmat, pts)
+    with pytest.raises(ValueError):
+        tfm.fourier_mlp_bwd_cuda_f32(ws, bs, bmat, pts, dout)
+    assert (tfm.counts.fwd_f32_launches, tfm.counts.bwd_f32_launches) == before
+
+
+@pytest.mark.parametrize("case", ["one layer", "w0 rows", "float64 points", "bmat rows",
+                                  "last layer width", "dout rows"])
+def test_f32_guard_raises_before_any_launch(case):
+    """The wrappers' own checks of the call, which need no build of the kernels
+    (meta tensors here): a malformed call raises ValueError and counts nothing."""
+    ws, bs, bmat, pts, dout = _operands(8, 32, 2, 64, torch.device("cpu"))
+    if case == "one layer":
+        ws, bs = [torch.zeros(19, 1)], [torch.zeros(1)]
+    elif case == "w0 rows":
+        ws[0] = ws[0][:-1]
+    elif case == "float64 points":
+        pts = pts.double()
+    elif case == "bmat rows":
+        bmat = bmat[:2]
+    elif case == "last layer width":
+        ws[-1] = torch.zeros(32, 2)
+    else:
+        dout = dout[:-1]
+    ws, bs, (bmat, pts, dout) = _meta(ws), _meta(bs), _meta([bmat, pts, dout])
+    before = (tfm.counts.fwd_f32_launches, tfm.counts.bwd_f32_launches)
+    if case != "dout rows":
+        with pytest.raises(ValueError):
+            tfm.fourier_mlp_fwd_cuda_f32(ws, bs, bmat, pts)
+    with pytest.raises(ValueError):
+        tfm.fourier_mlp_bwd_cuda_f32(ws, bs, bmat, pts, dout)
+    assert (tfm.counts.fwd_f32_launches, tfm.counts.bwd_f32_launches) == before
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 (10 mantissa bits) to nearest, ties away from zero, by bit
+    arithmetic: what cvt.rna.tf32.f32 does."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, products: int) -> torch.Tensor:
+    """a @ b as the f32 kernels compute it: operands split into hi = tf32(x) and
+    lo = tf32(x - hi), lo_a hi_b + hi_a lo_b + hi_a hi_b, each product exact (f64)
+    and rounded to f32, the three summed in f32; one product (1xTF32) with
+    ``products`` = 1."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    hh = (a_hi.double() @ b_hi.double()).float()
+    if products == 1:
+        return hh
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return ((a_lo.double() @ b_hi.double()).float() + (a_hi.double() @ b_lo.double()).float()) + hh
+
+
+def _fwd_emulated(ws, bs, bmat, pts, products):
+    h = tfm._features(pts, bmat, torch.float32)
+    for w, b in zip(ws[:-1], bs[:-1]):
+        h = torch.relu(_mm(h, w, products) + b)
+    return h @ ws[-1] + bs[-1]
+
+
+def _bwd_emulated(ws, bs, bmat, pts, dout, products):
+    """fourier_mlp_bwd_plain in f32 with the backward kernel's tensor-core
+    products (g W_i^T, h^T g) emulated; its recomputed forward is the plain
+    version's f32 arithmetic (so are its ReLU masks), and W_{L-1}, db and dpts
+    stay f32."""
+    f = bmat.shape[1]
+    x = tfm._features(pts, bmat, torch.float32)
+    acts, h = [], x
+    for w, b in zip(ws[:-1], bs[:-1]):
+        h = torch.relu(h @ w + b)
+        acts.append(h)
+    n_layers = len(ws)
+    dws, dbs = [None] * n_layers, [None] * n_layers
+    dws[-1], dbs[-1] = acts[-1].T @ dout, dout.sum(dim=0)
+    g = torch.where(acts[-1] > 0, dout @ ws[-1].T, 0.0)
+    for i in range(n_layers - 2, 0, -1):
+        dws[i], dbs[i] = _mm(acts[i - 1].T, g, products), g.sum(dim=0)
+        g = torch.where(acts[i - 1] > 0, _mm(g, ws[i].T, products), 0.0)
+    dws[0], dbs[0] = _mm(x.T, g, products), g.sum(dim=0)
+    dx = _mm(g, ws[0].T, products)
+    dproj = dx[:, :f] * x[:, f : 2 * f] - dx[:, f : 2 * f] * x[:, :f]
+    return dws, dbs, dx[:, 2 * f :] + dproj @ bmat.T
+
+
+def _f32_distances(f, h, n_hidden, n, products):
+    ws, bs, bmat, pts, dout = _operands(f, h, n_hidden, n, torch.device("cpu"))
+    fwd = float((_fwd_emulated(ws, bs, bmat, pts, products)
+                 - tfm.fourier_mlp_fwd_plain(ws, bs, bmat, pts, torch.float32)).abs().max())
+    got = _bwd_emulated(ws, bs, bmat, pts, dout, products)
+    want = tfm.fourier_mlp_bwd_plain(ws, bs, bmat, pts, dout, torch.float32)
+    grad = max(_rel_l2(a, b.reshape(a.shape)) for a, b in zip(got[0] + got[1] + [got[2]],
+                                                               want[0] + want[1] + [want[2]]))
+    return fwd, grad
+
+
+# The cases of test_f32_kernels_match_plain before the split-TF32 kernels, and two
+# heads that only the streamed kernels take (box_room_tpu.yaml's 64 x 256 x 4,
+# box_room_camera's head at 16 frequencies).
+F32_EMULATION_CASES = [(32, 128, 3, 24581), (8, 32, 2, 300), (48, 256, 2, 7001),
+                       (96, 256, 2, 1000), (5, 12, 1, 9), (64, 256, 4, 3001), (16, 128, 3, 2000)]
+
+
+@pytest.mark.parametrize("f,h,n_hidden,n", F32_EMULATION_CASES)
+def test_split_tf32_products_meet_the_f32_bounds(f, h, n_hidden, n):
+    """Three TF32 products a product, as the kernels take them, stay within the f32
+    kernels' bounds of the plain version: forward max abs 1e-4, gradients
+    relative L2 1e-4."""
+    fwd, grad = _f32_distances(f, h, n_hidden, n, products=3)
+    assert fwd <= 1e-4 and grad <= 1e-4
+
+
+@pytest.mark.parametrize("f,h,n_hidden,n", F32_EMULATION_CASES)
+def test_one_tf32_product_misses_the_f32_bounds(f, h, n_hidden, n):
+    """One TF32 product a product misses them: the split is what keeps them."""
+    fwd, grad = _f32_distances(f, h, n_hidden, n, products=1)
+    assert fwd > 1e-4 and grad > 1e-4
 
 
 def test_cpu_tensors_take_the_plain_version():
