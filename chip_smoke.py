@@ -117,6 +117,16 @@ nothing of JAX. Phases, each of which raises on failure:
    registers and spills; the hash pair at the intensity tables; then
    box_room_tpu_camera_r5.yaml and box_room_camera.yaml through SLAM with
    one virtual-camera image a scan, each followed by its PSNR.
+19. Real-data drill: the port's bag generator writes DRILL_SECONDS of the box room
+   as an Ouster bag at the sensor's width (128 x 1024, 48-byte stride, bz2, u32 ns
+   per-point times, epoch-second stamps) and the port's converter turns it into a
+   scan stream (seconds and MB/s of each); the host decode (csrc/scan_ops.cpp)
+   against its plain version on one sweep; two 2-scan bags in the other stamp
+   modes (epoch_f64; zeros with --recompute_timestamps) converted and their
+   stamps checked; then cfg/synthetic/box_room_drill.yaml through threaded SLAM
+   with phase 9's checks (ATE gated), the mapper's captures after warm-up held
+   to phase 9's, and the metrics pipeline on the run against the bag's /tf
+   ground truth, its ATE gated at ATE_MAX.
 
 Each phase prints its seconds.
 
@@ -2169,6 +2179,145 @@ def run_camera(dev, field_cfg) -> dict:
     return {"kernels": kernels, "runs": runs}
 
 
+# Phase 19, the real-data drill: the port's bag generator, converter and host
+# ops, then box_room_drill.yaml on the converted bag. The bag is the real
+# sensor's width (128 x 1024, the 48-byte Ouster stride, bz2, u32 ns per-point
+# times, epoch-second header stamps) and DRILL_SECONDS long (the one cut: the JAX
+# package's drill writes 60 s).
+DRILL_SECONDS = 10.0  # 100 scans at 10 Hz, ~4 keyframes at the drill's 3 s
+DRILL_SWEEP = (128, 1024)
+STAMP_MODES = (("epoch_f64", [], (0.15, 0.21)),  # 5 Hz: a sweep spans the 0.2 s period
+               ("zeros", ["--recompute_timestamps"], (0.05, 0.11)))  # a 0.1 s sweep rebuilt
+DRILL_EPOCH = 1.7e9  # synthetic_bag's default --epoch
+
+
+def check_decode(bag: str) -> None:
+    """The host decode (csrc/scan_ops.cpp) on the bag's first sweep at the
+    converter's min_range against its plain numpy version: the kept sets equal
+    but for points within scan_ops.DECODE_PLAIN_RTOL of min_range, directions
+    and ranges within that relative tolerance, times equal; both timed on the
+    host."""
+    from loner_tpu_torch import convert_rosbag
+    from loner_tpu_torch.datasets.rosbag_reader import Bag
+    from loner_tpu_torch.ops import scan_ops
+
+    with Bag(bag) as b:
+        msg = next(m for topic, m, _ in b.read_messages() if topic != "/tf")
+    ox, oy, oz, t_off, t_kind = convert_rosbag.field_layout(msg)
+    blob, n, step, min_range = bytes(msg.data), msg.width * msg.height, msg.point_step, 0.3
+    out, ms = {}, {}
+    for name, fn in (("cpp", scan_ops.decode_point_blob),
+                     ("plain", scan_ops.decode_point_blob_plain)):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            out[name] = fn(blob, n, step, (ox, oy, oz), t_off, t_kind, min_range)
+            times.append(1e3 * (time.perf_counter() - t0))
+        ms[name] = float(np.median(times))
+        # Index mode: each kept point's index in the blob.
+        out[name + " index"] = fn(blob, n, step, (ox, oy, oz), 0, 3, min_range)[2]
+    i_c, i_p = out["cpp index"], out["plain index"]
+    only = np.setxor1d(i_c, i_p).astype(np.int64)
+    rec = np.frombuffer(blob, np.uint8).reshape(n, step)
+    xyz = np.stack([rec[only, o:o + 4].copy().view(np.float32)[:, 0] for o in (ox, oy, oz)])
+    off_edge = np.abs(np.linalg.norm(xyz.astype(np.float64), axis=0) - min_range) > (
+        scan_ops.DECODE_PLAIN_RTOL * min_range)
+    (d_c, r_c, t_c), (d_p, r_p, t_p) = out["cpp"], out["plain"]
+    kc, kp = np.isin(i_c, i_p), np.isin(i_p, i_c)
+    err = max(float(np.max(np.abs(d_c[:, kc] - d_p[:, kp]))),
+              float(np.max(np.abs(r_c[kc] - r_p[kp]) / r_p[kp])))
+    times_equal = np.array_equal(t_c[kc], t_p[kp])
+    print(f"host decode (csrc/scan_ops.cpp, not a device kernel), one {msg.height} x "
+          f"{msg.width} sweep ({len(blob) / 1e6:.2f} MB, {r_c.shape[0]} points kept at min_range "
+          f"{min_range}): {ms['cpp']:.3f} ms ({len(blob) / 1e3 / ms['cpp']:.1f} MB/s), plain "
+          f"numpy {ms['plain']:.3f} ms; max relative difference {err:.3g} (bound "
+          f"{scan_ops.DECODE_PLAIN_RTOL}), times equal {times_equal}, {only.size} points kept "
+          f"by one version only ({int(off_edge.sum())} away from min_range)", flush=True)
+    if off_edge.any() or not times_equal or not err <= scan_ops.DECODE_PLAIN_RTOL:
+        raise RuntimeError("host decode disagrees with its plain version")
+
+
+def check_stamp_modes(root: str) -> None:
+    """Two 2-scan full-width bags at 5 Hz, epoch_f64 and zeros (converted with
+    --recompute_timestamps): every scan's stamps sorted, anchored to its header
+    stamp and spanning a sweep (tests/test_rosbag_writer.py's bounds)."""
+    from loner_tpu_torch import real_data_drill
+    from loner_tpu_torch.datasets.scan_stream import ScanStreamReader
+
+    for mode, extra, (lo, hi) in STAMP_MODES:
+        bag = os.path.join(root, f"{mode}.bag")
+        real_data_drill.generate(bag, 0.4, *DRILL_SWEEP, timestamp_mode=mode,
+                                 extra=["--rate", "5"])
+        real_data_drill.convert(bag, os.path.join(root, mode), extra)
+        reader = ScanStreamReader(os.path.join(root, mode))
+        spans = []
+        for i in range(len(reader)):
+            ts = reader.read_scan(i).timestamps
+            spans.append(float(ts[-1] - ts[0]))
+            anchored = abs(ts[0] - (DRILL_EPOCH + i / 5.0)) < 0.01
+            if not (np.all(np.diff(ts) >= 0) and anchored and lo < spans[-1] < hi):
+                raise RuntimeError(f"{mode} scan {i}: sorted {np.all(np.diff(ts) >= 0)}, "
+                                   f"first stamp {ts[0]!r}, span {spans[-1]}")
+        if len(reader) != 2:
+            raise RuntimeError(f"{mode}: {len(reader)} scans converted")
+        print(f"stamps, {mode}: 2 scans sorted, anchored to their header stamps, spans "
+              f"{[round(x, 6) for x in spans]} s (bounds {lo}-{hi})", flush=True)
+
+
+def run_drill(dev, box_room: dict) -> dict:
+    """Phase 19 (returns run_slam's record of the drill's run): generate the DRILL_SECONDS bag with the port's generator and
+    convert it with the port's converter (seconds and MB/s of each); the host
+    decode against its plain version and the two other stamp modes; then
+    box_room_drill.yaml (loaded from cfg/ through load_config, the dataset
+    pointed at the converted bag) through run_slam, threaded, with its checks
+    and ATE of both trajectories gated at ATE_MAX; the mapper's captures after
+    warm-up held to the box room's (``box_room``: phase 9's run); then the
+    drill's metrics (the dataset's poses_gt.tum as the run's ground truth,
+    ``metrics_pipeline``), its ATE gated at ATE_MAX."""
+    import tempfile
+
+    from loner_tpu_torch import real_data_drill
+    from loner_tpu_torch.datasets.scan_stream import ScanStreamReader
+    from loner_tpu_torch.datasets.synthetic import BoxRoomScene
+
+    with tempfile.TemporaryDirectory(prefix="loner_tpu_torch_drill_") as root:
+        bag, dataset = os.path.join(root, "drill.bag"), os.path.join(root, "dataset")
+        gen = real_data_drill.generate(bag, DRILL_SECONDS, *DRILL_SWEEP)
+        conv = real_data_drill.convert(bag, dataset)
+        print(f"drill bag: {gen['scans']} scans of {DRILL_SWEEP[0]} x {DRILL_SWEEP[1]}, "
+              f"{gen['bytes'] / 1e6:.1f} MB (bz2): generated in {gen['seconds']:.2f} s "
+              f"({gen['mb_per_s']:.2f} MB/s), converted in {conv['seconds']:.2f} s "
+              f"({conv['mb_per_s']:.2f} MB/s of bag)", flush=True)
+        check_decode(bag)
+        check_stamp_modes(root)
+        reader = ScanStreamReader(dataset)
+        points = [len(reader.read_scan(i)) for i in range(len(reader))]
+        seq = {"dataset": dataset, "scene": BoxRoomScene(), "poses": reader.gt_poses(),
+               "ts": reader.start_times(), "gt_map": None}
+        print(f"drill dataset: {len(reader)} scans, {min(points)}-{max(points)} points a scan, "
+              f"first stamp {seq['ts'][0]!r}", flush=True)
+        run = run_slam(dev, "drill", cfg_settings("box_room_drill.yaml", ""), seq,
+                       os.path.join(root, "run"), ("fourier_mlp_fwd", "fourier_mlp_bwd"),
+                       ("composite", "fourier_mlp_fwd"), "pallas")
+        late, box_late = (run["graphs"]["mapper_late_captures"],
+                          box_room["graphs"]["mapper_late_captures"])
+        print(f"drill: mapper captures {run['graphs']['mapper_captures']} at warm-up, "
+              f"{late} after it (box room, phase 9: {box_room['graphs']['mapper_captures']}, "
+              f"{box_late})", flush=True)
+        if late != box_late:
+            raise RuntimeError(f"drill: {late} mapper captures after warm-up, the box room "
+                               f"{box_late}")
+        t0 = time.perf_counter()
+        metrics = real_data_drill.score(run["log_dir"], dataset)
+        ate = metrics["ate"]["rmse"]
+        print(f"drill metrics ({time.perf_counter() - t0:.2f} s): ATE RMSE {ate:.4f} m (bound "
+              f"{ATE_MAX}), RPE translation {metrics['rpe_trans']['rmse']:.4f} m, rotation "
+              f"{metrics['rpe_rot']['rmse']:.4f} deg (3 m segments)", flush=True)
+        if not ate < ATE_MAX:
+            raise RuntimeError(f"drill ATE RMSE {ate} m, bound {ATE_MAX} m")
+    return run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs only on a GPU",
@@ -2287,6 +2436,8 @@ def main() -> int:
     phase_done("17 (courtyard)")
     camera = run_camera(dev, field_cfg)
     phase_done("18 (camera)")
+    drill = run_drill(dev, slam)
+    phase_done("19 (real-data drill)")
     # The f32 pair's record: checked at box_room_camera's render chunk, launched on
     # its SLAM path.
     f32_kernels = camera["kernels"]["fourier_f32_render"]
@@ -2305,9 +2456,9 @@ def main() -> int:
         k["eval_launches"] = {name: {step: counts[k["name"]]
                                      for step, counts in run["eval_launches"].items()}
                               for name, run in runs}
-    # Phases 15-17's launches by path: the SLAM runs (training and the map check),
-    # the sky slice's 6 iterations, the floater probe; the Fourier pair's checks
-    # at the sky and the courtyard call sizes.
+    # Phases 15-19's launches by path: the SLAM runs (training and the map check;
+    # the drill's under "drill"), the sky slice's 6 iterations, the floater probe;
+    # the Fourier pair's checks at the sky and the courtyard call sizes.
     paths = {"sky slice": sky_slice["launches"], "resume": resume["counts"]}
     for name, run in camera["runs"].items():
         paths[f"{name} PSNR"] = camera["runs"][name]["psnr"]["launches"]
@@ -2315,7 +2466,7 @@ def main() -> int:
                       ("sky SLAM 150", sky_short["sky"]), ("sky off SLAM 150", sky_short["sky off"]),
                       ("courtyard SLAM", courtyard["slam"]),
                       ("camera r5 SLAM", camera["runs"]["camera r5"]),
-                      ("camera hash SLAM", camera["runs"]["camera hash"])):
+                      ("camera hash SLAM", camera["runs"]["camera hash"]), ("drill", drill)):
         paths[name] = {**run["counts"], **{f"{k} (map check)": v
                                            for k, v in run["map_launches"].items()}}
         if "eval_launches" in run:

@@ -183,28 +183,39 @@ def write_regression_file(
     return record
 
 
-def main() -> None:
+def run_pipeline(experiment_dir: str, gt_file: Optional[str] = None,
+                 delta_m: float = 3.0) -> dict:
+    """Every output of the pipeline for ``experiment_dir``: ``traj_metrics.yaml``,
+    ``summary.csv`` / ``summary.tex``, ``map_metrics.yaml`` (when a trial has map
+    metrics) and ``regression.yaml``. Returns {"trajectories", "summary",
+    "maps", "regression"}."""
+    results = analyze_trajectories(experiment_dir, gt_file, delta_m=delta_m)
+    write_json_yaml(os.path.join(experiment_dir, "traj_metrics.yaml"), results)
+    csv = summarize_results(
+        results,
+        out_csv=os.path.join(experiment_dir, "summary.csv"),
+        out_tex=os.path.join(experiment_dir, "summary.tex"),
+    )
+    maps = collect_map_metrics(experiment_dir)
+    if maps:
+        write_json_yaml(os.path.join(experiment_dir, "map_metrics.yaml"), maps)
+    record = write_regression_file(experiment_dir, results, maps)
+    return {"trajectories": results, "summary": csv, "maps": maps, "regression": record}
+
+
+def main(argv: Optional[List[str]] = None) -> None:
     import argparse
 
     p = argparse.ArgumentParser(description="Trajectory + map metrics over an experiment tree")
     p.add_argument("experiment_dir")
     p.add_argument("--gt_file", default=None)
     p.add_argument("--delta_m", type=float, default=3.0)
-    args = p.parse_args()
+    args = p.parse_args(argv)
 
-    results = analyze_trajectories(args.experiment_dir, args.gt_file, delta_m=args.delta_m)
-    write_json_yaml(os.path.join(args.experiment_dir, "traj_metrics.yaml"), results)
-    csv = summarize_results(
-        results,
-        out_csv=os.path.join(args.experiment_dir, "summary.csv"),
-        out_tex=os.path.join(args.experiment_dir, "summary.tex"),
-    )
-    print(csv)
-    maps = collect_map_metrics(args.experiment_dir)
-    if maps:
-        write_json_yaml(os.path.join(args.experiment_dir, "map_metrics.yaml"), maps)
-        print(f"map metrics for {len(maps)} trials collected")
-    write_regression_file(args.experiment_dir, results, maps)
+    out = run_pipeline(args.experiment_dir, args.gt_file, args.delta_m)
+    print(out["summary"])
+    if out["maps"]:
+        print(f"map metrics for {len(out['maps'])} trials collected")
     print(f"regression record: {os.path.join(args.experiment_dir, 'regression.yaml')}")
 
 

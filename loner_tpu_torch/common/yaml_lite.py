@@ -6,7 +6,9 @@ file, as ``common/settings.py`` has always resolved it):
 
 - block mappings and block sequences (also ``- key: value`` items and a
   sequence at its parent key's indent);
-- flow sequences and mappings on one line, nested too (``k: [[1.0, 0.0], ...]``);
+- flow sequences and mappings, nested too (``k: [[1.0, 0.0], ...]``), on one
+  line or over several (a line break inside one is a blank, at any indent, as
+  OpenCV writes its matrices' ``data: [...]``);
 - plain scalars resolved as PyYAML resolves them: null (``~``, ``null``,
   ``Null``, ``NULL``, empty), ``true``/``True``/``TRUE`` and the false ones,
   decimal ints, floats (a dot required, ``1.e-8``; ``1e-3`` without a dot is a
@@ -17,7 +19,9 @@ file, as ``common/settings.py`` has always resolved it):
 - the ``!include path`` tag.
 
 Anything else (block scalars ``|``/``>``, other tags, merge keys, multi-line
-flow collections or plain scalars, document markers, tabs in indentation,
+plain or quoted scalars outside a flow collection, document markers and
+directives (OpenCV's ``%YAML:1.0`` / ``---`` and its ``!!opencv-matrix`` tag are
+its caller's to strip, ``datasets/calibration.py``), tabs in indentation,
 YAML 1.1's ``yes``/``no``/``on``/``off`` booleans, hex, octal, binary and
 sexagesimal ints, timestamps) raises ``YamlError`` naming the file and line.
 """
@@ -225,6 +229,8 @@ class _Parser:
         else:
             if rest[0] in "|>":
                 self.fail(line.no, "block scalars ('|', '>') are not read")
+            if rest[0] in "[{":
+                rest = self.flow_text(rest, line)
             if self.i < len(self.lines) and self.lines[self.i].indent > indent:
                 self.fail(self.lines[self.i].no,
                           "a value continued on the next line (multi-line scalar) is not read")
@@ -329,6 +335,40 @@ class _Parser:
         return "".join(out)
 
     # -- flow collections --------------------------------------------------------
+    def flow_text(self, text: str, line: _Line) -> str:
+        """The flow collection that opens ``text``, with the lines that continue
+        it (consumed) joined by blanks."""
+        depth, quote, i = 0, None, 0
+        while True:
+            while i < len(text):
+                c = text[i]
+                if quote == '"':
+                    if c == "\\":
+                        i += 1
+                    elif c == '"':
+                        quote = None
+                elif quote == "'":
+                    if c == "'":
+                        if text[i + 1 : i + 2] == "'":
+                            i += 1
+                        else:
+                            quote = None
+                elif c in "\"'" and (i == 0 or text[i - 1] in " [{,:"):
+                    quote = c
+                elif c in "[{":
+                    depth += 1
+                elif c in "]}":
+                    depth -= 1
+                i += 1
+            if depth <= 0:
+                return text
+            if quote is not None:
+                self.fail(line.no, "a quoted scalar continued on the next line is not read")
+            if self.i >= len(self.lines):
+                self.fail(line.no, "an unterminated flow collection")
+            text = f"{text} {self.lines[self.i].text}"
+            self.i += 1
+
     def flow(self, text: str, i: int, no: int) -> Tuple[Any, int]:
         """The flow node at ``text[i]``; returns (node, index after it)."""
         i = self.skip(text, i)

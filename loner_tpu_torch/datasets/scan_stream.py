@@ -11,6 +11,10 @@ and a TUM ground-truth trajectory,
       images/image_000000.npz  # optional camera frames: image (H,W,C) f32 in
       ...                      #   [0, 1], timestamp f64
 
+``normalize_timestamps`` and ``recompute_scan_timestamps`` are the ingest's
+timestamp heuristics (the converter's, ``loner_tpu_torch/convert_rosbag.py``),
+equal to the JAX package's to the bit.
+
 ``meta.yaml`` is written as JSON text that YAML loaders read to the same values
 (``common/json_yaml.py``) and read by the port's own YAML reader, so either
 package reads the other's datasets, images included.
@@ -30,6 +34,55 @@ from loner_tpu_torch.common.trajectory import (
     dump_trajectory_to_tum,
     load_tum_trajectory,
 )
+
+
+def normalize_timestamps(
+    timestamps: np.ndarray,
+    scan_time: float,
+    relative_to_start: bool = True,
+) -> np.ndarray:
+    """Per-point stamps -> float64 seconds in global time, by the reference's
+    heuristics in their order:
+
+    1. nanosecond stamps (an epoch-ns magnitude, or a spread over 1e6 s that no
+       second-valued stamps of one scan could have) scale to seconds;
+    2. ts[0] < -1e-3: negative offsets (Velodyne), rebased to ts[0];
+    3. scan-local offsets shift by the header time ``scan_time``; global stamps
+       re-anchor to it;
+    4. a spread under 1e-3 s means no real per-point time: every stamp becomes
+       the header time.
+
+    The bare ``|ts| > 1e7`` nanosecond test of the reference would also catch
+    absolute epoch-second stamps (~1.7e9) and lose their sub-second offsets, so
+    step 1 asks for an unambiguous magnitude or spread. ``relative_to_start``
+    treats any small-magnitude stamps as scan-local even when the first kept
+    point starts later than 10 ms into the sweep: range filtering runs before
+    this function.
+    """
+    ts = np.asarray(timestamps, dtype=np.float64)
+    if ts.size == 0:
+        return ts
+    if np.abs(ts).max() > 1e14 or ts.max() - ts.min() > 1e6:
+        ts = ts * 1e-9
+    if ts[0] < -1e-3:
+        ts = ts - ts[0]
+    if ts[0] < 1e-2 or (relative_to_start and ts.max() < 1e5):
+        ts = ts + scan_time
+    elif ts.max() > 1e5:
+        ts = ts - ts[0] + scan_time
+    if ts.size > 1 and ts.max() - ts.min() < 1e-3:
+        ts = np.full_like(ts, scan_time)
+    return ts
+
+
+def recompute_scan_timestamps(
+    point_indices: np.ndarray, h_resolution: int = 2048, scan_period: float = 0.1
+) -> np.ndarray:
+    """Scan-local per-point times rebuilt from each point's pre-filter index in
+    an organized cloud (column = index % ``h_resolution``), for bags whose stored
+    stamps are wrong (Fusion Portable)."""
+    idx = np.asarray(point_indices, dtype=np.float64)
+    return (idx % h_resolution) / h_resolution * scan_period
 
 
 class ScanStreamWriter:
@@ -155,4 +208,10 @@ def apply_fov_mask(scan: LidarScan, fov_ranges_deg: List[List[float]]) -> LidarS
     keep = np.zeros(len(scan), dtype=bool)
     for lo, hi in fov_ranges_deg:
         keep |= (azim >= lo) & (azim <= hi)
+    return LidarScan(scan.ray_directions[:, keep], scan.distances[keep], scan.timestamps[keep])
+
+
+def apply_min_range(scan: LidarScan, min_range: float) -> LidarScan:
+    """Keep only rays longer than ``min_range``."""
+    keep = scan.distances > min_range
     return LidarScan(scan.ray_directions[:, keep], scan.distances[keep], scan.timestamps[keep])

@@ -8,6 +8,10 @@ sources have a plain C interface and include no PyTorch header: ``nvcc`` takes
 seconds for them. ``build_all`` starts one ``nvcc`` for each source, all at once.
 ``ptxas -v`` reports each kernel's registers, shared memory and spills; the
 report is kept beside the library (``ptxas_report``).
+
+Host C++ (``csrc/<name>.cpp``, the ingest's ``scan_ops``) is built the same way
+by the host compiler (``load_host_library``), with the JAX package's flags for
+its copy of the same source; a failed build raises.
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# loner_tpu/ops/native/__init__.py's flags; no -march=native (see csrc/scan_ops.cpp).
+HOST_CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 
 def _nvcc() -> str:
@@ -82,3 +88,29 @@ def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
     build_all([name])
     return ctypes.CDLL(str(_target(name)))
+
+
+def _host_target(name: str) -> Path:
+    src = CSRC / f"{name}.cpp"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(HOST_CXX_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-host-{digest[:16]}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def load_host_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cpp`` with the host compiler (``c++``) if needed
+    and return the loaded library; raises when there is no compiler or the
+    build fails."""
+    out = _host_target(name)
+    if not out.exists():
+        cxx = shutil.which("c++")
+        if cxx is None:
+            raise RuntimeError(f"no host C++ compiler (c++) to build csrc/{name}.cpp")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([cxx, *HOST_CXX_FLAGS, str(CSRC / f"{name}.cpp"), "-o", str(tmp)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"c++ failed on csrc/{name}.cpp:\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))

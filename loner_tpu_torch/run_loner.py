@@ -1,10 +1,13 @@
-"""Run the PyTorch port's SLAM on a scan-stream dataset.
+"""Run the PyTorch port's SLAM on a scan-stream dataset (or a synthetic scene).
 
-Counterpart of ``examples/run_loner.py::run_trial``, on one explicit torch
-device:
+Counterpart of ``examples/run_loner.py``, on one explicit torch device:
 
     python -m loner_tpu_torch.run_loner <dataset_dir> <config.yaml> \\
-        [--experiment_name NAME] [--duration SECONDS] [--precompile] [--device cuda|cpu|cuda:N]
+        [--experiment_name NAME] [--duration SECONDS] [--precompile] [--device cuda|cpu|cuda:N] \\
+        [--overrides overrides.yaml [--run_all_combos]] [--num_repeats N] [--lite]
+    python -m loner_tpu_torch.run_loner synthetic <config.yaml> [--synthetic_scans N] \\
+        [--synthetic_scene box_room|open_sky|courtyard|courtyard_actors] \\
+        [--synthetic_noise_std S] [--synthetic_dropout P] [--synthetic_camera]
     python -m loner_tpu_torch.run_loner --resume <log_dir> [--duration SECONDS] [--device ...]
 
 The world cube comes from the ground-truth poses when the dataset has them;
@@ -12,17 +15,27 @@ The world cube comes from the ground-truth poses when the dataset has them;
 last line printed) is the log directory. ``--device`` defaults to ``cuda``
 and never falls back to the CPU: without a CUDA card, ask for ``cpu``.
 ``<dataset_dir>`` may be ``auto`` for a sequence config that names its
-dataset. ``--resume`` continues a run (written by either package) in its own
-directory from its newest full checkpoint, with the configuration and dataset
-of its ``full_config.pkl`` (``runtime/resume.py``). In camera mode
-(``system.lidar_only: False``) the dataset's images are fed in time order with
-the scans. Sweeps and trial pools are not ported.
+dataset, or ``synthetic``: the dataset ``build_synthetic_dataset`` writes to
+``./outputs/synthetic_dataset<suffix>`` (written once, then reused), the same
+directory and scans as the JAX package's runner. ``--overrides`` sweeps the
+settings (``common/settings.py::generate_options``), each variant under
+``config_<i>/``; ``--num_repeats`` runs each variant that many times under
+``trial_<j>/``, trial j with ``mapper.optimizer.seed`` offset by j; every trial
+runs on its own copy of the settings, one after another. ``--lite`` cuts the
+sample counts for quick runs. ``--resume`` continues a run (written by either
+package) in its own directory from its newest full checkpoint, with the
+configuration and dataset of its ``full_config.pkl`` (``runtime/resume.py``). In
+camera mode (``system.lidar_only: False``) the dataset's images are fed in time
+order with the scans. Trial pools over several devices (``--trial_workers`` >
+1, ``--gpu_ids``) are not ported and raise.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import os
 import pickle
+import shutil
 import time
 from typing import Optional, Union
 
@@ -31,9 +44,85 @@ import torch
 
 from loner_tpu_torch.common.device import resolve_device
 from loner_tpu_torch.common.sensors import Image
-from loner_tpu_torch.common.settings import Settings, load_config
+from loner_tpu_torch.common.settings import Settings, generate_options, load_sequence_config
 from loner_tpu_torch.datasets.scan_stream import ScanStreamReader, apply_fov_mask
 from loner_tpu_torch.runtime.loner import Loner
+
+
+SYNTHETIC_SCENES = ("box_room", "open_sky", "courtyard", "courtyard_actors")
+
+# --lite: fewer samples a ray, for quick runs and the CPU.
+LITE_CHANGES = {"mapper": {"optimizer": {
+    "num_samples": {"lidar": 256, "sky": 32},
+    "model_config": {"model": {"render": {"N_samples_train": 128, "N_samples_test": 256}}},
+}}}
+
+
+def _check_scene(scene_name: str, dropout: float) -> None:
+    """Per-return dropout exists only in the courtyard's generator: asked for on a
+    box-room scene it raises (the JAX package ignores it there, and still names
+    the dataset as degraded)."""
+    if scene_name not in SYNTHETIC_SCENES:
+        raise ValueError(f"unknown synthetic scene {scene_name!r}: one of {SYNTHETIC_SCENES}")
+    if dropout > 0 and not scene_name.startswith("courtyard"):
+        raise ValueError(f"--synthetic_dropout is not read on {scene_name}: only the "
+                         "courtyard scenes drop returns")
+
+
+def synthetic_dataset_path(num_scans: int = 100, scene_name: str = "box_room",
+                           noise_std: float = 0.0, dropout: float = 0.0,
+                           with_camera: bool = False) -> str:
+    """``./outputs/synthetic_dataset<suffix>``, the directory the JAX package's
+    runner names for the same flags."""
+    _check_scene(scene_name, dropout)
+    if scene_name.startswith("courtyard"):
+        suffix = ""  # the length comes from the waypoint loop
+    else:
+        suffix = "" if num_scans == 100 else f"_{num_scans}"
+    if with_camera:
+        suffix += "_cam"
+    if scene_name != "box_room":
+        suffix += f"_{scene_name}"
+    if noise_std > 0:
+        suffix += f"_n{noise_std:g}"
+    if dropout > 0:
+        suffix += f"_d{dropout:g}"
+    return os.path.join("./outputs", f"synthetic_dataset{suffix}")
+
+
+def build_synthetic_dataset(
+    out_dir: str, num_scans: int = 100, with_camera: bool = False,
+    scene_name: str = "box_room", noise_std: float = 0.0, dropout: float = 0.0,
+) -> str:
+    """Write a synthetic dataset to ``out_dir``: ``num_scans`` scans of a 32 x 512
+    LiDAR in the box room (``open_sky``: without its ceiling), or the courtyard
+    drive (``courtyard``, ``courtyard_actors`` with moving pedestrians; its
+    length is the waypoint loop's, ``num_scans`` is not read); with the GT poses
+    and, with ``with_camera``, one virtual-camera image a scan at its start time.
+    The same scans as ``examples/run_loner.py::build_synthetic_dataset``; ``dropout``
+    on a box-room scene raises. Written to ``<out_dir>.partial`` and renamed, so
+    an interrupted build leaves no dataset that looks complete."""
+    from loner_tpu_torch.datasets.synthetic import (
+        BoxRoomScene, VirtualCamera, VirtualLidar, generate_courtyard_sequence,
+        generate_sequence, write_sequence,
+    )
+
+    _check_scene(scene_name, dropout)
+    if scene_name.startswith("courtyard"):
+        scans, poses, ts, scene, _ = generate_courtyard_sequence(
+            with_actors=scene_name.endswith("_actors"), noise_std=noise_std, dropout=dropout)
+    else:
+        scans, poses, ts, scene, _ = generate_sequence(
+            num_scans=num_scans, scene=BoxRoomScene(open_top=(scene_name == "open_sky")),
+            lidar=VirtualLidar(num_channels=32, num_columns=512), noise_std=noise_std)
+    staging = out_dir.rstrip("/") + ".partial"
+    if os.path.exists(staging):
+        shutil.rmtree(staging)
+    write_sequence(staging, scans, poses, ts, scene=scene,
+                   camera=VirtualCamera() if with_camera else None,
+                   meta={"sensor": "synthetic-box-room"})
+    os.rename(staging, out_dir)
+    return out_dir
 
 
 def run_trial(
@@ -138,42 +227,109 @@ def run_trial(
     return loner.log_directory
 
 
-def main() -> None:
+def trial_settings_list(settings: Settings, num_repeats: int) -> list:
+    """One deep copy of ``settings`` a trial (a run changes its settings: the
+    experiment name, log paths); with several trials, trial j's
+    ``mapper.optimizer.seed`` is offset by j, since the same seed gives the same
+    run."""
+    out = []
+    for trial_idx in range(num_repeats):
+        trial = copy.deepcopy(settings)
+        if num_repeats > 1:
+            base = int(trial.mapper.optimizer.get("seed", 0))
+            trial.augment({"mapper": {"optimizer": {"seed": base + trial_idx}}})
+        out.append(trial)
+    return out
+
+
+def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description="Run LONER SLAM with the PyTorch port")
     parser.add_argument("dataset_path", nargs="?", default=None,
-                        help="scan-stream directory, or 'auto' for the dataset a sequence "
-                        "config names")
+                        help="scan-stream directory, 'auto' for the dataset a sequence config "
+                        "names, or 'synthetic'")
     parser.add_argument("config", nargs="?", default=None, help="path to the config yaml")
     parser.add_argument("--resume", default=None, metavar="LOGDIR",
                         help="continue a run from its newest full checkpoint (configuration "
                         "and dataset from the run's full_config.pkl)")
     parser.add_argument("--experiment_name", default=None)
+    parser.add_argument("--overrides", default=None, help="ablation overrides yaml")
+    parser.add_argument("--run_all_combos", action="store_true",
+                        help="the cross-product of each overrides document's values")
+    parser.add_argument("--num_repeats", type=int, default=1,
+                        help="trials of each variant, trial j at mapper.optimizer.seed + j")
     parser.add_argument("--duration", type=float, default=None, help="seconds of data")
+    parser.add_argument("--synthetic_scans", type=int, default=100,
+                        help="scan count when dataset_path is 'synthetic'")
+    parser.add_argument("--synthetic_scene", choices=SYNTHETIC_SCENES, default="box_room",
+                        help="scene when dataset_path is 'synthetic' (open_sky: no ceiling; "
+                        "courtyard: the 64 x 48 m outdoor drive; courtyard_actors: with "
+                        "moving pedestrians)")
+    parser.add_argument("--synthetic_noise_std", type=float, default=0.0,
+                        help="Gaussian range noise (m) of the synthetic dataset")
+    parser.add_argument("--synthetic_dropout", type=float, default=0.0,
+                        help="per-return dropout probability (courtyard scenes only)")
+    parser.add_argument("--synthetic_camera", action="store_true",
+                        help="also write virtual-camera images into the synthetic dataset")
+    parser.add_argument("--gpu_ids", nargs="*", default=None,
+                        help="devices of a trial pool (not ported: raises)")
+    parser.add_argument("--trial_workers", type=int, default=0,
+                        help="trial pool size (not ported: more than 1 raises)")
+    parser.add_argument("--lite", action="store_true", help="fewer samples, for quick runs")
     parser.add_argument("--precompile", action="store_true",
                         help="build the kernels and run every program once before streaming")
     parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
+
+    if args.trial_workers > 1 or args.gpu_ids is not None:
+        raise NotImplementedError("--trial_workers > 1 and --gpu_ids run trials on several "
+                                  "devices, which the port does not do yet: trials run one "
+                                  "after another on --device")
+    precompile_changes = {"system": {"precompile": True}} if args.precompile else None
 
     if args.resume is not None:
         with open(os.path.join(args.resume, "full_config.pkl"), "rb") as f:
             settings = Settings(pickle.load(f))
-        if args.precompile:
-            settings.augment({"system": {"precompile": True}})
+        settings.augment(precompile_changes)
         run_trial(settings, settings["dataset_path"], duration=args.duration,
                   resume_from=args.resume, device=args.device)
         return
     if args.dataset_path is None or args.config is None:
         parser.error("dataset_path and config are required unless --resume is given")
-    settings, seq_dataset = load_config(args.config)
+
+    # A sequence config: its baseline, with its pass-through keys and changes
+    # applied first, and the dataset it names for 'auto'.
+    config, seq_changes, seq_passthrough = args.config, None, None
+    seq = load_sequence_config(args.config)
+    if seq is not None:
+        config, seq_changes, seq_passthrough = seq["baseline"], seq["changes"], seq["passthrough"]
     dataset_path = args.dataset_path
     if dataset_path in ("auto", "-"):
-        if seq_dataset is None:
+        if seq is None or seq["raw"].get("dataset") is None:
             parser.error(f"{args.config} names no dataset: give the dataset directory")
-        dataset_path = os.path.expanduser(seq_dataset)
-    if args.precompile:
-        settings.augment({"system": {"precompile": True}})
-    run_trial(settings, dataset_path, experiment_name=args.experiment_name,
-              duration=args.duration, device=args.device)
+        dataset_path = os.path.expanduser(seq["raw"]["dataset"])
+    elif dataset_path == "synthetic":
+        synth = dict(num_scans=args.synthetic_scans, scene_name=args.synthetic_scene,
+                     noise_std=args.synthetic_noise_std, dropout=args.synthetic_dropout,
+                     with_camera=args.synthetic_camera)
+        dataset_path = synthetic_dataset_path(**synth)
+        if not os.path.exists(os.path.join(dataset_path, "scans")):
+            print(f"Generating synthetic dataset {dataset_path}...")
+            build_synthetic_dataset(dataset_path, **synth)
+
+    options, descriptions = generate_options(
+        config, args.overrides, args.run_all_combos,
+        augmentations=[seq_passthrough, seq_changes, LITE_CHANGES if args.lite else None,
+                       precompile_changes])
+    multi = len(options) > 1 or args.num_repeats > 1
+    for config_idx, (settings, desc) in enumerate(zip(options, descriptions)):
+        if desc:
+            print(f"config_{config_idx}: {desc}")
+        for trial_idx, trial_settings in enumerate(trial_settings_list(settings,
+                                                                       args.num_repeats)):
+            run_trial(trial_settings, dataset_path, experiment_name=args.experiment_name,
+                      config_idx=config_idx if multi else None,
+                      trial_idx=trial_idx if args.num_repeats > 1 else None,
+                      duration=args.duration, device=args.device)
 
 
 if __name__ == "__main__":

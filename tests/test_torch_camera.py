@@ -120,7 +120,8 @@ d: -1_000
     ("a: 1\nb: |\n  text\n", 2),
     ("a: 1\nb: !!str 3\n", 2),
     ("a:\n  <<: {x: 1}\n", 2),
-    ("a: [1,\n  2]\n", 2),
+    ("a: 1\nb: [1,\n  2\n", 2),
+    ("a: x\n  y\n", 2),
     ("a: 1\n\tb: 2\n", 2),
     ("---\na: 1\n", 1),
     ("a: *nope\n", 1),

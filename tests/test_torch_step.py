@@ -27,7 +27,9 @@
   ``run_trial`` (at chip_smoke.py's settings, cut down), resumes it in place,
   scores a map and its sky floaters, each with the Fourier field and proposal
   sampler and with the hash field and OGM sampler, with jax, optax, yaml (and
-  matplotlib) unimportable, and pulls in nothing of ``loner_tpu``.
+  matplotlib) unimportable, and pulls in nothing of ``loner_tpu``; so do the
+  ingest (bag generator, reader, converter, host ops, calibration) and the
+  runner's sweep, repeat, lite and synthetic flags.
 """
 import os
 import subprocess
@@ -670,4 +672,78 @@ def test_port_runs_a_camera_trial_without_jax_optax_yaml_or_loner_tpu(tmp_path):
     proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0 and "camera boundary ok" in proc.stdout, (
+        proc.stdout + proc.stderr)
+
+
+def test_port_ingests_a_bag_and_sweeps_without_jax_optax_yaml_or_loner_tpu(tmp_path):
+    """The ingest and the runner's sweeps at the import boundary: the port's bag
+    generator, reader and converter (its C++ host ops built and called), the
+    OpenCV calibration reader, the drill's metrics pipeline, and
+    ``generate_options`` and ``run_loner.main``'s sweep, repeat, lite and
+    synthetic flags (run_trial recorded), with jax, optax and yaml unimportable."""
+    script = textwrap.dedent("""
+        import importlib.abc, os, sys
+        BLOCKED = ("jax", "optax", "yaml", "matplotlib")
+
+        class Absent(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"{name} is not installed")
+                return None
+
+        sys.meta_path.insert(0, Absent())
+        import numpy as np
+        from loner_tpu_torch import convert_rosbag, real_data_drill, run_loner
+        from loner_tpu_torch.common.settings import generate_options
+        from loner_tpu_torch.datasets import synthetic_bag
+        from loner_tpu_torch.datasets.calibration import FusionPortableCalibration
+        from loner_tpu_torch.datasets.rosbag_reader import Bag, bag_topics
+        from loner_tpu_torch.datasets.scan_stream import ScanStreamReader
+        from loner_tpu_torch.ops import scan_ops
+
+        root = sys.argv[1]
+        bag = os.path.join(root, "x.bag")
+        synthetic_bag.main([bag, "--duration", "0.4", "--rate", "5", "--channels", "8",
+                            "--columns", "32", "--timestamp_mode", "epoch_f64"])
+        assert bag_topics(bag)["/tf"] == "tf2_msgs/TFMessage"
+        with Bag(bag) as b:
+            assert len(list(b.read_messages(["/os_cloud_node/points"]))) == 2
+        real_data_drill.convert(bag, os.path.join(root, "ds"))
+        scan = ScanStreamReader(os.path.join(root, "ds")).read_scan(1)
+        assert len(scan) > 200 and scan.timestamps[0] > 1.7e9
+        pts = (scan.ray_directions * scan.distances).T
+        assert scan_ops.voxel_downsample(pts, 0.5).shape[1] == 3
+        assert scan_ops.fov_mask(scan.ray_directions, [[0, 180]]).any()
+        os.makedirs(os.path.join(root, "calib"))
+        with open(os.path.join(root, "calib", "frame_left.yaml"), "w") as f:
+            f.write("%YAML:1.0\\n---\\nimage_width: 64\\nimage_height: 48\\n"
+                    "camera_matrix: !!opencv-matrix\\n   rows: 3\\n   cols: 3\\n   dt: d\\n"
+                    "   data: [ 40., 0., 32.,\\n       0., 40., 24., 0., 0., 1. ]\\n"
+                    "distortion_coefficients: !!opencv-matrix\\n   rows: 1\\n   cols: 5\\n"
+                    "   dt: d\\n   data: [ -2.8e-01, 7.3e-02, 0., 0., 0. ]\\n")
+        cal = FusionPortableCalibration(root, 0.5)
+        assert cal.left_cam_intrinsic["k"][0, 0] == 20.0 and cal.left_cam_intrinsic["width"] == 32
+        options, desc = generate_options("cfg/synthetic/box_room.yaml", "cfg/ablation_study.yaml")
+        assert len(options) == len(desc) == 13
+        calls = []
+        run_loner.run_trial = lambda s, d, **kw: calls.append((s, d, kw))
+        run_loner.main(["ds", "cfg/synthetic/box_room.yaml", "--overrides",
+                        "cfg/kf_selection_ablation.yaml", "--num_repeats", "2", "--lite"])
+        assert [kw["trial_idx"] for _, _, kw in calls] == [0, 1] * 5
+        os.chdir(root)
+        run_loner.main(["synthetic", os.path.join(os.environ["REPO"], "cfg/synthetic/box_room.yaml"),
+                        "--synthetic_scans", "2"])
+        assert calls[-1][1] == "./outputs/synthetic_dataset_2"
+        assert len(ScanStreamReader(calls[-1][1])) == 2
+        bad = sorted(m for m in sys.modules
+                     if m == "loner_tpu" or m.startswith("loner_tpu."))
+        assert not bad, bad
+        assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        print("ingest boundary ok")
+    """)
+    env = dict(os.environ, REPO=str(REPO),
+               PYTHONPATH=os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and "ingest boundary ok" in proc.stdout, (
         proc.stdout + proc.stderr)
