@@ -127,6 +127,22 @@ nothing of JAX. Phases, each of which raises on failure:
    with phase 9's checks (ATE gated), the mapper's captures after warm-up held
    to phase 9's, and the metrics pipeline on the run against the bag's /tf
    ground truth, its ATE gated at ATE_MAX.
+20. Run breadth: (a) the flagship W=8 iteration through the captured graphs
+   with the per-iteration debug record, "ray" for one dispatch of
+   steps_per_dispatch iterations and "full" for RECORD_FULL_ITERS: parameters,
+   twists and losses equal to the bit to the same iterations without it, the
+   graphs' records equal to the eager loop's, the records dumped (bytes and
+   seconds); (b) threaded SLAM on the first DEBUG_SCANS scans of phase 9's
+   sequence at its settings with the six debug flags on (DEBUG_CUT: a keyframe a
+   second, 64 rays a slot, 6 + 3 + 3 iterations): a frame cloud a tracked
+   frame, each keyframe's ray clouds, loss CSVs, samples and margins, no capture
+   after warm-up; (c) phase 6's experiment again: ``render_sequence`` at 512 x
+   256 x 2048 samples with peak maps on two poses, one frame against the plain
+   sigma path and plain compositor at phase 8's tolerances, ``render_flythrough``
+   on 12 poses with its AVI's frame count, frames and JPEG frames a second;
+   (d) ``plot_poses``, ``depth_to_warp`` / ``vis_flow`` on (c)'s frames, and
+   ``run_loner --num_repeats 2 --trial_workers 2 --gpu_ids 0`` as a child
+   process, both trials rc 0, each trial's wall time printed.
 
 Each phase prints its seconds.
 
@@ -137,7 +153,8 @@ of phase 9 holds the tracker's ICP graph to the eager dispatch. Launch counts
 count replays (``common/cuda_graphs.py``).
 
 Each path sets every launch count to 0 just before it runs and reads them just
-after; the kernels' record lists each path's launches (``launches_by_path``)
+after (phase 20: the record runs, the debug SLAM run, render_sequence and
+render_flythrough); the kernels' record lists each path's launches (``launches_by_path``)
 and the Fourier pair's times at the sky and courtyard call sizes
 (``at_shapes``). The second-to-last line of output is that JSON record; the
 last is ``{"ok": true, "device": {...}}``.
@@ -2318,6 +2335,289 @@ def run_drill(dev, box_room: dict) -> dict:
     return run
 
 
+# Phase 20, run breadth: the debug dumps, the offline tools and the trial pool.
+DEBUG_FLAGS = ("log_losses", "write_frame_point_clouds", "write_ray_point_clouds", "store_ray",
+               "draw_samples", "draw_rays_eps")
+DEBUG_SCANS = 30  # the first 3 s of phase 9's sequence
+# The debug run's cut of phase 9's settings: a keyframe a second, 64 rays a
+# keyframe slot and a schedule of 6 + 3 + 3 iterations. draw_samples writes every
+# iteration's sample points as ASCII on the host (2,097,152 a W=8 iteration at 512
+# rays; ~1 s of numpy per 262,144 points), so the widths of a sample stay and the
+# counts shrink.
+DEBUG_CUT = {"mapper": {
+    "keyframe_manager": {"keyframe_selection": {"temporal": {"time_diff_seconds": 1.0}}},
+    "optimizer": {"num_samples": {"lidar": 64}, "keyframe_schedule": [
+        {"num_keyframes": 1, "iteration_schedule": [
+            {"num_iterations": 6, "freeze_poses": True, "freeze_sigma_mlp": False}]},
+        {"num_keyframes": -1, "iteration_schedule": [
+            {"num_iterations": 3, "freeze_poses": False, "latest_kf_only": True,
+             "freeze_sigma_mlp": True},
+            {"num_iterations": 3, "freeze_poses": False, "freeze_sigma_mlp": False}]}]}}}
+# A further cut to a CPU size, for the import-boundary test.
+CPU_SLAM_CUT = {
+    "system": {"single_threaded": True},
+    "tracker": {"frame_synthesis": {"frame_decimation_rate_hz": 2.5},
+                "icp": {"downsample": {"target_uniform_point_count": 500}}},
+    "mapper": {"keyframe_manager": {"window_selection": {"window_size": 2}},
+               "optimizer": {"num_samples": {"lidar": 16}, "model_config": {"model": {
+                   "render": {"N_samples_train": 16},
+                   "nerf_config": {"fourier_sigma": {"n_freqs": 8},
+                                   "sigma_network": {"n_neurons": 32}},
+                   "occ_model": {"prop_n_ctrl": 5,
+                                 "proposal": {"n_freqs": 8, "n_neurons": 16}}}}}}}
+RECORD_FULL_ITERS = 2  # iterations of the "full" record ("ray": one dispatch of k)
+SEQUENCE_SKIP = 4  # render_sequence on 2 of phase 6's 8 keyframe poses
+FRAME = (512, 256)  # width x height of the panoramas of render_sequence and the flythrough
+SEQUENCE_SAMPLES = 2048  # render_sequence's samples a ray (the flythrough's default: 512)
+FLYTHROUGH = {"steps_between": 1, "spin_every": 3, "spin_steps": 2}  # 12 poses from 8
+POOL_SECONDS = 2.0  # of the debug run's sequence, for each trial of the pool
+POOL_CONFIG = os.path.join("cfg", "synthetic", "box_room_tpu_rt_r4.yaml")  # phase 9's
+
+
+def debug_slam_settings(log_prefix: str) -> dict:
+    """Phase 9's flagship settings with the six debug flags on, cut by DEBUG_CUT."""
+    settings = cfg_settings("box_room_tpu_rt_r4.yaml", log_prefix, changes=DEBUG_CUT)
+    settings["debug"]["flags"].update({flag: True for flag in DEBUG_FLAGS})
+    return settings
+
+
+def check_debug_dumps(log_dir: str) -> dict:
+    """The debug files of a run with every flag on: a frame cloud for each tracked
+    frame (``tracking_only.txt``'s rows), and for each keyframe optimisation
+    (``timing.csv``'s rows) its ray batch, store_ray cloud and arrays, loss CSVs
+    and the first iteration's samples and margins. Returns the counts and bytes."""
+    def present(*parts):
+        path = os.path.join(log_dir, *parts)
+        if not os.path.exists(path):
+            raise RuntimeError(f"debug dumps: {path} is missing")
+        return path
+
+    tracked = len(np.loadtxt(present("trajectory", "tracking_only.txt"), ndmin=2))
+    clouds = [f for f in os.listdir(present("frames")) if not f.endswith("_sky.pcd")]
+    if len(clouds) != tracked:
+        raise RuntimeError(f"debug dumps: {len(clouds)} frame clouds for {tracked} tracked frames")
+    keyframes = len(np.loadtxt(present("timing.csv"), delimiter=",", ndmin=2))
+    for k in range(keyframes):
+        for parts in (("rays", f"kf_{k}_rays.pcd"), ("rays", f"kf_{k}_origins.pcd"),
+                      ("rays", "lidar", f"kf_{k}.pcd"), ("losses", f"keyframe_{k}", "phase_0.csv"),
+                      ("depth_eps", f"keyframe_{k}", "phase_0.csv"),
+                      ("samples", f"samples_kf{k}_it0.pcd"), ("samples", f"samples_kf{k}_it0_gt.pcd"),
+                      ("rays_eps", f"rays_kf{k}_it0.pcd"), ("rays_eps", f"origins_kf{k}_it0.pcd")) + tuple(
+                          ("rays", name, f"kf_{k}.npy") for name in ("sky_mask", "curr_mask", "std", "js")):
+            present(*parts)
+    files = [os.path.join(d, f) for sub in ("frames", "rays", "losses", "depth_eps", "samples",
+                                             "rays_eps") for d, _, fs in os.walk(os.path.join(log_dir, sub))
+             for f in fs]
+    return {"frames": tracked, "keyframes": keyframes, "files": len(files),
+            "bytes": sum(os.path.getsize(f) for f in files)}
+
+
+def check_debug_record(dev, cfg, field_cfg) -> dict:
+    """Phase 20 (a): the flagship W=8 iteration through the captured graphs with
+    the per-iteration record, ``"ray"`` for one dispatch of ``steps_per_dispatch``
+    iterations and ``"full"`` for RECORD_FULL_ITERS, from one seed: parameters,
+    twists and losses equal to the bit to the same iterations without the
+    record, and the graphs' records equal to the eager loop's; then the records
+    through ``IterationRayRecordDumper`` (store_ray, draw_rays_eps). Returns the
+    launches of the record runs through the graphs."""
+    import tempfile
+
+    from loner_tpu_torch.mapping.optimizer import Optimizer, PhaseSettings, make_phase_runner
+    from loner_tpu_torch.runtime.debug_artifacts import IterationRayRecordDumper
+
+    buffers, twists = synthetic_window(dev, WINDOW)
+    state = Optimizer(cfg, field_cfg, 12.0, np.zeros(3), [], dev).state
+    common = (twists, buffers, torch.ones(WINDOW, device=dev), torch.tensor(12.0, device=dev),
+              torch.zeros(3, device=dev))
+
+    def run(mode, graphs, n):
+        runner = make_phase_runner(cfg, field_cfg, PhaseSettings(), WINDOW, buffers.dirs.shape[1],
+                                   buffers.sky_dirs.shape[1], dev, extras_mode=mode,
+                                   graphs=graphs)
+        log = [] if mode != "none" else None
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = runner(state.field_params, state.occ_grid, *common, 0,
+                     torch.Generator(device=dev).manual_seed(1), num_iterations=n,
+                     extras_log=log)
+        torch.cuda.synchronize()
+        secs, counts = time.perf_counter() - t0, read_counts()
+        del runner
+        torch.cuda.empty_cache()
+        return phase_outputs(out), log, counts, secs
+
+    launches, failures = {}, []
+    with tempfile.TemporaryDirectory(prefix="loner_tpu_torch_record_") as root:
+        for mode, n in (("ray", cfg.steps_per_dispatch), ("full", RECORD_FULL_ITERS)):
+            plain_out, _, _, _ = run("none", True, n)
+            graph_out, graph_log, counts, secs = run(mode, True, n)
+            eager_out, eager_log, _, _ = run(mode, False, n)
+            same = all(torch.equal(graph_out[k], plain_out[k]) for k in plain_out)
+            same_eager = all(torch.equal(eager_out[k], plain_out[k]) for k in plain_out)
+            names = sorted(graph_log[0])
+            records_equal = len(graph_log) == len(eager_log) and all(
+                np.array_equal(a[k], b[k]) for a, b in zip(graph_log, eager_log) for k in names)
+            stacked = [tuple(rec["rays"].shape) for rec in graph_log]
+            t0 = time.perf_counter()
+            out_dir = os.path.join(root, mode)
+            dumper = IterationRayRecordDumper(
+                out_dir, 0, n_lidar=cfg.n_lidar_samples, n_sky=0, window_slots=WINDOW,
+                num_kfs=WINDOW, world_scale=12.0, world_shift=np.zeros(3, np.float32),
+                eps_min=cfg.loss.min_depth_eps, js_alpha=cfg.loss.js_alpha,
+                max_js_score=cfg.loss.max_js_score, store_ray=mode == "ray",
+                draw_rays_eps=mode == "full")
+            for rec in graph_log:
+                dumper.append(rec)
+            dumper.finish()
+            dump_s = time.perf_counter() - t0
+            nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(out_dir)
+                         for f in fs)
+            print(f"debug record {mode!r}: {n} W={WINDOW} iterations through the graphs in "
+                  f"{secs:.3f} s, records {stacked} of {names}; parameters, twists and losses "
+                  f"equal to the bit to the run without the record: {same} (eager: "
+                  f"{same_eager}); the graphs' records equal the eager loop's: {records_equal}; "
+                  f"launches {counts}; dumped {nbytes} bytes in {dump_s:.3f} s", flush=True)
+            launches[f"debug record {mode}"] = counts
+            if not (same and same_eager and records_equal):
+                failures.append(mode)
+            if min(counts["fourier_mlp_fwd"], counts["fourier_mlp_bwd"]) < n:
+                failures.append(f"{mode}: the Fourier pair launched {counts} for {n} iterations")
+    if failures:
+        raise RuntimeError(f"debug record: {failures}")
+    return launches
+
+
+def run_breadth(dev, cfg, field_cfg, field, prop) -> dict:
+    """Phase 20: (a) the record on the card (``check_debug_record``); (b) a
+    threaded SLAM run of the first DEBUG_SCANS scans with the six debug flags
+    (``debug_slam_settings``), its dumps checked and no capture after warm-up;
+    (c) phase 6's experiment written again: ``render_sequence`` at 512 x 256 x
+    2048 samples with peak maps on two poses, one frame held to the plain sigma
+    path and plain compositor at phase 8's tolerances, and ``render_flythrough``
+    on 12 poses, its AVI's frame count checked; (d) ``plot_poses`` on (b)'s run,
+    ``depth_to_warp`` / ``vis_flow`` on (c)'s two frames, and ``run_loner`` with
+    ``--num_repeats 2 --trial_workers 2 --gpu_ids 0`` as a child process on
+    POOL_SECONDS of (b)'s sequence, both trials rc 0. Returns each path's
+    launches."""
+    import tempfile
+    from dataclasses import replace
+
+    from loner_tpu_torch.analysis.plot_poses import plot_poses
+    from loner_tpu_torch.analysis.raster_plot import read_plot
+    from loner_tpu_torch.analysis.render_utils import kf_pose_matrices, load_experiment
+    from loner_tpu_torch.analysis.renderer import (
+        render_dataset_frame, render_flythrough, render_sequence, spherical_ray_directions,
+    )
+    from loner_tpu_torch.analysis.image_io import read_png
+    from loner_tpu_torch.analysis.video import encode_jpeg, read_avi_frame_count
+    from loner_tpu_torch.analysis.warp import depth_to_warp, vis_flow
+
+    launches = check_debug_record(dev, cfg, field_cfg)
+    with tempfile.TemporaryDirectory(prefix="loner_tpu_torch_breadth_") as root:
+        # (b) the debug SLAM run.
+        sequence = write_slam_dataset(os.path.join(root, "dataset"), DEBUG_SCANS)
+        settings = debug_slam_settings(os.path.join(root, "slam") + "/")
+        log_dir, loner, counts, wall, _ = traced_trial(dev, settings, sequence["dataset"],
+                                                        experiment_name="smoke_debug")
+        opt = loner.mapper.optimizer
+        found = check_debug_dumps(log_dir)
+        print(f"debug SLAM: {DEBUG_SCANS} scans, all six debug flags, run_trial {wall:.3f} s; "
+              f"{found['frames']} tracked frames, {found['keyframes']} keyframes, "
+              f"{found['files']} files of {found['bytes']} bytes; mapper captures "
+              f"{opt.graph_captures} at warm-up, {opt.late_captures} after it; launches "
+              f"{counts}", flush=True)
+        if opt.late_captures or min(counts["fourier_mlp_fwd"], counts["fourier_mlp_bwd"]) == 0:
+            raise RuntimeError(f"debug SLAM: {opt.late_captures} late captures, launches {counts}")
+        launches["debug SLAM"] = counts
+
+        # (c) renders of phase 6's experiment.
+        exp = os.path.join(root, "experiment")
+        write_experiment(exp, field, prop, field_cfg)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        seq_dir = render_sequence(exp, width=FRAME[0], height=FRAME[1],
+                                  n_samples=SEQUENCE_SAMPLES, with_peak=True,
+                                  skip_step=SEQUENCE_SKIP, device=dev)
+        seq_s = time.perf_counter() - t0
+        launches["render_sequence"] = counts = read_counts()
+        n_seq = len([f for f in os.listdir(seq_dir) if f.startswith("depth_") and f.endswith(".npy")])
+        model = load_experiment(exp, device=dev)
+        pose0 = kf_pose_matrices(model)[0][0]
+        plain = replace(model, field_cfg=replace(model.field_cfg, sigma_kernel="plain"),
+                        compositor="plain", render_cache={})
+        frame_p = render_dataset_frame(plain, pose0, spherical_ray_directions(*FRAME),
+                                       FRAME[::-1], n_samples=SEQUENCE_SAMPLES)
+        dk, dp = np.load(os.path.join(seq_dir, "depth_0000.npy")), frame_p["depth"]
+        ok = np.isfinite(dk) & np.isfinite(dp) & (dp >= RAY_RANGE[0]) & (dp <= RAY_RANGE[1])
+        rel = np.abs(dk - dp)[ok] / (RAY_RANGE[1] - RAY_RANGE[0])
+        med, p99 = float(np.median(rel)), float(np.quantile(rel, 0.99))
+        print(f"render_sequence: {n_seq} frames of {FRAME[0]} x {FRAME[1]} x {SEQUENCE_SAMPLES} "
+              f"samples with peak maps in "
+              f"{seq_s:.3f} s ({n_seq / seq_s:.3f} frames/s), launches {counts}; frame 0 against "
+              f"the plain path ({int(ok.sum())} of {ok.size} rays finite and in range): "
+              f"|ddepth|/range median {med:.3e} (tolerance {RENDER_DEPTH_MEDIAN}), p99 "
+              f"{p99:.3e} (tolerance {RENDER_DEPTH_P99})", flush=True)
+        if (n_seq != 2 or ok.mean() < 0.99 or not (med <= RENDER_DEPTH_MEDIAN
+                                                  and p99 <= RENDER_DEPTH_P99)
+                or min(counts["composite"], counts["fourier_mlp_fwd"]) == 0):
+            raise RuntimeError("render_sequence: wrong frames, launches or disagreement")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        fly_dir = render_flythrough(exp, width=FRAME[0], height=FRAME[1], device=dev,
+                                    **FLYTHROUGH)
+        fly_s = time.perf_counter() - t0
+        launches["render_flythrough"] = counts = read_counts()
+        frames = open(os.path.join(fly_dir, "frames.txt")).read().split()
+        n_avi, shape, fps = read_avi_frame_count(os.path.join(fly_dir, "flythrough.avi"))
+        pngs = [read_png(os.path.join(fly_dir, f))[0] for f in frames]
+        t0 = time.perf_counter()
+        for px in pngs:
+            encode_jpeg(px)
+        jpeg_fps = len(pngs) / (time.perf_counter() - t0)
+        print(f"render_flythrough: {len(frames)} frames of {FRAME[0]} x {FRAME[1]} x 512 "
+              f"samples in "
+              f"{fly_s:.3f} s ({len(frames) / fly_s:.3f} frames/s, PNGs and the AVI included), "
+              f"AVI {n_avi} frames {shape} at {fps} fps; JPEG encoder {jpeg_fps:.2f} frames/s at "
+              f"{FRAME[0]} x {FRAME[1]} on the host; launches {counts}", flush=True)
+        if (len(frames) != 12 or n_avi != len(frames)
+                or min(counts["composite"], counts["fourier_mlp_fwd"]) == 0):
+            raise RuntimeError("render_flythrough: wrong frames or launches")
+
+        # (d) small tools and the trial pool.
+        _, meta = read_plot(plot_poses(log_dir))
+        labels = [s["label"] for s in meta["Series"]]
+        mats = kf_pose_matrices(model)[0][::SEQUENCE_SKIP]
+        d0, d1 = (np.load(os.path.join(seq_dir, f"depth_{i:04d}.npy")) for i in (0, 1))
+        w, h = FRAME
+        k = np.array([[w / 2, 0, (w - 1) / 2], [0, w / 2, (h - 1) / 2], [0, 0, 1]])
+        warp, mask = depth_to_warp(d0, d1, k, np.linalg.inv(mats[1]) @ mats[0], k)
+        flow = vis_flow(warp)
+        print(f"plot_poses: series {labels}; warp of the two frames: {warp.shape}, "
+              f"{float(mask.mean()):.4f} consistent, flow colours finite "
+              f"{bool(np.isfinite(flow).all())}", flush=True)
+        if not labels or not np.isfinite(warp).all() or flow.shape != (h, w, 3):
+            raise RuntimeError("plot_poses / warp: wrong output")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")]))
+        t0 = time.perf_counter()
+        pool = subprocess.run(
+            [sys.executable, "-m", "loner_tpu_torch.run_loner", sequence["dataset"],
+             os.path.join(REPO, POOL_CONFIG),
+             "--num_repeats", "2", "--trial_workers", "2", "--gpu_ids", "0", "--duration",
+             str(POOL_SECONDS), "--experiment_name", "pool", "--device", str(dev)],
+            cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        pool_s = time.perf_counter() - t0
+        walls = [line for line in pool.stdout.splitlines() if line.startswith("trial ")
+                 and "rc=" in line]
+        print(f"trial pool: rc {pool.returncode} in {pool_s:.3f} s; " + "; ".join(walls),
+              flush=True)
+        if pool.returncode != 0 or len(walls) != 2 or not all("rc=0" in w for w in walls):
+            raise RuntimeError("trial pool failed: " + pool.stdout[-2000:] + pool.stderr[-2000:])
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs only on a GPU",
@@ -2438,6 +2738,8 @@ def main() -> int:
     phase_done("18 (camera)")
     drill = run_drill(dev, slam)
     phase_done("19 (real-data drill)")
+    breadth = run_breadth(dev, cfg, field_cfg, field, prop)
+    phase_done("20 (run breadth)")
     # The f32 pair's record: checked at box_room_camera's render chunk, launched on
     # its SLAM path.
     f32_kernels = camera["kernels"]["fourier_f32_render"]
@@ -2471,6 +2773,7 @@ def main() -> int:
                                            for k, v in run["map_launches"].items()}}
         if "eval_launches" in run:
             paths[name + " eval"] = {step: c for step, c in run["eval_launches"].items()}
+    paths.update(breadth)
     for name in ("sky", "sky off"):
         paths[f"{name} floaters"] = sky[name]["floaters"]["launches"]
         paths[f"{name} floaters 150"] = sky_short[name]["floaters"]["launches"]

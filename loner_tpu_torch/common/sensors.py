@@ -88,6 +88,12 @@ class LidarScan:
             None if self.mask is None else self.mask.copy(),
         )
 
+    def get_sky_scan(self, distance: float) -> "LidarScan":
+        """The sky directions as a scan at the constant range ``distance``."""
+        n = self.sky_rays.shape[1]
+        return LidarScan(self.sky_rays, np.full((n,), distance, dtype=np.float32),
+                         np.full((n,), self.timestamps[-1], dtype=np.float64))
+
     def end_points(self) -> np.ndarray:
         """(N, 3) cartesian points in the sensor frame."""
         return (self.ray_directions * self.distances).T

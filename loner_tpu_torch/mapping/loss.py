@@ -118,6 +118,7 @@ def compute_lidar_loss(rays, depths_cube, valid, field_params, field_cfg, sample
         js_c = torch.where(js_score < cfg.min_js_score, 0.0, js_score)
         js_c = torch.clamp(js_c, max=cfg.max_js_score)
         eps_dyn = (eps_min * (1.0 + cfg.js_alpha * js_c)).detach()[:, None]  # (B, 1)
+        per_ray_eps = eps_dyn[:, 0]
         depth_eps = eps_dyn.mean()
         weights_gt = get_weights_gt(z_m, depths_gt_m[:, None], eps=eps_dyn)
     elif sel in ("L1_LOS", "L2_LOS"):
@@ -128,6 +129,7 @@ def compute_lidar_loss(rays, depths_cube, valid, field_params, field_cfg, sample
                                     min=cfg.min_depth_eps)
         else:
             depth_eps = torch.as_tensor(cfg.depth_eps, dtype=z_m.dtype, device=z_m.device)
+        per_ray_eps = depth_eps.expand(depths_gt_m.shape)
         weights_gt = get_weights_gt(z_m, depths_gt_m[:, None], eps=depth_eps)
     else:
         raise ValueError(f"Unknown loss selection {sel}")
@@ -163,5 +165,12 @@ def compute_lidar_loss(rays, depths_cube, valid, field_params, field_cfg, sample
         "depths_gt_m": depths_gt_m,
         "opaque": opaque,
         "valid": valid,
+        # The per-ray debug record (the mapper's store_ray, draw_samples and
+        # draw_rays_eps flags); reading it changes no result.
+        "rays": rays,
+        "depths_cube": depths_cube,
+        "per_ray_eps": per_ray_eps,
+        "w_pred": w_pred,
+        "w_gt": weights_gt,
     }
     return loss, aux

@@ -357,13 +357,18 @@ def make_phase_runner(cfg: OptimizerConfig, field_cfg: FieldConfig, phase: Phase
     builds no camera branch) its iterations add the camera loss, and
     ``run_phase`` then takes ``camera=`` buffers (``CameraWindowBuffers``).
     ``camera``: static camera buffers shared with other runners.
+
+    ``extras_mode``: ``"ray"`` records each iteration's rays, depths, JS
+    scores, spreads and validity; ``"full"`` adds the sample points, predicted
+    and target weights, sample depths and per-ray margins and runs one
+    iteration a dispatch (the JAX package's modes). ``run_phase(...,
+    extras_log=sink)`` then appends one dict of numpy arrays a dispatch, each
+    stacked (k, B, ...), to ``sink``.
     """
     from loner_tpu_torch.mapping.phase_graph import PhaseProgram
 
     if cfg.samples_strategy not in ("OGM", "PROPOSAL", "UNIFORM"):
         raise ValueError(f"unknown samples_strategy {cfg.samples_strategy!r}")
-    if extras_mode != "none":
-        raise NotImplementedError("per-iteration debug records are not ported yet")
     if cfg.rays_strategy not in ("RANDOM", "MASK", "FIXED"):
         raise RuntimeError(f"Can't find rays_selection strategy: {cfg.rays_strategy}")
     device = torch.device(device)
@@ -385,10 +390,6 @@ class MapState:
     field_params: Dict[str, Any]
     occ_grid: Any
     global_step: int = 0
-
-
-_DEBUG_DUMPS = ("log_losses", "write_ray_point_clouds", "store_ray", "draw_samples",
-                "draw_rays_eps")
 
 
 class Optimizer:
@@ -429,14 +430,12 @@ class Optimizer:
         log_directory: Optional[str] = None,
         profile_optimizer: bool = False,
         camera_rays: Optional[Tuple[np.ndarray, np.ndarray]] = None,
-        **debug_dumps: bool,
+        log_losses: bool = False,
+        write_ray_point_clouds: bool = False,
+        store_ray: bool = False,
+        draw_samples: bool = False,
+        draw_rays_eps: bool = False,
     ) -> None:
-        unknown = sorted(set(debug_dumps) - set(_DEBUG_DUMPS))
-        if unknown:
-            raise TypeError(f"unexpected arguments {unknown}")
-        asked = sorted(k for k, v in debug_dumps.items() if v)
-        if asked:
-            raise NotImplementedError(f"debug dumps {asked} are not ported")
         self._cfg = cfg
         self._field_cfg = field_cfg
         self._device = torch.device(device)
@@ -449,6 +448,20 @@ class Optimizer:
         self._log_directory = log_directory
         self._profile_optimizer = profile_optimizer
         self._camera_rays = camera_rays
+        # The debug dumps (written under log_directory): per-phase loss CSVs, one
+        # sampled ray batch a keyframe, and the per-iteration ray record, whose
+        # size sets the runners' extras mode as in the JAX package.
+        self._log_losses = log_losses
+        self._write_ray_point_clouds = write_ray_point_clouds
+        self._store_ray = store_ray
+        self._draw_samples = draw_samples
+        self._draw_rays_eps = draw_rays_eps
+        if draw_samples or draw_rays_eps:
+            self._extras_mode = "full"
+        elif store_ray:
+            self._extras_mode = "ray"
+        else:
+            self._extras_mode = "none"
         if camera_rays is None and cfg.n_camera_samples > 0:
             print("Warning: num_samples.camera > 0 but no camera geometry (LiDAR-only run): "
                   "camera-sample supervision is disabled.")
@@ -513,6 +526,7 @@ class Optimizer:
         if cache_key not in self._runner_cache:
             self._runner_cache[cache_key] = make_phase_runner(
                 self._cfg, self._field_cfg, phase, w, p, ps, self._device,
+                extras_mode=self._extras_mode,
                 window=self._windows[(w, p, ps)], pool=self.graph_pool,
                 has_camera=self._camera_rays is not None, camera=self._cameras.get(w))
         return self._runner_cache[cache_key]
@@ -631,11 +645,33 @@ class Optimizer:
             torch.cat(ready).cpu()  # waits for the device
         return time.time() - t0
 
+    def _dump_ray_cloud(self, buffers: WindowBuffers, twists: torch.Tensor, w: int,
+                        u: Optional[torch.Tensor]) -> None:
+        """The write_ray_point_clouds dump: one batch of LiDAR rays from the
+        window at the optimised twists (random picks, no sky rays)."""
+        from loner_tpu_torch.runtime.debug_artifacts import dump_ray_point_cloud
+
+        if u is None:
+            gen = torch.Generator(device=self._device).manual_seed(0)
+            u = torch.rand((w, self._cfg.n_lidar_samples), generator=gen, device=self._device)
+        with torch.no_grad():
+            rays, depths_cube, valid = sample_and_build_rays(
+                buffers, twists, self._world_scale, self._world_shift, self._cfg.ray_range,
+                self._cfg.n_lidar_samples, 0, u=u.to(self._device))
+        v = valid.cpu().numpy()
+        dump_ray_point_cloud(rays.cpu().numpy()[v], depths_cube.cpu().numpy()[v],
+                             self._log_directory, f"kf_{self._keyframe_count}")
+
     # -- main entry ------------------------------------------------------------
-    def iterate_optimizer(self, window: list) -> float:
+    def iterate_optimizer(self, window: list,
+                          ray_cloud_u: Optional[torch.Tensor] = None) -> float:
         """Run the iteration schedule on a window of keyframes
         (``mapping.keyframe.KeyFrame``) and write the optimised poses back into
-        them. Returns the last iteration's mapping loss."""
+        them. Returns the last iteration's mapping loss.
+
+        ``ray_cloud_u``: the (W, n_lidar) uniforms that pick the ray batch that
+        ``write_ray_point_clouds`` dumps; by default drawn from a generator
+        seeded 0 (the JAX package draws it from ``jax.random.key(0)``)."""
         from loner_tpu_torch.runtime.profiling import optimizer_trace
 
         start_time = time.time()
@@ -681,6 +717,20 @@ class Optimizer:
         up = host.to(self._device, non_blocking=True)
         twists = up[: w * 6].view(w, 6)
 
+        extras_log = None
+        if self._extras_mode != "none" and self._log_directory is not None:
+            from loner_tpu_torch.runtime.debug_artifacts import IterationRayRecordDumper
+
+            # Written as the dispatches' records arrive: draw_samples' clouds are
+            # ~50 MB an iteration at the reference's sizes.
+            extras_log = IterationRayRecordDumper(
+                self._log_directory, self._keyframe_count,
+                n_lidar=self._cfg.n_lidar_samples, n_sky=sky_rays_per_slot(self._cfg),
+                window_slots=w, num_kfs=m, world_scale=float(self._world_scale),
+                world_shift=self._world_shift.cpu().numpy(),
+                eps_min=self._cfg.loss.min_depth_eps, js_alpha=self._cfg.loss.js_alpha,
+                max_js_score=self._cfg.loss.max_js_score, store_ray=self._store_ray,
+                draw_samples=self._draw_samples, draw_rays_eps=self._draw_rays_eps)
         all_losses, all_eps, cam_losses = [], [], []
         with optimizer_trace(self._log_directory, self._profile_optimizer, self._keyframe_count):
             for n, eff in enumerate(effective):
@@ -694,7 +744,7 @@ class Optimizer:
                     up[w * 6 + n * w : w * 6 + (n + 1) * w], self._world_scale,
                     self._world_shift, self.state.global_step, self._generator,
                     num_iterations=eff.num_iterations,
-                    camera=camera if self._uses_camera(eff) else None,
+                    camera=camera if self._uses_camera(eff) else None, extras_log=extras_log,
                 )
                 self.state.global_step += eff.num_iterations
                 all_losses.append(losses)
@@ -715,6 +765,19 @@ class Optimizer:
             raise RuntimeError("Fatal: Encountered invalid pose tensor.")
         if not np.isfinite(self.last_losses).all():
             raise RuntimeError("NaN Loss Encountered")
+        if extras_log is not None:
+            extras_log.finish()
+        if self._log_losses and self._log_directory is not None:
+            from loner_tpu_torch.runtime.debug_artifacts import log_losses
+
+            start = 0
+            for n, losses in enumerate(all_losses):
+                stop = start + int(losses.numel())
+                log_losses(self.last_losses[start:stop], self.last_depth_eps[start:stop],
+                           self._log_directory, self._keyframe_count, n)
+                start = stop
+        if self._write_ray_point_clouds and self._log_directory is not None:
+            self._dump_ray_cloud(buffers, twists, w, ray_cloud_u)
 
         if not self._use_gt_poses:
             for i, kf in enumerate(window):

@@ -35,9 +35,21 @@ raises; nothing falls back to the eager loop.
 With graphs off (the CPU, or ``graphs=False`` on the card) the same iteration
 runs eagerly on the same static state; on the card both ways take the same
 operations, so a deterministic configuration gives the same bits either way.
+
+A program built with ``extras_mode`` ``"ray"`` or ``"full"`` also copies the
+iteration's per-ray debug record (``RAY_EXTRAS``; ``FULL_EXTRAS`` adds the
+samples) into static device tensors, inside the captured iteration. After each
+replay the host enqueues, on the same stream and before the next replay, a
+non-blocking copy of the record into slot i of k of a pinned host set; a
+dispatch records an event after its copies, and its set is read, stacked
+(k, B, ...), and handed to ``extras_log`` once that event has completed. With
+up to d = ``max_inflight_dispatches`` dispatches in flight, d + 1 sets suffice.
+The record is a copy of values the iteration computes anyway: it changes no
+parameter, twist or loss.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -51,6 +63,13 @@ from loner_tpu_torch.models.occupancy_grid import occ_grid_update
 
 HISTORY = 256  # per-iteration records kept on the device between two reads
 WARMUP_ITERS = 2  # eager iterations of each variant before its capture
+
+# The per-iteration debug record by extras mode, under the JAX package's names
+# (``make_phase_runner``'s ``extras``), and the ``aux`` entry each one copies.
+RAY_EXTRAS = ("rays", "depths_cube", "std", "js", "valid")
+FULL_EXTRAS = RAY_EXTRAS + ("points", "w_pred", "w_gt", "z_m", "per_ray_eps")
+EXTRAS = {"none": (), "ray": RAY_EXTRAS, "full": FULL_EXTRAS}
+AUX_NAMES = {"js": "js_score"}
 
 
 def copy_window(dst: WindowBuffers, src: WindowBuffers) -> None:
@@ -95,7 +114,12 @@ class PhaseProgram:
                  graphs: bool, extras_mode: str = "none",
                  window: Optional[WindowBuffers] = None, pool=None, graph_class=None,
                  has_camera: bool = True, camera: Optional[CameraWindowBuffers] = None) -> None:
+        if extras_mode not in EXTRAS:
+            raise ValueError(f"unknown extras_mode {extras_mode!r}: one of {tuple(EXTRAS)}")
         self.cfg = cfg
+        self._extras_names = EXTRAS[extras_mode]
+        self.extras: Dict[str, torch.Tensor] = {}  # the record's static device tensors
+        self._host_sets: List[Dict[str, torch.Tensor]] = []  # pinned, d + 1 sets of k slots
         self.field_cfg = _opt.training_field_cfg(cfg, field_cfg)
         self.w = window_size
         self.device = torch.device(device)
@@ -270,6 +294,20 @@ class PhaseProgram:
             self.slot.add_(1)
             self.it.add_(1.0)
             self.gstep.add_(1.0)
+            for name in self._extras_names:
+                value = aux[AUX_NAMES.get(name, name)].detach()
+                if name not in self.extras:  # in a warm-up iteration, before any capture
+                    self.extras[name] = torch.empty_like(value)
+                self.extras[name].copy_(value)
+
+    # -- the debug record's copy-out --------------------------------------------
+    def _host_set(self, index: int) -> Dict[str, torch.Tensor]:
+        while len(self._host_sets) <= index:
+            pin = self._cuda
+            self._host_sets.append({
+                name: torch.empty((self.k,) + tuple(v.shape), dtype=v.dtype, pin_memory=pin)
+                for name, v in self.extras.items()})
+        return self._host_sets[index]
 
     # -- capture -----------------------------------------------------------------
     def capture(self, field_params, occ_state, twists, buffers, pose_mask, world_scale,
@@ -331,7 +369,7 @@ class PhaseProgram:
                  world_shift: torch.Tensor, global_step0: int,
                  generator: Optional[torch.Generator], num_iterations: Optional[int] = None,
                  draws: Optional[Sequence] = None,
-                 camera: Optional[CameraWindowBuffers] = None):
+                 camera: Optional[CameraWindowBuffers] = None, extras_log=None):
         n_iters = self._phase_iterations if num_iterations is None else num_iterations
         if draws is None and generator is None:
             raise ValueError("run_phase needs a generator or the draws")
@@ -350,6 +388,19 @@ class PhaseProgram:
 
         records: List[torch.Tensor] = []
         filled = 0
+        # The debug record: (host set, iterations, event) of each dispatch not yet
+        # read, oldest first; the sets are taken in turn.
+        record_extras = extras_log is not None and bool(self._extras_names)
+        n_sets = max(self.depth, 1) + 1
+        pending: collections.deque = collections.deque()
+        n_dispatched = 0
+
+        def collect() -> None:
+            index, k, event = pending.popleft()
+            if event is not None:
+                event.synchronize()
+            host = self._host_sets[index]
+            extras_log.append({name: host[name][:k].numpy().copy() for name in host})
 
         def iterate(i: int) -> None:
             occ_step = self._use_occ and (step0 + i) % self.cfg.occ_update_every == 0
@@ -367,17 +418,33 @@ class PhaseProgram:
             self._steps[occ_step].replay()
 
         def dispatch(i0: int, k: int) -> None:
-            nonlocal filled
+            nonlocal filled, n_dispatched
             if filled + k > self.history.shape[1]:
                 records.append(self.history[:, :filled].clone())
                 self.slot.zero_()
                 filled = 0
+            index = n_dispatched % n_sets
+            if record_extras and len(pending) == n_sets:
+                collect()  # the oldest dispatch holds this set
             for j in range(k):
                 iterate(i0 + j)
+                if record_extras:
+                    host = self._host_set(index)
+                    for name, value in self.extras.items():
+                        host[name][j].copy_(value, non_blocking=True)
+            if record_extras:
+                event = None
+                if self._cuda:
+                    event = torch.cuda.Event()
+                    event.record()
+                pending.append((index, k, event))
+            n_dispatched += 1
             filled += k
 
         _opt.run_dispatches(n_iters, self.k, self.depth, dispatch,
                             torch.cuda.Event if self._cuda else None)
+        while pending:
+            collect()
         records.append(self.history[:, :filled])
         log = torch.cat(records, dim=1)
 

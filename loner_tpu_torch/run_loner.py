@@ -26,8 +26,10 @@ sample counts for quick runs. ``--resume`` continues a run (written by either
 package) in its own directory from its newest full checkpoint, with the
 configuration and dataset of its ``full_config.pkl`` (``runtime/resume.py``). In
 camera mode (``system.lidar_only: False``) the dataset's images are fed in time
-order with the scans. Trial pools over several devices (``--trial_workers`` >
-1, ``--gpu_ids``) are not ported and raise.
+order with the scans. ``--trial_workers N`` (N > 1) runs the trials as child
+processes, at most N at a time (``parallel/trial_pool.py``), each from a
+pickled spec (``--_trial_spec``) and pinned by ``CUDA_VISIBLE_DEVICES`` to one of
+``--gpu_ids`` in turn; children take the parent's ``--device``.
 """
 from __future__ import annotations
 
@@ -271,19 +273,26 @@ def main(argv=None) -> None:
     parser.add_argument("--synthetic_camera", action="store_true",
                         help="also write virtual-camera images into the synthetic dataset")
     parser.add_argument("--gpu_ids", nargs="*", default=None,
-                        help="devices of a trial pool (not ported: raises)")
+                        help="CUDA device ordinals the trial pool's children are pinned to, "
+                        "in turn (read only with --trial_workers > 1)")
     parser.add_argument("--trial_workers", type=int, default=0,
-                        help="trial pool size (not ported: more than 1 raises)")
+                        help="run the trials as up to this many child processes at a time; "
+                        "0 or 1: one after another in this process")
+    parser.add_argument("--_trial_spec", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--lite", action="store_true", help="fewer samples, for quick runs")
     parser.add_argument("--precompile", action="store_true",
                         help="build the kernels and run every program once before streaming")
     parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     args = parser.parse_args(argv)
 
-    if args.trial_workers > 1 or args.gpu_ids is not None:
-        raise NotImplementedError("--trial_workers > 1 and --gpu_ids run trials on several "
-                                  "devices, which the port does not do yet: trials run one "
-                                  "after another on --device")
+    if args._trial_spec is not None:
+        # A child of the trial pool: one trial from the parent's pickled spec.
+        with open(args._trial_spec, "rb") as f:
+            spec = pickle.load(f)
+        run_trial(Settings(spec["settings"]), spec["dataset_path"],
+                  experiment_name=spec["experiment_name"], config_idx=spec["config_idx"],
+                  trial_idx=spec["trial_idx"], duration=spec["duration"], device=args.device)
+        return
     precompile_changes = {"system": {"precompile": True}} if args.precompile else None
 
     if args.resume is not None:
@@ -321,15 +330,53 @@ def main(argv=None) -> None:
         augmentations=[seq_passthrough, seq_changes, LITE_CHANGES if args.lite else None,
                        precompile_changes])
     multi = len(options) > 1 or args.num_repeats > 1
+    jobs = []
     for config_idx, (settings, desc) in enumerate(zip(options, descriptions)):
         if desc:
             print(f"config_{config_idx}: {desc}")
         for trial_idx, trial_settings in enumerate(trial_settings_list(settings,
                                                                        args.num_repeats)):
-            run_trial(trial_settings, dataset_path, experiment_name=args.experiment_name,
-                      config_idx=config_idx if multi else None,
-                      trial_idx=trial_idx if args.num_repeats > 1 else None,
-                      duration=args.duration, device=args.device)
+            jobs.append(dict(settings=trial_settings, dataset_path=dataset_path,
+                             experiment_name=args.experiment_name,
+                             config_idx=config_idx if multi else None,
+                             trial_idx=trial_idx if args.num_repeats > 1 else None,
+                             duration=args.duration))
+    if args.trial_workers > 1 and len(jobs) > 1:
+        run_trial_pool(jobs, args.trial_workers, args.gpu_ids, args.device)
+        return
+    for job in jobs:
+        run_trial(job.pop("settings"), job.pop("dataset_path"), device=args.device, **job)
+
+
+# A trial pool's child: this module's main, importable from any working directory.
+CHILD = (f"import sys; sys.path.insert(0, {os.path.dirname(os.path.dirname(os.path.abspath(__file__)))!r}); "
+         "from loner_tpu_torch.run_loner import main; main()")
+
+
+def run_trial_pool(jobs: list, workers: int, gpu_ids, device: str) -> None:
+    """Each trial as a child process (``--_trial_spec``), at most ``workers`` at a
+    time, pinned to ``gpu_ids`` in turn; exits 1 if a child failed."""
+    import sys
+    import tempfile
+
+    from loner_tpu_torch.parallel.trial_pool import run_pool
+
+    spec_dir = tempfile.mkdtemp(prefix="loner_trials_")
+    commands = []
+    for j, job in enumerate(jobs):
+        spec_path = os.path.join(spec_dir, f"trial_{j}.pkl")
+        with open(spec_path, "wb") as f:
+            pickle.dump({**job, "settings": job["settings"].as_plain_dict()}, f)
+        commands.append([sys.executable, "-c", CHILD, "--_trial_spec", spec_path,
+                         "--device", device])
+    results = run_pool(commands, workers, devices=gpu_ids, on_start=lambda idx, dev: print(
+        f"trial {idx}: started" + (f" on device {dev}" if dev is not None else ""), flush=True))
+    shutil.rmtree(spec_dir, ignore_errors=True)
+    for r in results:
+        print(f"trial {r.index}: rc={r.returncode} wall={r.wall_s:.1f}s"
+              + (f" device={r.device}" if r.device is not None else ""), flush=True)
+    if any(r.returncode != 0 for r in results):
+        sys.exit(1)
 
 
 if __name__ == "__main__":

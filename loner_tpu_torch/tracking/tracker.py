@@ -44,8 +44,6 @@ class Tracker:
         if self._settings.icp.get("device", None) is not None:
             raise NotImplementedError(
                 "tracker.icp.device is not ported: the ICP runs on the tracker's device")
-        if self._settings.get("debug", {}).get("write_frame_point_clouds", False):
-            raise NotImplementedError("debug.write_frame_point_clouds is not ported")
         self._device = torch.device(device)
         # Higher priority (lower number) than the default stream's mapping work.
         self._stream = (torch.cuda.Stream(self._device, priority=-1)
@@ -179,6 +177,10 @@ class Tracker:
     def _emit_frame(self, frame: Frame) -> None:
         if self._settings.get("compute_sky_rays", False):
             self.compute_sky_rays(frame)
+        if self._settings.get("debug", {}).get("write_frame_point_clouds", False):
+            from loner_tpu_torch.runtime.debug_artifacts import dump_frame_point_cloud
+
+            dump_frame_point_cloud(frame, self._settings.log_directory, frame._id)
         self._frame_signal.emit(frame)
         self._last_tracked_frame_time = frame.get_time()
 

@@ -305,9 +305,17 @@ def test_iterate_optimizer_at_ogm_and_hash_matches_jax(monkeypatch):
 
 
 def test_optimizer_rejects_debug_dumps():
+    """The five debug dumps are ported (tests/test_torch_debug.py): each flag is
+    taken and sets the runners' extras mode as the JAX package's does; a flag
+    the JAX package has not is still refused."""
     cfg = topt.OptimizerConfig(samples_strategy="UNIFORM")
     fcfg = tfield.FieldConfig(encoding_sigma="fourier", fourier_sigma=tfield.FourierConfig(n_freqs=8),
                               sigma_mlp=tfield.MLPConfig(16, 2, 1))
-    with pytest.raises(NotImplementedError):
-        topt.Optimizer(cfg, fcfg, 12.0, np.zeros(3), SCHEDULE, CPU, store_ray=True)
-    topt.Optimizer(cfg, fcfg, 12.0, np.zeros(3), SCHEDULE, CPU, store_ray=False)
+    with pytest.raises(TypeError):
+        topt.Optimizer(cfg, fcfg, 12.0, np.zeros(3), SCHEDULE, CPU, draw_everything=True)
+    for flags, mode in (({}, "none"), ({"log_losses": True}, "none"),
+                        ({"write_ray_point_clouds": True}, "none"), ({"store_ray": True}, "ray"),
+                        ({"store_ray": True, "draw_samples": True}, "full"),
+                        ({"draw_rays_eps": True}, "full")):
+        opt = topt.Optimizer(cfg, fcfg, 12.0, np.zeros(3), SCHEDULE, CPU, **flags)
+        assert opt._extras_mode == mode, flags

@@ -4,8 +4,10 @@
 files; the runner's ``--overrides`` / ``--run_all_combos`` / ``--num_repeats``
 / ``--lite`` / ``--precompile`` trials (each run_trial call's settings, indices
 and arguments, both runners' ``run_trial`` replaced by a recorder); the
-``synthetic`` dataset's directory names and scans; and what the port refuses:
-``--synthetic_dropout`` on the box-room scenes and the multi-device flags.
+``synthetic`` dataset's directory names and scans; the trial pool
+(``--trial_workers``, ``--gpu_ids``: the children's commands and pickled specs,
+both runners' ``run_pool`` replaced by a recorder); and what the port refuses:
+``--synthetic_dropout`` on the box-room scenes.
 """
 import os
 import sys
@@ -152,8 +154,6 @@ def test_build_synthetic_dataset_writes_the_jax_scans(scene, camera, noise, tmp_
     (["synthetic", BASE, "--synthetic_dropout", "0.1"], ValueError),
     (["synthetic", BASE, "--synthetic_scene", "open_sky", "--synthetic_dropout", "0.2"],
      ValueError),
-    (["ds", BASE, "--num_repeats", "2", "--trial_workers", "2"], NotImplementedError),
-    (["ds", BASE, "--gpu_ids", "0", "1"], NotImplementedError),
 ])
 def test_runner_refuses_what_it_does_not_do(argv, error, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
@@ -161,3 +161,51 @@ def test_runner_refuses_what_it_does_not_do(argv, error, tmp_path, monkeypatch):
     with pytest.raises(error):
         trun.main(argv)
     assert not calls and not os.path.exists(tmp_path / "outputs")
+
+
+POOLS = [
+    ["ds", BASE, "--num_repeats", "2", "--trial_workers", "2", "--experiment_name", "pool"],
+    ["ds", BASE, "--overrides", os.path.join(REPO, "cfg", "ablation_study.yaml"),
+     "--trial_workers", "3", "--gpu_ids", "0", "1", "--duration", "4"],
+]
+
+
+@pytest.mark.parametrize("argv", POOLS, ids=["repeats", "sweep_gpu_ids"])
+def test_runner_runs_a_trial_pool_as_jax_does(argv, monkeypatch):
+    """The trial pool (formerly refused): one child a trial, at most
+    --trial_workers at a time, pinned to --gpu_ids; each child's pickled spec
+    holds the JAX runner's trial (settings as a plain dict, dataset, names,
+    indices, duration); the children take the parent's --device. Without
+    --trial_workers, --gpu_ids is not read and the trials run in the process."""
+    import pickle
+
+    from loner_tpu.parallel import trial_pool as jpool
+    from loner_tpu_torch.parallel import trial_pool as tpool
+
+    jrun = _jax_runner()
+    pools = {"jax": [], "port": []}
+    for name, module in (("jax", jpool), ("port", tpool)):
+        def fake_run_pool(commands, workers, devices=None, on_start=None, _n=name, **kw):
+            specs = []
+            for cmd in commands:
+                with open(cmd[cmd.index("--_trial_spec") + 1], "rb") as f:
+                    specs.append(pickle.load(f))
+            pools[_n].append((specs, workers, devices, commands))
+            return [tpool.TrialResult(i, 0, None, 0.0) for i in range(len(commands))]
+        monkeypatch.setattr(module, "run_pool", fake_run_pool)
+    theirs, ours = _record(jrun, monkeypatch), _record(trun, monkeypatch)
+    monkeypatch.setattr(sys, "argv", ["run_loner.py"] + argv)
+    jrun.main()
+    trun.main(argv + ["--device", "cpu"])
+    assert not ours and not theirs  # every trial went to the pool
+    (specs_t, workers_t, devs_t, cmds_t), = pools["port"]
+    (specs_j, workers_j, devs_j, _), = pools["jax"]
+    assert workers_t == workers_j == int(argv[argv.index("--trial_workers") + 1])
+    assert devs_t == devs_j == (["0", "1"] if "--gpu_ids" in argv else None)
+    assert len(specs_t) == len(specs_j) > 1
+    for a, b in zip(specs_t, specs_j):
+        assert _plain(a) == _plain(b)
+    assert all(cmd[-2:] == ["--device", "cpu"] for cmd in cmds_t)
+    # --gpu_ids alone: the trials run here, one after another.
+    trun.main(["ds", BASE, "--gpu_ids", "0", "1"])
+    assert len(ours) == 1

@@ -35,6 +35,7 @@ import os
 import subprocess
 import sys
 import textwrap
+from dataclasses import replace
 from pathlib import Path
 
 import jax
@@ -329,8 +330,21 @@ def test_make_phase_runner_rejects_what_is_not_ported():
     # camera samples it has no camera branch.
     runner = topt.make_phase_runner(cfg_t, fcfg_t, topt.PhaseSettings(freeze_rgb_mlp=False), *args)
     assert not runner.use_camera
-    with pytest.raises(NotImplementedError):
-        topt.make_phase_runner(cfg_t, fcfg_t, topt.PhaseSettings(), *args, extras_mode="ray")
+    # The per-iteration debug record is ported (formerly refused): a "ray" runner
+    # runs and hands one record a dispatch to its sink; an unknown mode raises.
+    uniform = replace(cfg_t, samples_strategy="UNIFORM")
+    runner = topt.make_phase_runner(uniform, fcfg_t, topt.PhaseSettings(), *args,
+                                    extras_mode="ray")
+    dirs, depths, twists = _scans(W)
+    buf = trays.build_window_buffers(dirs, depths, [None] * W, W)
+    gen = torch.Generator().manual_seed(0)
+    log = []
+    out = runner(tfield.init_field_params(gen, fcfg_t, CPU), None, torch.from_numpy(twists),
+                 buf, torch.ones(W), 12.0, torch.zeros(3), 0, gen, num_iterations=2, extras_log=log)
+    assert torch.isfinite(out[3]).all() and len(log) == 2
+    assert log[0]["rays"].shape == (1, W * N_LIDAR, 11) and log[0]["valid"].dtype == bool
+    with pytest.raises(ValueError, match="extras_mode"):
+        topt.make_phase_runner(cfg_t, fcfg_t, topt.PhaseSettings(), *args, extras_mode="all")
 
 
 def test_optimizer_config_from_settings_reads_the_flagship_yaml():
@@ -746,4 +760,74 @@ def test_port_ingests_a_bag_and_sweeps_without_jax_optax_yaml_or_loner_tpu(tmp_p
     proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0 and "ingest boundary ok" in proc.stdout, (
+        proc.stdout + proc.stderr)
+
+
+def test_port_runs_debug_dumps_and_offline_tools_without_jax_yaml_matplotlib_pil_or_cv2(
+        tmp_path):
+    """The debug dumps and the offline tools at the import boundary: a tiny
+    single-threaded SLAM trial with every debug flag on (frame clouds, ray
+    clouds, loss CSVs, store_ray, draw_samples, draw_rays_eps), then
+    ``render_flythrough`` on its checkpoint (frames, video), ``plot_poses``,
+    ``visualize_loss`` and ``write_mjpeg_avi``, with jax, optax, yaml,
+    matplotlib, PIL and cv2 unimportable."""
+    script = textwrap.dedent("""
+        import importlib.abc, os, sys
+        BLOCKED = ("jax", "optax", "yaml", "matplotlib", "PIL", "cv2")
+
+        class Absent(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(f"{name} is not installed")
+                return None
+
+        sys.meta_path.insert(0, Absent())
+        import numpy as np
+        import torch
+        import chip_smoke
+        from loner_tpu_torch.analysis.plot_poses import plot_poses
+        from loner_tpu_torch.analysis.raster_plot import read_plot
+        from loner_tpu_torch.analysis.renderer import render_flythrough
+        from loner_tpu_torch.analysis.video import read_avi_frame_count, write_mjpeg_avi
+        from loner_tpu_torch.common.settings import Settings
+        from loner_tpu_torch.datasets.scan_stream import ScanStreamWriter
+        from loner_tpu_torch.datasets.synthetic import VirtualLidar, generate_sequence
+        from loner_tpu_torch.run_loner import run_trial
+        from loner_tpu_torch.runtime.debug_artifacts import visualize_loss
+
+        torch.set_num_threads(1)
+        root = sys.argv[1]
+        scans, poses, ts, _, _ = generate_sequence(
+            num_scans=12, lidar=VirtualLidar(num_channels=16, num_columns=64), rate_hz=5.0)
+        writer = ScanStreamWriter(os.path.join(root, "ds"))
+        for s in scans:
+            writer.add_scan(s)
+        writer.write_gt(poses, ts)
+        settings = Settings(chip_smoke.debug_slam_settings(os.path.join(root, "out")))
+        settings.augment(chip_smoke.CPU_SLAM_CUT)
+        log_dir = run_trial(settings, os.path.join(root, "ds"), experiment_name="debug",
+                            device="cpu")
+        found = chip_smoke.check_debug_dumps(log_dir)
+        assert found["frames"] >= 2 and found["keyframes"] >= 2, found
+        out = render_flythrough(log_dir, width=16, height=8, steps_between=2, spin_every=1,
+                                spin_steps=2, n_samples=16, device="cpu")
+        n = len(open(os.path.join(out, "frames.txt")).read().split())
+        assert read_avi_frame_count(os.path.join(out, "flythrough.avi")) == (n, (8, 16), 10)
+        _, meta = read_plot(plot_poses(log_dir))
+        assert [s["label"] for s in meta["Series"]] == ["ground truth", "tracked", "optimized"]
+        z = np.linspace(1, 9, 32)[None]
+        visualize_loss(z, np.full((1, 32), 0.1), np.full((1, 32), 0.2), 5.0, 1.0, 0.5, log_dir, 3)
+        frames = [np.full((16, 16, 3), 40 * i, np.uint8) for i in range(3)]
+        assert read_avi_frame_count(write_mjpeg_avi(os.path.join(root, "v.avi"), frames)) == (
+            3, (16, 16), 10)
+        bad = sorted(m for m in sys.modules
+                     if m == "loner_tpu" or m.startswith("loner_tpu."))
+        assert not bad, bad
+        assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        print("debug boundary ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and "debug boundary ok" in proc.stdout, (
         proc.stdout + proc.stderr)
