@@ -143,6 +143,17 @@ nothing of JAX. Phases, each of which raises on failure:
    (d) ``plot_poses``, ``depth_to_warp`` / ``vis_flow`` on (c)'s frames, and
    ``run_loner --num_repeats 2 --trial_workers 2 --gpu_ids 0`` as a child
    process, both trials rc 0, each trial's wall time printed.
+21. Mesh (``system.mesh_devices``, ``parallel/mesh.py``): the flagship's W=8
+   phase (3 iterations) with two gloo ranks sharing the card, eagerly (each rank
+   runs the Fourier pair on its four slots), against the same phase without a
+   mesh (MESH_GATE; the CPU tests' tolerances printed as met or missed); then a
+   one-rank NCCL mesh through the graphs, its collectives captured, equal to the
+   bit to the graphs without a mesh. Prints cards, ranks and backend. With four
+   cards, ``run_mesh_cards`` (called alone, ``python3 -c "import chip_smoke,
+   torch; chip_smoke.run_mesh_cards(torch.device('cuda', 0))"``) times the W=8 iteration of both configurations at 1, 2 and 4 NCCL ranks
+   and on [2, 2] with the gradient all-reduce alone, runs SLAM with
+   ``mesh_devices: 4`` and ``tracker.icp.device: 1`` against one card, and the
+   device and trial pools over the four cards.
 
 Each phase prints its seconds.
 
@@ -154,7 +165,7 @@ count replays (``common/cuda_graphs.py``).
 
 Each path sets every launch count to 0 just before it runs and reads them just
 after (phase 20: the record runs, the debug SLAM run, render_sequence and
-render_flythrough); the kernels' record lists each path's launches (``launches_by_path``)
+render_flythrough; phase 21: each mesh run, rank 0's launches); the kernels' record lists each path's launches (``launches_by_path``)
 and the Fourier pair's times at the sky and courtyard call sizes
 (``at_shapes``). The second-to-last line of output is that JSON record; the
 last is ``{"ok": true, "device": {...}}``.
@@ -1521,8 +1532,11 @@ def run_slam(dev, label: str, settings: dict, sequence: dict, out_dir: str, trai
         placed["icp"] = loner.tracker._last_relative_dev.device
     if "table" in sigma:
         placed["hash table"] = sigma["table"].device
-    if any(d != dev for d in placed.values()):
-        raise RuntimeError(f"SLAM tensors not on {dev}: {placed}")
+    icp_dev = placed.pop("icp", loner.tracker._device)
+    if any(d != dev for d in placed.values()) or icp_dev != loner.tracker._device:
+        raise RuntimeError(f"SLAM tensors not on {dev} (ICP: {loner.tracker._device}): "
+                           f"{placed}, ICP on {icp_dev}")
+    placed["icp"] = icp_dev
 
     from loner_tpu_torch.common.cuda_graphs import pool_bytes
 
@@ -2618,6 +2632,687 @@ def run_breadth(dev, cfg, field_cfg, field, prop) -> dict:
     return launches
 
 
+# Phase 21, the mesh (system.mesh_devices, parallel/mesh.py). The W=8 phase of
+# profile_iteration's configurations on every rank, one process a rank: the
+# sharded program computes the one-card optimisation up to float summation
+# order. MESH_TOL are the CPU tests' tolerances (tests/test_torch_multidevice.py,
+# from tests/test_mesh_sharding.py): the f32 runs are held to them. In bf16 a
+# rank's Fourier backward sums its own points' weight gradients, and where one
+# nearly cancels, Adam turns the other order of summation into a step of up to
+# ~lr (two ranks on an H100: sigma w0 5.0e-5, twists 4.9e-6 after 3 iterations).
+# The gate holds losses and depth_eps to MESH_TOL, and reads, for twists and
+# each parameter, the relative L2 of its difference to one card over its own
+# change in the phase (MESH_GATE). Each limit lies above every sound reading and
+# below every fault's, and every run reads a planted fault (the last rank's
+# gradients left out of the all-reduce) again and fails unless the gate refuses
+# it. On an H100: two ranks twists 4.5e-4, parameters 7.2e-5 at most (the
+# Optimizer's run 3.7e-4, 5.0e-5); one card with its window's slots permuted or
+# its rays shuffled (no mesh: the same function summed in another order) up to
+# 3.4e-4 and 1.2e-4, sigma w0 beyond MESH_TOL in bf16 as on two ranks, f32
+# within it; four ranks ([4] and [2, 2], in f32 and with the plain sigma field
+# too) twists 1.3e-3 and parameters 8.2e-4 at least, because the card's forward
+# of a quarter of the window's rays is not bit-equal to that of all of them
+# (``forward_batch_witness``; half of them is), so the gate refuses four ranks;
+# the planted fault 0.47 and 0.26 at least. A one-rank NCCL mesh, whose collectives
+# are captured in the graphs and sum one term, must equal the run without a mesh
+# to the bit, through the phase runner and through the Optimizer (warm_up, a
+# window, restore, a window, close). The reference's hash table and grid
+# gradients are float atomics in another order on each run (phase 12), so its
+# comparisons are printed only.
+MESH_TOL = {"losses": (2e-5, 2e-6), "twists": (2e-4, 1e-7), "params": (2e-4, 2e-6)}
+MESH_GATE = {"twists": 1e-3, "params": 5e-4}
+MESH_ITERS = 3  # one dispatch of 3, from global step 0
+MESH_TIMED = 30  # iterations through the graphs, timed after the compared phase
+MESH_TRACED = 5  # then traced, for the all-reduce's time inside the graphs
+MESH_ALLREDUCE_REPS = 20
+MESH_SCAN_POINTS = 16384  # points of each keyframe of the Optimizer's windows
+MESH_OPT_SCHEDULE = [{"num_keyframes": -1, "iteration_schedule": [
+    {"num_iterations": MESH_ITERS, "freeze_poses": False, "freeze_sigma_mlp": False}]}]
+MESH_SLAM = {"mesh_devices": 4, "icp_device": 1}  # system.mesh_devices, tracker.icp.device
+
+
+def mesh_configs(config: str, f32: bool = False, plain: bool = False):
+    """profile_iteration's ``config`` at k = 3, one dispatch in flight; ``f32``:
+    the field in f32 (the f32 Fourier pair); ``plain``: the sigma field's plain
+    PyTorch version in place of its kernels."""
+    from dataclasses import replace
+
+    from loner_tpu_torch.analysis.profile_iteration import configs
+
+    cfg, field_cfg = configs(config)
+    cfg = replace(cfg, steps_per_dispatch=3, max_inflight_dispatches=1)
+    if f32:
+        field_cfg = replace(field_cfg, compute_dtype=torch.float32)
+    if plain:
+        field_cfg = replace(field_cfg, sigma_kernel="plain")
+    return cfg, field_cfg
+
+
+def _leave_out_gradients(mesh) -> None:
+    """The planted fault: this rank's gradients are zeroed before the flat
+    all-reduce (the 3-float count reductions and the loss record pass)."""
+    reduce = mesh.all_reduce_
+
+    def all_reduce_(t):
+        if t.numel() > 3:
+            t[:-3].zero_()
+        return reduce(t)
+
+    mesh.all_reduce_ = all_reduce_
+
+
+def mesh_phase(mesh, config: str, graphs: bool, timed: int = 0, dev=None, f32: bool = False,
+               fault: bool = False, plain: bool = False) -> dict:
+    """The W=8 phase of ``config`` (``mesh_configs``) on this rank (``mesh``
+    None: on ``dev`` alone): MESH_ITERS iterations from one seed, their outputs
+    as numpy; ``fault``: with the last rank's gradients left out; ``plain``:
+    through the sigma field's plain version. With
+    ``timed``, ms an iteration through the program over ``timed`` more, the
+    device ms of MESH_TRACED more under torch.profiler (rank 0) with the share of
+    NCCL's kernels, and the flat gradient all-reduce alone (its size, eager,
+    MESH_ALLREDUCE_REPS times)."""
+    import torch.distributed as dist
+
+    from loner_tpu_torch.analysis.profile_iteration import device_events
+    from loner_tpu_torch.mapping.optimizer import Optimizer, PhaseSettings, make_phase_runner
+
+    dev = mesh.device if mesh is not None else dev
+    cfg, field_cfg = mesh_configs(config, f32, plain)
+    buffers, twists = synthetic_window(dev, WINDOW)
+    state = Optimizer(cfg, field_cfg, 12.0, np.zeros(3), [], dev).state
+    if fault and mesh is not None and mesh.rank == mesh.spec.size - 1:
+        _leave_out_gradients(mesh)
+    try:
+        run = make_phase_runner(cfg, field_cfg, PhaseSettings(), WINDOW, buffers.dirs.shape[1],
+                                buffers.sky_dirs.shape[1], dev, graphs=graphs, mesh=mesh)
+        args = (twists, buffers, torch.ones(WINDOW, device=dev), torch.tensor(12.0, device=dev),
+                torch.zeros(3, device=dev))
+        gen = torch.Generator(device=dev).manual_seed(1)
+        before = phase_outputs((state.field_params, state.occ_grid, twists, torch.zeros(0),
+                                torch.zeros(0)))
+        out = phase_outputs(run(state.field_params, state.occ_grid, *args, 0, gen,
+                                num_iterations=MESH_ITERS))
+    finally:
+        if mesh is not None:
+            vars(mesh).pop("all_reduce_", None)
+    res = {"outputs": {k: v.detach().cpu().numpy() for k, v in out.items()},
+           "before": {k: v.detach().cpu().numpy() for k, v in before.items()}}
+    if timed:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        run(state.field_params, state.occ_grid, *args, MESH_ITERS, gen, num_iterations=timed)
+        torch.cuda.synchronize(dev)
+        res["ms"] = 1e3 * (time.perf_counter() - t0) / timed
+
+        def traced():
+            run(state.field_params, state.occ_grid, *args, MESH_ITERS + timed, gen,
+                num_iterations=MESH_TRACED)
+
+        if mesh is None or mesh.rank == 0:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                traced()
+                torch.cuda.synchronize(dev)
+            events = device_events(prof)
+            res["device_ms"] = sum(e.device_time_total for e in events) / 1e3 / MESH_TRACED
+            res["nccl_ms"] = sum(e.device_time_total for e in events
+                                 if "nccl" in e.name.lower()) / 1e3 / MESH_TRACED
+        else:
+            traced()
+        numel = sum(p.numel() for p in run.params) + 3
+        res["allreduce_numel"] = numel
+        if mesh is not None:
+            flat = torch.ones(numel, device=dev)
+            dist.all_reduce(flat)
+            torch.cuda.synchronize(dev)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(MESH_ALLREDUCE_REPS):
+                dist.all_reduce(flat)
+            end.record()
+            torch.cuda.synchronize(dev)
+            res["allreduce_ms"] = start.elapsed_time(end) / MESH_ALLREDUCE_REPS
+    del run
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mesh_follower(mesh, jobs) -> None:
+    """A follower rank of ``run_mesh_jobs``: the same jobs as rank 0, then its stop."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for job in jobs:
+        mesh_phase(mesh, **job)
+    mesh.receive()
+
+
+def run_mesh_jobs(spec, jobs) -> list:
+    """``mesh_phase`` of each job on every rank of a fresh mesh (this process rank
+    0); rank 0's results, each with its launch counts."""
+    from loner_tpu_torch.parallel.mesh import launch
+
+    mesh = launch(spec, _mesh_follower, (jobs,))
+    try:
+        out = []
+        for job in jobs:
+            torch.cuda.synchronize()
+            reset_counts()
+            res = mesh_phase(mesh, **job)
+            torch.cuda.synchronize()
+            res["counts"] = read_counts()
+            out.append(res)
+        return out
+    finally:
+        mesh.close()
+
+
+def _rel_l2(diff: np.ndarray, ref: np.ndarray) -> float:
+    return float(np.linalg.norm(diff.ravel()) / max(np.linalg.norm(ref.ravel()), 1e-30))
+
+
+def mesh_diffs(got: dict, want: dict, before: dict) -> dict:
+    """Per output: the largest |got - want|, equal bits, whether MESH_TOL holds,
+    the relative L2 of the difference (over the output's change ``want -
+    before`` for twists and parameters, over ``want`` for losses and
+    depth_eps), and the gate's verdict: MESH_TOL for losses and depth_eps,
+    MESH_GATE's limit on that relative L2 for twists and parameters."""
+    out = {}
+    for name, w in want.items():
+        kind = name.split()[0] if name.split()[0] in ("losses", "depth_eps", "twists") else "params"
+        diff = np.abs(got[name] - w)
+        rtol, atol = MESH_TOL["losses" if kind == "depth_eps" else kind]
+        rel = _rel_l2(diff, w if kind in ("losses", "depth_eps") else w - before[name])
+        equal = bool(np.array_equal(got[name], w))
+        cpu_tol = bool((diff <= atol + rtol * np.abs(w)).all())
+        out[name] = {"max_abs": float(diff.max()), "equal": equal, "rel_l2": rel,
+                     "cpu_tol": cpu_tol,
+                     "gate": cpu_tol if kind in ("losses", "depth_eps") else
+                     equal or rel <= MESH_GATE[kind]}
+    return out
+
+
+def describe_diffs(diffs: dict) -> str:
+    missed = [k for k, d in diffs.items() if not d["cpu_tol"]]
+    refused = [k for k, d in diffs.items() if not d["gate"]]
+    return (", ".join(f"{k} {d['max_abs']:.3e} (rel L2 {d['rel_l2']:.2e})"
+                      for k, d in diffs.items())
+            + f"; CPU tolerances {'met' if not missed else 'missed by ' + str(missed)}"
+            + f"; MESH_GATE {'met' if not refused else 'refuses ' + str(refused)}")
+
+
+def gate_failures(label: str, diffs: dict, fault: Optional[dict] = None) -> list:
+    """A sound run beyond MESH_GATE, or a planted fault within it, as failures."""
+    failures = []
+    bad = [k for k, d in diffs.items() if not d["gate"]]
+    if bad:
+        failures.append(f"{label}: beyond MESH_GATE in {bad}")
+    if fault is not None and all(d["gate"] for d in fault.values()):
+        failures.append(f"{label}: the planted fault passes MESH_GATE")
+    return failures
+
+
+def order_witness(dev, f32: bool = False, order: Optional[list] = None,
+                  ray_seed: Optional[int] = None) -> dict:
+    """One card, no mesh: the flagship's W=8 phase eagerly from one set of draws,
+    then again with the window's slots in ``order`` (default reversed; buffers,
+    twists and every draw's slot or ray rows) and, with ``ray_seed``, each
+    slot's LiDAR rays shuffled (their ``ray_u`` columns and draw rows): the same
+    function with its sums over the rays taken in another order. Returns the
+    second run's diffs against the first (``mesh_diffs``)."""
+    import dataclasses
+
+    from loner_tpu_torch.mapping.optimizer import (
+        Optimizer, PhaseSettings, draw_step, make_phase_runner, sky_rays_per_slot,
+    )
+    from loner_tpu_torch.mapping.rays import WindowBuffers
+    from loner_tpu_torch.parallel.mesh import SLOT_DRAWS
+
+    cfg, field_cfg = mesh_configs("flagship", f32)
+    buffers, twists = synthetic_window(dev, WINDOW)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    draws = [draw_step(gen, cfg, WINDOW, dev) for _ in range(MESH_ITERS)]
+    n, per = cfg.n_lidar_samples, cfg.n_lidar_samples + sky_rays_per_slot(cfg)
+    slots = torch.tensor(order if order is not None else list(range(WINDOW - 1, -1, -1)),
+                         device=dev)
+    cols = torch.arange(n).expand(WINDOW, n)
+    if ray_seed is not None:
+        shuffle = torch.Generator().manual_seed(ray_seed)
+        cols = torch.stack([torch.randperm(n, generator=shuffle) for _ in range(WINDOW)])
+    cols = torch.cat([cols, torch.arange(n, per).expand(WINDOW, per - n)], 1).to(dev)[slots]
+    rays = (slots[:, None] * per + cols).reshape(-1)
+
+    def moved(name, t):
+        if name not in SLOT_DRAWS:
+            return t[rays]
+        return torch.gather(t[slots], 1, cols[:, :n]) if name == "ray_u" else t[slots]
+
+    runs = []
+    for perm in (None, slots):
+        state = Optimizer(cfg, field_cfg, 12.0, np.zeros(3), [], dev).state
+        run = make_phase_runner(cfg, field_cfg, PhaseSettings(), WINDOW, buffers.dirs.shape[1],
+                                buffers.sky_dirs.shape[1], dev, graphs=False)
+        b, tw, ds = buffers, twists, draws
+        if perm is not None:
+            b = WindowBuffers(*(getattr(buffers, f.name)[perm]
+                                for f in dataclasses.fields(WindowBuffers)))
+            tw = twists[perm]
+            ds = [dataclasses.replace(d, **{
+                f.name: moved(f.name, getattr(d, f.name))
+                for f in dataclasses.fields(d) if getattr(d, f.name) is not None}) for d in draws]
+        out = phase_outputs(run(state.field_params, state.occ_grid, tw, b,
+                                torch.ones(WINDOW, device=dev), torch.tensor(12.0, device=dev),
+                                torch.zeros(3, device=dev), 0, None, num_iterations=MESH_ITERS,
+                                draws=ds))
+        if perm is not None:
+            out["twists"] = out["twists"][torch.argsort(perm)]
+        runs.append({k: v.detach().cpu().numpy() for k, v in out.items()})
+        if perm is None:
+            before = phase_outputs((state.field_params, state.occ_grid, twists, torch.zeros(0),
+                                    torch.zeros(0)))
+            before = {k: v.detach().cpu().numpy() for k, v in before.items()}
+        del run
+    return mesh_diffs(runs[1], runs[0], before)
+
+
+def forward_batch_witness(dev, parts: int = 4, f32: bool = False) -> dict:
+    """One card, no mesh: the first iteration's forward of the flagship's W=8
+    window in one batch and in ``parts`` contiguous batches of its rays (what
+    each rank of a ``parts``-rank mesh computes), from the same draws and
+    state. Returns how many rays' JS score and sample depths differ in any bit,
+    the largest differences, and how many rays fall on the two sides of the JS
+    threshold (``min_js_score``, where the loss's margin jumps)."""
+    from loner_tpu_torch.mapping.loss import compute_lidar_loss
+    from loner_tpu_torch.mapping.optimizer import Optimizer, draw_step, sky_rays_per_slot
+    from loner_tpu_torch.mapping.rays import sample_and_build_rays
+    from loner_tpu_torch.models.rendering import ProposalRaySampler
+
+    cfg, field_cfg = mesh_configs("flagship", f32)
+    buffers, twists = synthetic_window(dev, WINDOW)
+    params = Optimizer(cfg, field_cfg, 12.0, np.zeros(3), [], dev).state
+    d = draw_step(torch.Generator(device=dev).manual_seed(1), cfg, WINDOW, dev)
+    scale, shift = torch.tensor(12.0, device=dev), torch.zeros(3, device=dev)
+    with torch.no_grad():
+        rays, depths, valid = sample_and_build_rays(
+            buffers, twists, scale, shift, cfg.ray_range, cfg.n_lidar_samples,
+            sky_rays_per_slot(cfg), u=d.ray_u, sky_u=d.sky_u)
+
+        def forward(rows):
+            rows_of = (lambda t: None if t is None else t[rows])
+            _, aux = compute_lidar_loss(
+                rays[rows], depths[rows], valid[rows], params.field_params, field_cfg,
+                ProposalRaySampler(n_ctrl=cfg.prop_n_ctrl or None), params.occ_grid, cfg.loss,
+                scale, cfg.n_samples_per_ray, cfg.perturb, cfg.raw_noise_std, 0.0, 0.0,
+                jitter=rows_of(d.jitter), noise=rows_of(d.noise), pdf_u=rows_of(d.pdf_u))
+            return aux["js_score"], aux["z_m"]
+
+        js, z = forward(slice(None))
+        k = rays.shape[0] // parts
+        pieces = [forward(slice(i * k, (i + 1) * k)) for i in range(parts)]
+    js_p, z_p = torch.cat([p[0] for p in pieces]), torch.cat([p[1] for p in pieces])
+    threshold = cfg.loss.min_js_score
+    return {"rays": int(rays.shape[0]), "parts": parts,
+            "js_rays_differ": int((js != js_p).sum()),
+            "z_rays_differ": int((z != z_p).any(dim=1).sum()),
+            "js_max_abs": float((js - js_p).abs().max()),
+            "z_max_abs": float((z - z_p).abs().max()),
+            "threshold_crossings": int(((js < threshold) != (js_p < threshold)).sum())}
+
+
+def mesh_keyframes(n: int) -> list:
+    """``n`` keyframes of MESH_SCAN_POINTS unit directions at depths in [1.5,
+    9.5] m and small poses, from a seed."""
+    from loner_tpu_torch.common.frame import Frame
+    from loner_tpu_torch.common.pose import Pose
+    from loner_tpu_torch.common.sensors import LidarScan
+    from loner_tpu_torch.mapping.keyframe import KeyFrame
+
+    rng = np.random.default_rng(3)
+    out = []
+    for i in range(n):
+        d = rng.normal(size=(3, MESH_SCAN_POINTS))
+        d /= np.linalg.norm(d, axis=0, keepdims=True)
+        frame = Frame(LidarScan(d.astype(np.float32),
+                                rng.uniform(1.5, 9.5, MESH_SCAN_POINTS).astype(np.float32),
+                                100.0 + 0.1 * i + np.linspace(0.0, 0.1, MESH_SCAN_POINTS)))
+        frame._lidar_pose = Pose.from_twist(rng.normal(0.0, 0.02, 6))
+        out.append(KeyFrame(frame))
+    return out
+
+
+def mesh_optimizer_run(dev, spec, ckpt) -> dict:
+    """The Optimizer as the mapper drives it, under ``spec`` (None: no mesh):
+    warm_up, a window of WINDOW keyframes, restore(``ckpt``), the window again,
+    close. Returns each window's losses, depth_eps and twists, the state after
+    the restore ("before") and at the end, and the late captures."""
+    from loner_tpu_torch.mapping.optimizer import Optimizer
+
+    cfg, field_cfg = mesh_configs("flagship")
+    opt = Optimizer(cfg, field_cfg, 12.0, np.zeros(3), MESH_OPT_SCHEDULE, dev, seed=5,
+                    skip_pose_refinement=False, mesh=spec)
+    out, before = {}, {}
+    try:
+        opt.warm_up(MESH_SCAN_POINTS)
+        for n in (1, 2):
+            if n == 2:
+                opt.restore(ckpt["network_state_dict"], ckpt["occ_model_state_dict"], 40, 1)
+            kfs = mesh_keyframes(WINDOW)
+            before[f"twists {n}"] = np.stack([kf.pose_twist() for kf in kfs])
+            state = {k: v.detach().cpu().numpy() for k, v in phase_outputs(
+                (opt.state.field_params, opt.state.occ_grid, torch.zeros(0), torch.zeros(0),
+                 torch.zeros(0))).items()}
+            opt.iterate_optimizer(kfs)
+            out[f"losses {n}"] = opt.last_losses.copy()
+            out[f"depth_eps {n}"] = opt.last_depth_eps.copy()
+            out[f"twists {n}"] = np.stack([kf.pose_twist() for kf in kfs]).astype(np.float32)
+        for name, v in phase_outputs((opt.state.field_params, opt.state.occ_grid, torch.zeros(0),
+                                      torch.zeros(0), torch.zeros(0))).items():
+            if name not in ("losses", "depth_eps", "twists"):
+                out[name] = v.detach().cpu().numpy()
+                before[name] = state[name]
+        late = opt.late_captures
+    finally:
+        opt.close()
+    return {"outputs": out, "before": before, "late": late}
+
+
+def mesh_on_one_card(dev, specs) -> tuple:
+    """Gloo meshes of ``specs`` whose ranks all share ``dev``: the flagship's W=8
+    phase eagerly on each, in bf16 held to MESH_GATE, in f32 to MESH_TOL, and
+    with the planted fault, which the gate must refuse. Returns ({"readings",
+    "launches"}, failures)."""
+    readings, launches, failures = {}, {}, []
+    jobs = [{"config": "flagship", "graphs": False},
+            {"config": "flagship", "graphs": False, "f32": True},
+            {"config": "flagship", "graphs": False, "fault": True}]
+    ones = [mesh_phase(None, dev=dev, **jobs[0]), mesh_phase(None, dev=dev, **jobs[1])]
+    for spec in specs:
+        name = f"gloo {spec.size} ranks" + (f" {list(spec.shape)}" if spec.two_axes else "")
+        t0 = time.perf_counter()
+        sound, f32, fault = run_mesh_jobs(spec, jobs)
+        for label, res, one in (("bf16", sound, ones[0]), ("f32", f32, ones[1]),
+                                ("bf16, planted fault", fault, ones[0])):
+            diffs = mesh_diffs(res["outputs"], one["outputs"], one["before"])
+            readings[f"{name} {label}"] = diffs
+            print(f"mesh: cards {torch.cuda.device_count()}, {name} on one card, eager; flagship "
+                  f"W={WINDOW} {label}, {MESH_ITERS} iterations; against one card: "
+                  f"{describe_diffs(diffs)}; launches {res['counts']}", flush=True)
+        print(f"mesh: {name}: three jobs in {time.perf_counter() - t0:.3f} s with the spawn",
+              flush=True)
+        failures += gate_failures(f"{name} bf16", readings[f"{name} bf16"],
+                                  readings[f"{name} bf16, planted fault"])
+        if not all(d["cpu_tol"] for d in readings[f"{name} f32"].values()):
+            failures.append(f"{name} f32: beyond the CPU tests' tolerances")
+        launches[f"mesh {name}, one card"] = sound["counts"]
+        launches[f"mesh {name}, one card, f32"] = f32["counts"]
+        for label, res, kernel in (("bf16", sound, "fourier_mlp_fwd"),
+                                   ("f32", f32, "fourier_mlp_fwd_f32")):
+            if min(res["counts"][kernel], res["counts"][kernel.replace("fwd", "bwd")]) < MESH_ITERS:
+                failures.append(f"{name} {label}: launches {res['counts']}")
+    return {"readings": readings, "launches": launches}, failures
+
+
+def run_mesh(dev) -> dict:
+    """Phase 21 on one card: (a) two gloo ranks sharing the card run the
+    flagship's W=8 phase eagerly (each rank's Fourier pair on its half of the
+    window): in bf16 held to MESH_GATE, in f32 to MESH_TOL, and with the planted
+    fault, which the gate must refuse; (b) the slot-reversed witness on one card;
+    (c) a one-rank NCCL mesh through the graphs, its collectives captured, equal
+    to the bit to the graphs without a mesh; (d) the Optimizer on that one-rank
+    mesh, equal to the bit to the Optimizer without one, and on the two gloo
+    ranks (spawned by the Optimizer, eagerly), held to MESH_GATE. Returns each
+    path's launches and the readings."""
+    from loner_tpu_torch.common.world_cube import WorldCube
+    from loner_tpu_torch.mapping.mapper import build_ckpt
+    from loner_tpu_torch.mapping.optimizer import Optimizer
+    from loner_tpu_torch.parallel.mesh import make_mesh
+
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    launches, failures, readings = {}, [], {}
+    cards = torch.cuda.device_count()
+    gloo, nccl = make_mesh(2, devices=[dev, dev]), make_mesh(1, dev)
+
+    shared, more = mesh_on_one_card(dev, [gloo])
+    readings.update(shared["readings"])
+    launches.update(shared["launches"])
+    failures += more
+
+    for label, f32_witness in (("bf16", False), ("f32", True)):
+        diffs = order_witness(dev, f32_witness)
+        readings[f"one card, slots reversed, {label}"] = diffs
+        print(f"mesh witness: one card, no mesh, flagship W={WINDOW} {label} with the window's "
+              f"slots reversed, against the window in order: {describe_diffs(diffs)}", flush=True)
+
+    job = {"config": "flagship", "graphs": True}
+    one = mesh_phase(None, dev=dev, **job)
+    (res,) = run_mesh_jobs(nccl, [job])
+    diffs = mesh_diffs(res["outputs"], one["outputs"], one["before"])
+    bits = all(d["equal"] for d in diffs.values())
+    print(f"mesh: cards {cards}, ranks {nccl.size}, backend {nccl.backend}, graphs; flagship "
+          f"W={WINDOW}, {MESH_ITERS} iterations; against one card: equal bits {bits}; launches "
+          f"{res['counts']}", flush=True)
+    if not bits:
+        failures.append(f"nccl 1 rank: differs from one card in "
+                        f"{[k for k, d in diffs.items() if not d['equal']]}")
+    if min(res["counts"]["fourier_mlp_fwd"], res["counts"]["fourier_mlp_bwd"]) < MESH_ITERS:
+        failures.append(f"nccl 1 rank: launches {res['counts']}")
+    launches["mesh nccl 1 rank"] = res["counts"]
+
+    cfg, field_cfg = mesh_configs("flagship")
+    src = Optimizer(cfg, field_cfg, 12.0, np.zeros(3), MESH_OPT_SCHEDULE, dev, seed=9)
+    ckpt = build_ckpt(src.state.field_params, src.state.occ_grid, [],
+                      WorldCube(scale_factor=12.0, shift=np.zeros(3)), 40)
+    del src
+    alone = mesh_optimizer_run(dev, None, ckpt)
+    for label, spec in (("nccl 1 rank", nccl), ("gloo 2 ranks", gloo)):
+        t0 = time.perf_counter()
+        reset_counts()
+        res = mesh_optimizer_run(dev, spec, ckpt)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        diffs = mesh_diffs(res["outputs"], alone["outputs"], alone["before"])
+        bits = all(d["equal"] for d in diffs.values())
+        readings[f"Optimizer {label}"] = diffs
+        print(f"mesh Optimizer: {label} ({spec.backend}), warm_up, window, restore, window, "
+              f"close in {time.perf_counter() - t0:.3f} s; against no mesh: equal bits {bits}, "
+              f"{describe_diffs(diffs)}; late captures {res['late']}; launches on rank 0 "
+              f"{counts}", flush=True)
+        launches[f"mesh Optimizer {label}"] = counts
+        if spec.size == 1 and not bits:
+            failures.append(f"Optimizer {label}: differs from no mesh in "
+                            f"{[k for k, d in diffs.items() if not d['equal']]}")
+        if spec.size > 1:
+            failures += gate_failures(f"Optimizer {label}", diffs)
+        if res["late"] or min(counts["fourier_mlp_fwd"], counts["fourier_mlp_bwd"]) < 2 * MESH_ITERS:
+            failures.append(f"Optimizer {label}: late captures {res['late']}, launches {counts}")
+    if failures:
+        raise RuntimeError("mesh: " + "; ".join(failures))
+    return {"launches": launches, "readings": readings}
+
+
+def topology() -> str:
+    """Every card's name and power limit, ``nvidia-smi topo -m`` and ``nvlink
+    --status`` (or why they failed), and which cards can reach each other's
+    memory."""
+    out = []
+    for args in (["--query-gpu=index,name,power.limit", "--format=csv,noheader"],
+                 ["topo", "-m"], ["nvlink", "--status"]):
+        try:
+            run = subprocess.run(["nvidia-smi", *args], capture_output=True, text=True,
+                                 timeout=60)
+            out.append(f"nvidia-smi {' '.join(args)} (rc {run.returncode}):\n"
+                       + (run.stdout + run.stderr).strip())
+        except (OSError, subprocess.SubprocessError) as e:
+            out.append(f"nvidia-smi {' '.join(args)} failed: {e}")
+    n = torch.cuda.device_count()
+    return "\n".join(out) + "\npeer access: " + " ".join(
+        f"{i}->{j} {int(torch.cuda.can_device_access_peer(i, j))}"
+        for i in range(n) for j in range(n) if i != j)
+
+
+def mesh_iterations(dev) -> tuple:
+    """Four cards, (c): the W=8 phase through the graphs on 1 card (no mesh), 4
+    NCCL ranks and [2, 2]: both configurations timed (ms an iteration, the
+    device ms traced and NCCL's kernels in it, the gradient all-reduce's ms
+    alone), and the flagship also in f32 (held to MESH_TOL) and with the
+    planted fault (which MESH_GATE must refuse); the outputs against one card,
+    the flagship's bf16 gated. Returns (record, failures)."""
+    from loner_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+
+    timed = [{"config": c, "graphs": True, "timed": MESH_TIMED} for c in ("flagship", "reference")]
+    checks = [{"config": "flagship", "graphs": True, "f32": True},
+              {"config": "flagship", "graphs": True, "fault": True}]
+    ones = {"flagship": mesh_phase(None, dev=dev, **timed[0]),
+            "reference": mesh_phase(None, dev=dev, **timed[1]),
+            "flagship f32": mesh_phase(None, dev=dev, **checks[0])}
+    record, failures = {}, []
+    for config in ("flagship", "reference"):
+        one = ones[config]
+        record[f"{config} 1 card"] = {k: one[k] for k in ("ms", "device_ms", "allreduce_numel")}
+        print(f"mesh {config}: 1 card, no mesh: {one['ms']:.3f} ms an iteration through the "
+              f"graphs ({MESH_TIMED} iterations), device {one['device_ms']:.3f} ms traced",
+              flush=True)
+    for label, spec in (("4 ranks", make_mesh(4, dev)), ("[2, 2]", make_mesh_2d(2, 2, dev))):
+        jobs = timed + checks
+        t0 = time.perf_counter()
+        results = run_mesh_jobs(spec, jobs)
+        print(f"mesh {label}: {len(jobs)} jobs in {time.perf_counter() - t0:.1f} s with the spawn "
+              "and the teardown", flush=True)
+        for job, res in zip(jobs, results):
+            name = job["config"] + (" f32" if job.get("f32") else "") + (
+                " planted fault" if job.get("fault") else "")
+            one = ones[job["config"] + (" f32" if job.get("f32") else "")]
+            diffs = mesh_diffs(res["outputs"], one["outputs"], one["before"])
+            rec = {"counts": res["counts"], "diffs": diffs}
+            line = f"mesh {name}: {label} ({spec.backend})"
+            if "ms" in res:
+                rec.update({k: res[k] for k in ("ms", "device_ms", "nccl_ms", "allreduce_ms",
+                                                "allreduce_numel")})
+                line += (f": {res['ms']:.3f} ms an iteration through the graphs (1 card "
+                         f"{one['ms']:.3f}); traced on rank 0: device {res['device_ms']:.3f} ms, "
+                         f"NCCL kernels {res['nccl_ms']:.4f} ms; gradient all-reduce of "
+                         f"{res['allreduce_numel']} floats {res['allreduce_ms']:.4f} ms alone")
+            print(f"{line}; against one card: {describe_diffs(diffs)}; launches on rank 0 "
+                  f"{res['counts']}", flush=True)
+            record[f"{name} {label}"] = rec
+        fault = record.get(f"flagship planted fault {label}")
+        failures += gate_failures(f"flagship {label}", record[f"flagship {label}"]["diffs"],
+                                  fault["diffs"] if fault else None)
+        f32 = record.get(f"flagship f32 {label}")
+        if f32 and not all(d["cpu_tol"] for d in f32["diffs"].values()):
+            failures.append(f"flagship f32 {label}: beyond the CPU tests' tolerances")
+    return record, failures
+
+
+def mesh_slam(dev, root: str, sequence: dict) -> dict:
+    """Four cards, (a): threaded SLAM at the flagship's settings on ``sequence``,
+    on one card and with ``system.mesh_devices: 4`` and ``tracker.icp.device:
+    1`` (run_slam's checks, ATE gated). Returns each run's numbers."""
+    record = {}
+    for label, on_mesh in (("flagship 1card", False), ("flagship mesh4 icp1", True)):
+        settings = flagship_slam_settings("")
+        if on_mesh:
+            settings["system"]["mesh_devices"] = MESH_SLAM["mesh_devices"]
+            settings["tracker"]["icp"]["device"] = MESH_SLAM["icp_device"]
+        t0 = time.perf_counter()
+        slam = run_slam(dev, label, settings, sequence, os.path.join(root, label.split()[1]),
+                        ("fourier_mlp_fwd", "fourier_mlp_bwd"), ("composite", "fourier_mlp_fwd"),
+                        "pallas")
+        record[label] = {k: slam[k] for k in ("rtf", "boot_ms", "win_ms", "track_p50_ms",
+                                              "track_p95_ms", "ate", "graphs", "counts")}
+        print(f"SLAM {label}: {time.perf_counter() - t0:.1f} s with its checks", flush=True)
+    return record
+
+
+def mesh_pools(dev, root: str, sequence: dict) -> tuple:
+    """Four cards, (b): ``run_loner --num_repeats 4 --trial_workers 4 --gpu_ids 0 1
+    2 3`` on POOL_SECONDS of ``sequence`` (each child's wall), then
+    ``render_flythrough`` of a 4-iteration slice's field over every card.
+    Returns (record, failures)."""
+    from loner_tpu_torch.analysis.renderer import render_flythrough
+
+    record, failures = {}, []
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    pool = subprocess.run(
+        [sys.executable, "-m", "loner_tpu_torch.run_loner", sequence["dataset"],
+         os.path.join(REPO, POOL_CONFIG), "--num_repeats", "4", "--trial_workers", "4",
+         "--gpu_ids", "0", "1", "2", "3", "--duration", str(POOL_SECONDS),
+         "--experiment_name", "pool4", "--device", str(dev)],
+        cwd=root, env=env, capture_output=True, text=True, timeout=900)
+    walls = [line for line in pool.stdout.splitlines()
+             if line.startswith("trial ") and "rc=" in line]
+    record["trial pool"] = {"rc": pool.returncode, "s": time.perf_counter() - t0, "children": walls}
+    print(f"trial pool on 4 cards: rc {pool.returncode} in {record['trial pool']['s']:.3f} s; "
+          + "; ".join(walls), flush=True)
+    if pool.returncode != 0 or len(walls) != 4 or not all("rc=0" in w for w in walls):
+        failures.append("trial pool: " + pool.stdout[-1500:] + pool.stderr[-1500:])
+    cfg, field_cfg = flagship_configs()
+    _, field, prop = run_slice(dev, cfg, field_cfg, n_iters=4)
+    exp = os.path.join(root, "experiment")
+    write_experiment(exp, field, prop, field_cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    fly_dir = render_flythrough(exp, width=FRAME[0], height=FRAME[1], device=dev, **FLYTHROUGH)
+    fly_s = time.perf_counter() - t0
+    frames = open(os.path.join(fly_dir, "frames.txt")).read().split()
+    record["flythrough"] = {"frames": len(frames), "s": fly_s, "counts": read_counts()}
+    print(f"render_flythrough over {torch.cuda.device_count()} cards: {len(frames)} frames "
+          f"of {FRAME[0]} x {FRAME[1]} x 512 samples in {fly_s:.3f} s "
+          f"({len(frames) / fly_s:.3f} frames/s), launches {record['flythrough']['counts']}",
+          flush=True)
+    if len(frames) != 12:
+        failures.append(f"render_flythrough: {len(frames)} frames")
+    return record, failures
+
+
+def run_mesh_cards(dev, slam_scans: int = SLAM_SCANS,
+                   stages=("slam", "pools", "iterations")) -> dict:
+    """The mesh on four cards: the topology, then of ``stages`` ``mesh_slam``,
+    ``mesh_pools`` and ``mesh_iterations``, in that order. Every stage runs; the
+    record is printed as one JSON line and the stages' failures are raised at
+    the end."""
+    import tempfile
+    import traceback
+
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    if torch.cuda.device_count() < 4:
+        raise RuntimeError(f"run_mesh_cards needs 4 cards, found {torch.cuda.device_count()}")
+    print("topology:\n" + topology(), flush=True)
+    record, failures = {}, []
+
+    def stage(name: str, fn):
+        t0 = time.perf_counter()
+        try:
+            return fn()
+        except Exception as e:  # the later stages still run; raised at the end
+            traceback.print_exc()
+            failures.append(f"{name}: {e}")
+            return None
+        finally:
+            print(f"mesh cards: stage {name} {time.perf_counter() - t0:.1f} s", flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="loner_tpu_torch_mesh_") as root:
+        sequence = write_slam_dataset(os.path.join(root, "dataset"), slam_scans)
+        if "slam" in stages:
+            record["slam"] = stage("SLAM", lambda: mesh_slam(dev, root, sequence))
+        pools = stage("pools", lambda: mesh_pools(dev, root, sequence)) if "pools" in stages else None
+        if pools is not None:
+            record["pools"], more = pools
+            failures += more
+    iterations = (stage("iterations", lambda: mesh_iterations(dev))
+                  if "iterations" in stages else None)
+    if iterations is not None:
+        record["iterations"], more = iterations
+        failures += more
+    print(json.dumps({"mesh_cards": record}, default=str), flush=True)
+    if failures:
+        raise RuntimeError("mesh on four cards: " + "; ".join(failures))
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs only on a GPU",
@@ -2740,6 +3435,8 @@ def main() -> int:
     phase_done("19 (real-data drill)")
     breadth = run_breadth(dev, cfg, field_cfg, field, prop)
     phase_done("20 (run breadth)")
+    mesh = run_mesh(dev)
+    phase_done("21 (mesh)")
     # The f32 pair's record: checked at box_room_camera's render chunk, launched on
     # its SLAM path.
     f32_kernels = camera["kernels"]["fourier_f32_render"]
@@ -2774,6 +3471,7 @@ def main() -> int:
         if "eval_launches" in run:
             paths[name + " eval"] = {step: c for step, c in run["eval_launches"].items()}
     paths.update(breadth)
+    paths.update(mesh["launches"])
     for name in ("sky", "sky off"):
         paths[f"{name} floaters"] = sky[name]["floaters"]["launches"]
         paths[f"{name} floaters 150"] = sky_short[name]["floaters"]["launches"]

@@ -8,7 +8,7 @@ weighted out, not filtered; the sampler's draws and the sigma noise are inputs.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -56,26 +56,39 @@ class LossConfig:
         )
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor,
+                 count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The mean of ``x`` where ``mask``; with ``count`` (a mesh's window count of
+    the mask's ones) this rank's share of the window's mean."""
     mask = mask.to(x.dtype)
-    return (x * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (x * mask).sum() / torch.clamp(mask.sum() if count is None else count, min=1.0)
+
+
+def opaque_rays(depths_cube: torch.Tensor, far: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Rays the depth and opacity terms supervise: a return inside the cube."""
+    return (depths_cube > 0) & (~(depths_cube > far)) & valid
 
 
 def compute_camera_loss(rays, intensities, valid, field_params, field_cfg, sampler, occ_state,
                         n_samples: int, perturb: float, detach_sigma: bool = True,
                         jitter: Optional[torch.Tensor] = None,
-                        pdf_u: Optional[torch.Tensor] = None
+                        pdf_u: Optional[torch.Tensor] = None,
+                        count: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Render the sampled pixel rays through the intensity head (no sigma noise)
     and take the masked MSE against the pixels. ``detach_sigma`` stops its
     gradients into the sigma parameters (the reference's
-    ``detach_rgb_from_sigma``). Returns (mse, rendered rgb (B, C))."""
+    ``detach_rgb_from_sigma``). ``count``: under a mesh, the window's valid
+    camera rays (the MSE is then this rank's share). Returns (mse, rendered rgb
+    (B, C))."""
     result = render_rays(rays, field_params, field_cfg, sampler, n_samples=n_samples,
                          perturb=perturb, raw_noise_std=0.0, occ_state=occ_state, jitter=jitter,
                          pdf_u=pdf_u, sigma_only=False, detach_sigma=detach_sigma)
     rgb = result["rgb"]
     err = (rgb - intensities) ** 2
-    return _masked_mean(err, valid[:, None].expand(err.shape)), rgb
+    if count is not None:
+        count = count * err.shape[1]
+    return _masked_mean(err, valid[:, None].expand(err.shape), count), rgb
 
 
 def compute_lidar_loss(rays, depths_cube, valid, field_params, field_cfg, sampler, occ_state,
@@ -83,16 +96,20 @@ def compute_lidar_loss(rays, depths_cube, valid, field_params, field_cfg, sample
                        raw_noise_std: float, iteration_idx: float, global_step: float,
                        jitter: Optional[torch.Tensor] = None,
                        noise: Optional[torch.Tensor] = None,
-                       pdf_u: Optional[torch.Tensor] = None
+                       pdf_u: Optional[torch.Tensor] = None,
+                       window: Optional[Dict[str, Any]] = None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Render the batch and assemble the total loss. Returns (loss, aux).
     ``jitter`` and ``pdf_u`` are the sampler's draws, ``noise`` the sigma noise.
     ``iteration_idx`` and ``global_step`` are numbers or device scalars (a
-    captured iteration reads them from the device)."""
+    captured iteration reads them from the device). ``window``: under a mesh,
+    the window's counts (``parallel/mesh.py::WindowShard.window_counts``); every
+    mean then divides by them, and ``loss`` and ``aux["depth_eps"]`` are this
+    rank's shares of the window's values."""
     far = rays[:, 10]
     depths_gt_m = depths_cube * world_scale  # meters
-    transparent = depths_cube > far
-    opaque = (depths_cube > 0) & (~transparent) & valid
+    opaque = opaque_rays(depths_cube, far, valid)
+    n_opaque = None if window is None else window["opaque"]
 
     result = render_rays(
         rays, field_params, field_cfg, sampler, n_samples=n_samples, perturb=perturb,
@@ -111,7 +128,7 @@ def compute_lidar_loss(rays, depths_cube, valid, field_params, field_cfg, sample
     js_score = js_divergence_gaussian(depths_gt_m, eps_min / 3.0, mean, std)
 
     depth_pred_m = result["depth"] * world_scale
-    depth_loss = _masked_mean((depth_pred_m - depths_gt_m) ** 2, opaque)
+    depth_loss = _masked_mean((depth_pred_m - depths_gt_m) ** 2, opaque, n_opaque)
 
     sel = cfg.loss_selection
     if sel in ("L1_JS", "L2_JS"):
@@ -119,7 +136,7 @@ def compute_lidar_loss(rays, depths_cube, valid, field_params, field_cfg, sample
         js_c = torch.clamp(js_c, max=cfg.max_js_score)
         eps_dyn = (eps_min * (1.0 + cfg.js_alpha * js_c)).detach()[:, None]  # (B, 1)
         per_ray_eps = eps_dyn[:, 0]
-        depth_eps = eps_dyn.mean()
+        depth_eps = eps_dyn.mean() if window is None else eps_dyn.sum() / window["rays"]
         weights_gt = get_weights_gt(z_m, depths_gt_m[:, None], eps=eps_dyn)
     elif sel in ("L1_LOS", "L2_LOS"):
         if cfg.decay_depth_eps:
@@ -131,6 +148,8 @@ def compute_lidar_loss(rays, depths_cube, valid, field_params, field_cfg, sample
             depth_eps = torch.as_tensor(cfg.depth_eps, dtype=z_m.dtype, device=z_m.device)
         per_ray_eps = depth_eps.expand(depths_gt_m.shape)
         weights_gt = get_weights_gt(z_m, depths_gt_m[:, None], eps=depth_eps)
+        if window is not None:
+            depth_eps = depth_eps * window["share"]
     else:
         raise ValueError(f"Unknown loss selection {sel}")
 
@@ -148,8 +167,9 @@ def compute_lidar_loss(rays, depths_cube, valid, field_params, field_cfg, sample
 
     diff = w_pred - weights_gt
     per_elem = diff.abs() if sel.startswith("L1") else diff * diff
-    los_loss = _masked_mean(per_elem, valid[:, None].expand(per_elem.shape))
-    opacity_loss = _masked_mean((result["opacity"] - 1.0).abs(), opaque)
+    los_loss = _masked_mean(per_elem, valid[:, None].expand(per_elem.shape),
+                            None if window is None else window["valid"] * per_elem.shape[1])
+    opacity_loss = _masked_mean((result["opacity"] - 1.0).abs(), opaque, n_opaque)
     loss = cfg.depthloss_lambda * depth_loss + los_lambda * los_loss + opacity_loss
 
     aux = {

@@ -109,9 +109,12 @@ class Mapper:
         model_type = str(model_cfg.model.get("model_type", "nerf_decoupled"))
         if model_type != "nerf_decoupled":
             raise ValueError(f"unknown model_type {model_type!r}")
-        if int(settings.get("mesh_devices", 0) or 0) > 1 or isinstance(
-                settings.get("mesh_devices"), (list, tuple)):
-            raise NotImplementedError("a device mesh (system.mesh_devices) is not ported")
+        # system.mesh_devices (injected by Loner.start): 0 or absent is one
+        # device, an int N > 1 the 1-D keyframe-slot mesh, [kf, ray] the mesh that
+        # also shards each slot's points (parallel/mesh.py), from this device on.
+        from loner_tpu_torch.parallel.mesh import mesh_from_setting
+
+        mesh = mesh_from_setting(settings.get("mesh_devices", 0), device)
         # The optimiser's full window class is the keyframe window's size; sky
         # rays are on where the tracker segments sky and the schedule samples it.
         opt_cfg = replace(
@@ -132,6 +135,7 @@ class Mapper:
             log_directory=settings.get("log_directory"),
             profile_optimizer=bool(debug.get("profile_optimizer", False)),
             camera_rays=build_camera_geometry(calibration),
+            mesh=mesh,
             **{k: bool(debug.get(k, False)) for k in (
                 "log_losses", "write_ray_point_clouds", "store_ray", "draw_samples",
                 "draw_rays_eps")},
@@ -218,6 +222,10 @@ class Mapper:
         return build_ckpt(opt.state.field_params, opt.state.occ_grid,
                           self._keyframe_manager.get_poses_state(), self._world_cube,
                           opt.state.global_step)
+
+    def close(self) -> None:
+        """Stop the mesh's other ranks, if the mapper runs on a mesh."""
+        self._optimizer.close()
 
     def finish(self) -> None:
         path = f"{self._log_directory}/checkpoints/final.tar"

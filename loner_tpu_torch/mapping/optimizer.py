@@ -29,7 +29,9 @@ import numpy as np
 import torch
 
 from loner_tpu_torch import convert
-from loner_tpu_torch.mapping.loss import LossConfig, compute_camera_loss, compute_lidar_loss
+from loner_tpu_torch.mapping.loss import (
+    LossConfig, compute_camera_loss, compute_lidar_loss, opaque_rays,
+)
 from loner_tpu_torch.mapping.rays import (
     CameraWindowBuffers, DeviceScanPool, WindowBuffers, build_camera_window_buffers,
     build_window_buffers, pack_camera_images, sample_and_build_camera_rays, sample_and_build_rays,
@@ -279,13 +281,17 @@ def iteration_loss(cfg: "OptimizerConfig", field_cfg: FieldConfig, sigma: Dict[s
                    occ_state, twists: torch.Tensor, intensity: Dict[str, Any],
                    buffers: WindowBuffers, world_scale, world_shift: torch.Tensor,
                    draws: StepDraws, it_idx: float = 0.0, global_step: float = 0.0,
-                   camera: Optional[CameraWindowBuffers] = None
+                   camera: Optional[CameraWindowBuffers] = None, shard=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One iteration's forward: rays, samples, field, compositing, the mapping
     loss, (PROPOSAL) the proposal's linear loss and, with ``camera`` buffers,
     ``cameraloss_lambda`` times the camera loss (``aux["camera_loss"]``).
     ``occ_state`` is the OGM grid or the proposal params. Returns (total, aux);
-    ``aux["loss"]`` is the mapping loss alone."""
+    ``aux["loss"]`` is the mapping loss alone.
+
+    ``shard``: a mesh rank's part of the window (``parallel/mesh.py::
+    WindowShard``); ``buffers`` then hold its shard, ``twists`` and ``draws`` the
+    whole window's, and every loss term is this rank's share of the window's."""
     use_prop = cfg.samples_strategy == "PROPOSAL"
     if cfg.samples_strategy == "OGM":
         sampler = OccGridRaySampler()
@@ -293,16 +299,28 @@ def iteration_loss(cfg: "OptimizerConfig", field_cfg: FieldConfig, sigma: Dict[s
         sampler = ProposalRaySampler(n_ctrl=cfg.prop_n_ctrl or None)
     else:
         sampler = UniformRaySampler()
+    tw, gather = twists, None
+    if shard is not None:
+        draws, tw, gather = shard.draws(draws), shard.slot_rows(twists), shard.gather
     rays, depths_cube, valid = sample_and_build_rays(
-        buffers, twists, world_scale, world_shift, cfg.ray_range, cfg.n_lidar_samples,
+        buffers, tw, world_scale, world_shift, cfg.ray_range, cfg.n_lidar_samples,
         sky_rays_per_slot(cfg), u=draws.ray_u, fixed_indices=cfg.rays_strategy == "FIXED",
-        sky_u=draws.sky_u,
+        sky_u=draws.sky_u, gather=gather,
     )
+    window = cam = None
+    if shard is not None:
+        rays, depths_cube, valid = (t[shard.rays] for t in (rays, depths_cube, valid))
+        if camera is not None:
+            cam = _camera_rays(cfg, shard.camera(camera), tw, world_scale, world_shift,
+                               buffers.slot_valid, draws.cam_u)
+            cam = tuple(t[shard.cam_rays] for t in cam)
+        window = shard.window_counts(opaque_rays(depths_cube, rays[:, 10], valid), valid,
+                                     None if cam is None else cam[2])
     loss, aux = compute_lidar_loss(
         rays, depths_cube, valid, {"sigma": sigma, "intensity": intensity}, field_cfg, sampler,
         occ_state, cfg.loss, world_scale, cfg.n_samples_per_ray, cfg.perturb,
         cfg.raw_noise_std, it_idx, global_step, jitter=draws.jitter, noise=draws.noise,
-        pdf_u=draws.pdf_u,
+        pdf_u=draws.pdf_u, window=window,
     )
     if use_prop:
         # Proposal training: the linear loss mean(stop_grad(logits_grad) *
@@ -313,20 +331,30 @@ def iteration_loss(cfg: "OptimizerConfig", field_cfg: FieldConfig, sigma: Dict[s
         logits_grad = get_logits_grad(z_sub, aux["depths_gt_m"][:, None].detach())
         logits_grad = logits_grad * aux["valid"][:, None]
         logits = proposal_logits(occ_state, aux["points"][:, ::sub].detach())
-        denom = torch.clamp(aux["valid"].sum().to(logits.dtype) * z_sub.shape[1], min=1.0)
+        n_valid = aux["valid"].sum().to(logits.dtype) if window is None else window["valid"]
+        denom = torch.clamp(n_valid * z_sub.shape[1], min=1.0)
         loss = loss + (logits_grad * logits).sum() / denom
     if camera is not None:
-        cam_rays, cam_intens, cam_valid = sample_and_build_camera_rays(
-            camera, twists, world_scale, world_shift, cfg.ray_range, cfg.n_camera_samples,
-            buffers.slot_valid, draws.cam_u, detach_poses=cfg.detach_rgb_from_poses)
+        if cam is None:
+            cam = _camera_rays(cfg, camera, twists, world_scale, world_shift, buffers.slot_valid,
+                               draws.cam_u)
+        cam_rays, cam_intens, cam_valid = cam
         cam_mse, _ = compute_camera_loss(
             cam_rays, cam_intens, cam_valid, {"sigma": sigma, "intensity": intensity}, field_cfg,
             sampler, occ_state, cfg.n_samples_per_ray, cfg.perturb,
             detach_sigma=cfg.detach_rgb_from_sigma, jitter=draws.cam_jitter,
-            pdf_u=draws.cam_pdf_u)
+            pdf_u=draws.cam_pdf_u, count=None if window is None else window["camera"])
         aux["camera_loss"] = cam_mse
         loss = loss + cfg.cameraloss_lambda * cam_mse
     return loss, aux
+
+
+def _camera_rays(cfg: "OptimizerConfig", camera: CameraWindowBuffers, twists: torch.Tensor,
+                 world_scale, world_shift: torch.Tensor, slot_valid: torch.Tensor,
+                 cam_u: torch.Tensor):
+    return sample_and_build_camera_rays(
+        camera, twists, world_scale, world_shift, cfg.ray_range, cfg.n_camera_samples,
+        slot_valid, cam_u, detach_poses=cfg.detach_rgb_from_poses)
 
 
 def make_phase_runner(cfg: OptimizerConfig, field_cfg: FieldConfig, phase: PhaseSettings,
@@ -334,7 +362,7 @@ def make_phase_runner(cfg: OptimizerConfig, field_cfg: FieldConfig, phase: Phase
                       device: torch.device, extras_mode: str = "none",
                       graphs: Optional[bool] = None, window: Optional[WindowBuffers] = None,
                       pool=None, has_camera: bool = True,
-                      camera: Optional[CameraWindowBuffers] = None):
+                      camera: Optional[CameraWindowBuffers] = None, mesh=None):
     """Build the runner of one optimization phase (a ``phase_graph.PhaseProgram``).
 
     ``run_phase(field_params, occ_state, twists, buffers, pose_mask, world_scale,
@@ -347,8 +375,9 @@ def make_phase_runner(cfg: OptimizerConfig, field_cfg: FieldConfig, phase: Phase
     package's signature.
 
     ``graphs``: replay a captured CUDA graph of the iteration (the default on a
-    CUDA device; the CPU has none). ``graphs=False`` on the card runs the same
-    iterations eagerly, for comparisons and profiles. ``window`` and ``pool``:
+    CUDA device, unless a gloo mesh's collectives are in it; the CPU has none).
+    ``graphs=False`` on the card runs the same iterations eagerly, for
+    comparisons and profiles. ``window`` and ``pool``:
     static window buffers and a graph memory pool shared with other runners.
 
     A phase with ``freeze_rgb_mlp: False`` trains the intensity head (its own
@@ -357,6 +386,10 @@ def make_phase_runner(cfg: OptimizerConfig, field_cfg: FieldConfig, phase: Phase
     builds no camera branch) its iterations add the camera loss, and
     ``run_phase`` then takes ``camera=`` buffers (``CameraWindowBuffers``).
     ``camera``: static camera buffers shared with other runners.
+
+    ``mesh``: a running mesh (``parallel/mesh.py::Mesh``) whose ranks each run
+    this runner on the same arguments: each computes its shard of every
+    iteration, and all return the one-device results (see ``PhaseProgram``).
 
     ``extras_mode``: ``"ray"`` records each iteration's rays, depths, JS
     scores, spreads and validity; ``"full"`` adds the sample points, predicted
@@ -372,13 +405,16 @@ def make_phase_runner(cfg: OptimizerConfig, field_cfg: FieldConfig, phase: Phase
     if cfg.rays_strategy not in ("RANDOM", "MASK", "FIXED"):
         raise RuntimeError(f"Can't find rays_selection strategy: {cfg.rays_strategy}")
     device = torch.device(device)
+    # A gloo collective cannot be captured: a gloo mesh on cards runs eagerly.
+    capturable = device.type == "cuda" and (mesh is None or mesh.spec.backend == "nccl")
     if graphs is None:
-        graphs = device.type == "cuda"
-    if graphs and device.type != "cuda":
-        raise ValueError(f"CUDA graphs need a CUDA device, not {device}")
+        graphs = capturable
+    if graphs and not capturable:
+        raise ValueError(f"CUDA graphs need a CUDA device and, under a mesh, NCCL; not {device}"
+                         + ("" if mesh is None else f" with {mesh.spec.backend}"))
     return PhaseProgram(cfg, field_cfg, phase, window_size, device, graphs=graphs,
                         extras_mode=extras_mode, window=window, pool=pool,
-                        has_camera=has_camera, camera=camera)
+                        has_camera=has_camera, camera=camera, mesh=mesh)
 
 
 @dataclass
@@ -413,7 +449,15 @@ class Optimizer:
     (4, 4)), the geometry of the camera branch, or None on a LiDAR-only run
     (camera samples are then disabled, as in the JAX package). A window whose
     schedule trains the intensity head packs its keyframes' images into the
-    window class's static camera buffers, once a keyframe."""
+    window class's static camera buffers, once a keyframe.
+
+    ``mesh``: a ``parallel/mesh.py::MeshSpec`` spreads the mapping over several
+    devices, with this process as rank 0: the constructor spawns the other
+    ranks, each an ``Optimizer`` replica that mirrors this one's ``warm_up``,
+    ``iterate_optimizer`` and ``restore`` (``serve``), and broadcasts the initial
+    state. Under a mesh the KF#1 bootstrap keeps the full window width (the JAX
+    package's rule), only rank 0 logs, and ``close`` stops the other ranks. A
+    follower is built with the running ``Mesh`` it joined."""
 
     def __init__(
         self,
@@ -435,6 +479,7 @@ class Optimizer:
         store_ray: bool = False,
         draw_samples: bool = False,
         draw_rays_eps: bool = False,
+        mesh=None,
     ) -> None:
         self._cfg = cfg
         self._field_cfg = field_cfg
@@ -481,6 +526,101 @@ class Optimizer:
         self.last_camera_losses: Optional[np.ndarray] = None
         self.camera_loss_log: List[np.ndarray] = []  # each keyframe's camera losses
 
+        self._mesh = None
+        if mesh is not None:
+            from loner_tpu_torch.parallel import mesh as mesh_mod
+
+            if self._extras_mode != "none":
+                raise ValueError("store_ray, draw_samples and draw_rays_eps are not kept under "
+                                 "a mesh")
+            if isinstance(mesh, mesh_mod.MeshSpec):
+                self._check_mesh(mesh)
+                replica = dict(
+                    cfg=cfg, field_cfg=field_cfg, world_scale=float(world_scale),
+                    world_shift=np.asarray(world_shift, np.float32),
+                    keyframe_schedule=_plain(keyframe_schedule),
+                    skip_pose_refinement=skip_pose_refinement, use_gt_poses=use_gt_poses,
+                    freeze_poses=freeze_poses, seed=seed, camera_rays=camera_rays)
+                mesh = mesh_mod.launch(mesh, serve_replica, (replica,))
+            self._mesh = mesh
+            self._replicate_state()
+
+    @property
+    def mesh(self):
+        """The running mesh (``parallel/mesh.py::Mesh``), or None."""
+        return self._mesh
+
+    def _check_mesh(self, spec) -> None:
+        """The shapes a mesh must divide, before any process starts."""
+        device = self._device
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if torch.device(spec.devices[0]) != device:
+            raise ValueError(f"rank 0 of the mesh is on {spec.devices[0]}, the optimizer on "
+                             f"{self._device}")
+        w = self._cfg.window_size
+        if w % spec.n_kf:
+            raise ValueError(f"window size {w} does not divide over {spec.n_kf} keyframe ranks")
+        per_kf = w // spec.n_kf
+        for what, n in (("rays", self._cfg.n_lidar_samples + sky_rays_per_slot(self._cfg)),
+                        ("camera rays", self._cfg.n_camera_samples)):
+            if (per_kf * n) % spec.n_ray:
+                raise ValueError(f"{per_kf * n} {what} of a keyframe group do not divide over "
+                                 f"{spec.n_ray} ray ranks")
+
+    def _leader(self) -> bool:
+        return self._mesh is not None and self._mesh.rank == 0
+
+    def _state_tensors(self) -> List[torch.Tensor]:
+        out = []
+        for part in ("sigma", "intensity"):
+            tree = self.state.field_params[part]
+            out += [tree["mlp"][k] for k in sorted(tree["mlp"])]
+            if "table" in tree:
+                out.append(tree["table"])
+        occ = self.state.occ_grid
+        if isinstance(occ, dict):
+            out += [occ[k] for k in sorted(occ)]
+        elif occ is not None:
+            out.append(occ)
+        return out
+
+    def _replicate_state(self) -> None:
+        from loner_tpu_torch.parallel.mesh import replicate
+
+        replicate(self._state_tensors(), self._mesh)
+
+    def close(self) -> None:
+        """Stop the mesh's other ranks and leave its group (rank 0; idempotent)."""
+        if self._leader():
+            self._mesh.close()
+
+    def serve(self) -> None:
+        """A follower rank: mirror rank 0's commands until it stops."""
+        while True:
+            msg = self._mesh.receive()
+            cmd = msg["cmd"]
+            if cmd == "stop":
+                return
+            if cmd == "warm_up":
+                self.warm_up(msg["n_points"])
+            elif cmd == "restore":
+                self.state.global_step = msg["global_step"]
+                self._keyframe_count = msg["keyframe_count"]
+                self._replicate_state()
+            elif cmd == "iterate":
+                from loner_tpu_torch.parallel.mesh import broadcast_window
+
+                w, (p, ps) = msg["w"], msg["pads"]
+                if msg["global_step"] != self.state.global_step:
+                    raise RuntimeError(f"rank {self._mesh.rank} at global step "
+                                       f"{self.state.global_step}, rank 0 at {msg['global_step']}")
+                self._run_window(broadcast_window(self._mesh, None, w, p, ps), msg["phases"],
+                                 msg["twists"], msg["masks"], msg["images"])
+                self._keyframe_count += 1
+            else:
+                raise ValueError(f"unknown mesh command {cmd!r}")
+
     def _init_state(self, generator: torch.Generator):
         field_params = init_field_params(generator, self._field_cfg, self._device)
         occ = None
@@ -500,6 +640,10 @@ class Optimizer:
             self.state.occ_grid = convert.occ_state_from_jax(occ_state, self._device)
         self.state.global_step = int(global_step)
         self._keyframe_count = int(keyframe_count)
+        if self._leader():
+            self._mesh.send({"cmd": "restore", "global_step": self.state.global_step,
+                             "keyframe_count": self._keyframe_count})
+            self._replicate_state()
 
     # -- schedule ------------------------------------------------------------
     def _select_schedule(self) -> List[PhaseSettings]:
@@ -528,7 +672,8 @@ class Optimizer:
                 self._cfg, self._field_cfg, phase, w, p, ps, self._device,
                 extras_mode=self._extras_mode,
                 window=self._windows[(w, p, ps)], pool=self.graph_pool,
-                has_camera=self._camera_rays is not None, camera=self._cameras.get(w))
+                has_camera=self._camera_rays is not None, camera=self._cameras.get(w),
+                mesh=self._mesh)
         return self._runner_cache[cache_key]
 
     def _uses_camera(self, phase: PhaseSettings) -> bool:
@@ -553,11 +698,16 @@ class Optimizer:
         return static
 
     def _static_window(self, buffers: WindowBuffers) -> WindowBuffers:
-        """The static buffers of this window class, holding ``buffers``' values.
-        A grown point pad retires the class's smaller buffers and their runners."""
+        """The static buffers of this window class, holding ``buffers``' values
+        (under a mesh: this rank's shard of them). A grown point pad retires the
+        class's smaller buffers and their runners."""
         from loner_tpu_torch.mapping.phase_graph import clone_window, copy_window
 
         key = (buffers.dirs.shape[0], buffers.dirs.shape[1], buffers.sky_dirs.shape[1])
+        if self._mesh is not None:
+            from loner_tpu_torch.parallel.mesh import shard_window_buffers
+
+            buffers = shard_window_buffers(buffers, self._mesh)
         static = self._windows.get(key)
         if static is None:
             stale = [k for k in self._windows if k[0] == key[0]]
@@ -584,9 +734,9 @@ class Optimizer:
         min(k, W) keyframes, so only the item covering KF#1 sees the
         1-keyframe (bootstrap) class; every later one runs the full width."""
         classes = set()
-        if first_kf == 1:
+        if first_kf == 1 and self._mesh is None:
             classes.add(1)
-        if last_kf is None or last_kf >= 2:
+        if last_kf is None or last_kf >= 2 or self._mesh is not None:
             classes.add(self._cfg.window_size)
         return classes
 
@@ -608,6 +758,8 @@ class Optimizer:
                 fourier_mlp._lib()
             if self._cfg.n_camera_samples > 0 and fcfg.encoding_intensity == "hash":
                 hash_grid._lib()
+        if self._leader():  # after the build: the other ranks load what it built
+            self._mesh.send({"cmd": "warm_up", "n_points": int(n_points)})
         rng = np.random.default_rng(0)
         d = rng.normal(size=(3, max(int(n_points), 1))).astype(np.float32)
         d /= np.linalg.norm(d, axis=0, keepdims=True) + 1e-9
@@ -633,10 +785,10 @@ class Optimizer:
         field_params, occ = self._init_state(dummy)
         ready = []
         for (_, w), eff in needed.items():
-            buffers = self._static_window(build_window_buffers(
-                [d] * w, [depths] * w, [None] * w, w, device=self._device))
+            full = build_window_buffers([d] * w, [depths] * w, [None] * w, w, device=self._device)
+            buffers = self._static_window(full)
             camera = self._static_camera([None] * w, w) if self._uses_camera(eff) else None
-            runner = self._get_runner(eff, w, buffers.dirs.shape[1], buffers.sky_dirs.shape[1])
+            runner = self._get_runner(eff, w, full.dirs.shape[1], full.sky_dirs.shape[1])
             ready.append(runner.warm_up(
                 field_params, occ, torch.zeros((w, 6), device=self._device), buffers,
                 torch.ones((w,), device=self._device), self._world_scale, self._world_shift,
@@ -662,6 +814,49 @@ class Optimizer:
         dump_ray_point_cloud(rays.cpu().numpy()[v], depths_cube.cpu().numpy()[v],
                              self._log_directory, f"kf_{self._keyframe_count}")
 
+    def _run_window(self, full: WindowBuffers, effective: List[PhaseSettings],
+                    twists: np.ndarray, masks: List[np.ndarray],
+                    images: Optional[List[Optional[np.ndarray]]], extras_log=None):
+        """The phases of one window, from its buffers, twists, pose masks and
+        camera images (None: no camera phase): every rank of a mesh runs this
+        on the same arguments. Returns the twists and the per-phase loss,
+        depth_eps and camera-loss records, on the device."""
+        from loner_tpu_torch.runtime.profiling import optimizer_trace
+
+        w = full.dirs.shape[0]
+        # One copy of the window into its class's static buffers per keyframe.
+        buffers = self._static_window(full)
+        p, ps = full.dirs.shape[1], full.sky_dirs.shape[1]
+        camera = None if images is None else self._static_camera(images, w)
+        # The twists and every phase's pose mask go up in one copy, pinned and
+        # asynchronous on a CUDA device.
+        host = torch.from_numpy(np.concatenate([twists.reshape(-1)] + list(masks)))
+        if self._device.type == "cuda":
+            host = host.pin_memory()
+        up = host.to(self._device, non_blocking=True)
+        tw = up[: w * 6].view(w, 6)
+        all_losses, all_eps, cam_losses = [], [], []
+        with optimizer_trace(self._log_directory, self._profile_optimizer, self._keyframe_count):
+            for n, eff in enumerate(effective):
+                runner = self._get_runner(eff, w, p, ps)
+                if runner.graphs and not runner.captured:
+                    self.late_captures += 1
+                    print(f"Mapper: capturing the {eff} program at W={w}, point pad {p} "
+                          f"(late capture {self.late_captures})", flush=True)
+                (self.state.field_params, self.state.occ_grid, tw, losses, eps) = runner(
+                    self.state.field_params, self.state.occ_grid, tw, buffers,
+                    up[w * 6 + n * w : w * 6 + (n + 1) * w], self._world_scale,
+                    self._world_shift, self.state.global_step, self._generator,
+                    num_iterations=eff.num_iterations,
+                    camera=camera if self._uses_camera(eff) else None, extras_log=extras_log,
+                )
+                self.state.global_step += eff.num_iterations
+                all_losses.append(losses)
+                all_eps.append(eps)
+                if runner.last_camera_losses is not None:
+                    cam_losses.append(runner.last_camera_losses)
+        return tw, all_losses, all_eps, cam_losses
+
     # -- main entry ------------------------------------------------------------
     def iterate_optimizer(self, window: list,
                           ray_cloud_u: Optional[torch.Tensor] = None) -> float:
@@ -672,8 +867,6 @@ class Optimizer:
         ``ray_cloud_u``: the (W, n_lidar) uniforms that pick the ray batch that
         ``write_ray_point_clouds`` dumps; by default drawn from a generator
         seeded 0 (the JAX package draws it from ``jax.random.key(0)``)."""
-        from loner_tpu_torch.runtime.profiling import optimizer_trace
-
         start_time = time.time()
         if len(window) == 1:
             window[0].is_anchored = True
@@ -682,18 +875,16 @@ class Optimizer:
 
         m = len(window)
         # A 1-keyframe window (the KF#1 bootstrap) runs a W = 1 runner: the
-        # full width would spend all but one slot on masked-out replicas.
-        w = 1 if m == 1 else self._cfg.window_size
-        # One copy of the window into its class's static buffers per keyframe.
-        buffers = self._static_window(
-            self._scan_pool.build_window(window, w, self._cfg.rays_strategy == "MASK"))
-        p, ps = buffers.dirs.shape[1], buffers.sky_dirs.shape[1]
+        # full width would spend all but one slot on masked-out replicas. Under
+        # a mesh it keeps the full width, whose slots the ranks share.
+        w = 1 if m == 1 and self._mesh is None else self._cfg.window_size
+        full = self._scan_pool.build_window(window, w, self._cfg.rays_strategy == "MASK")
         effective = [self._effective_phase(phase) for phase in phases]
-        camera = None
+        images = None
         if any(self._uses_camera(eff) for eff in effective):
             # Empty slots hold the last keyframe's image, masked by slot validity.
             images = [window[min(i, m - 1)].get_image() for i in range(w)]
-            camera = self._static_camera([None if im is None else im.image for im in images], w)
+            images = [None if im is None else im.image for im in images]
 
         twists = np.zeros((w, 6), np.float32)
         anchored = np.zeros((w,), np.float32)
@@ -709,13 +900,14 @@ class Optimizer:
                 latest_only[m - 1] = 1.0
                 pose_mask = pose_mask * latest_only
             masks.append(pose_mask)
-        # The twists and every phase's pose mask go up in one copy, pinned and
-        # asynchronous on a CUDA device.
-        host = torch.from_numpy(np.concatenate([twists.reshape(-1)] + masks))
-        if self._device.type == "cuda":
-            host = host.pin_memory()
-        up = host.to(self._device, non_blocking=True)
-        twists = up[: w * 6].view(w, 6)
+        if self._leader():
+            from loner_tpu_torch.parallel.mesh import broadcast_window
+
+            self._mesh.send({"cmd": "iterate", "w": w,
+                             "pads": (full.dirs.shape[1], full.sky_dirs.shape[1]),
+                             "phases": effective, "twists": twists, "masks": masks,
+                             "images": images, "global_step": self.state.global_step})
+            broadcast_window(self._mesh, full, w, full.dirs.shape[1], full.sky_dirs.shape[1])
 
         extras_log = None
         if self._extras_mode != "none" and self._log_directory is not None:
@@ -731,26 +923,8 @@ class Optimizer:
                 eps_min=self._cfg.loss.min_depth_eps, js_alpha=self._cfg.loss.js_alpha,
                 max_js_score=self._cfg.loss.max_js_score, store_ray=self._store_ray,
                 draw_samples=self._draw_samples, draw_rays_eps=self._draw_rays_eps)
-        all_losses, all_eps, cam_losses = [], [], []
-        with optimizer_trace(self._log_directory, self._profile_optimizer, self._keyframe_count):
-            for n, eff in enumerate(effective):
-                runner = self._get_runner(eff, w, p, ps)
-                if runner.graphs and not runner.captured:
-                    self.late_captures += 1
-                    print(f"Mapper: capturing the {eff} program at W={w}, point pad {p} "
-                          f"(late capture {self.late_captures})", flush=True)
-                (self.state.field_params, self.state.occ_grid, twists, losses, eps) = runner(
-                    self.state.field_params, self.state.occ_grid, twists, buffers,
-                    up[w * 6 + n * w : w * 6 + (n + 1) * w], self._world_scale,
-                    self._world_shift, self.state.global_step, self._generator,
-                    num_iterations=eff.num_iterations,
-                    camera=camera if self._uses_camera(eff) else None, extras_log=extras_log,
-                )
-                self.state.global_step += eff.num_iterations
-                all_losses.append(losses)
-                all_eps.append(eps)
-                if runner.last_camera_losses is not None:
-                    cam_losses.append(runner.last_camera_losses)
+        twists, all_losses, all_eps, cam_losses = self._run_window(
+            full, effective, twists, masks, images, extras_log)
 
         # One copy to the host for the poses and the phase's loss logs.
         host = torch.cat([twists.reshape(-1)] + all_losses + all_eps + cam_losses).cpu().numpy()
@@ -777,7 +951,7 @@ class Optimizer:
                            self._log_directory, self._keyframe_count, n)
                 start = stop
         if self._write_ray_point_clouds and self._log_directory is not None:
-            self._dump_ray_cloud(buffers, twists, w, ray_cloud_u)
+            self._dump_ray_cloud(full, twists, w, ray_cloud_u)
 
         if not self._use_gt_poses:
             for i, kf in enumerate(window):
@@ -789,3 +963,18 @@ class Optimizer:
                 f.write(f"{num_its},{elapsed}\n")
         self._keyframe_count += 1
         return float(self.last_losses[-1]) if self.last_losses.size else float("nan")
+
+
+def _plain(x):
+    """Settings trees as plain dicts and lists (they cross to other processes)."""
+    if isinstance(x, dict):
+        return {k: _plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_plain(v) for v in x]
+    return x
+
+
+def serve_replica(mesh, replica: dict) -> None:
+    """A mesh follower's life: an ``Optimizer`` replica on its rank's device,
+    serving rank 0's commands."""
+    Optimizer(device=mesh.device, mesh=mesh, **replica).serve()

@@ -59,7 +59,7 @@ from loner_tpu_torch.common.cuda_graphs import CountedGraph
 from loner_tpu_torch.mapping import optimizer as _opt
 from loner_tpu_torch.mapping.rays import CameraWindowBuffers, WindowBuffers
 from loner_tpu_torch.models.losses import get_logits_grad
-from loner_tpu_torch.models.occupancy_grid import occ_grid_update
+from loner_tpu_torch.models.occupancy_grid import occ_grid_grad
 
 HISTORY = 256  # per-iteration records kept on the device between two reads
 WARMUP_ITERS = 2  # eager iterations of each variant before its capture
@@ -108,14 +108,24 @@ class PhaseProgram:
     the graph memory pool its graphs share. ``graph_class``: the graph type
     (``CountedGraph``; the tests pass one that runs on the CPU). ``has_camera``
     and ``camera``: camera geometry exists, and the static camera buffers
-    (shared like ``window``)."""
+    (shared like ``window``).
+
+    ``mesh``: a running mesh (``parallel/mesh.py::Mesh``): the program computes
+    this rank's part of each iteration (``WindowShard``) and all-reduces the
+    window's counts and, in one flat buffer, the gradients and the loss record
+    before the gradient masks and the Adam step. It takes the whole window's
+    buffers and shards them, unless ``window`` is given (then already this
+    rank's shard). Every rank must run the same programs in the same order."""
 
     def __init__(self, cfg, field_cfg, phase, window_size: int, device: torch.device,
                  graphs: bool, extras_mode: str = "none",
                  window: Optional[WindowBuffers] = None, pool=None, graph_class=None,
-                 has_camera: bool = True, camera: Optional[CameraWindowBuffers] = None) -> None:
+                 has_camera: bool = True, camera: Optional[CameraWindowBuffers] = None,
+                 mesh=None) -> None:
         if extras_mode not in EXTRAS:
             raise ValueError(f"unknown extras_mode {extras_mode!r}: one of {tuple(EXTRAS)}")
+        if mesh is not None and extras_mode != "none":
+            raise ValueError("the per-iteration debug record is not kept under a mesh")
         self.cfg = cfg
         self._extras_names = EXTRAS[extras_mode]
         self.extras: Dict[str, torch.Tensor] = {}  # the record's static device tensors
@@ -135,6 +145,13 @@ class PhaseProgram:
         self.use_camera = self._optimize_rgb and cfg.n_camera_samples > 0 and has_camera
         self._camera = camera
         self.last_camera_losses: Optional[torch.Tensor] = None
+        self._shard = None
+        if mesh is not None:
+            from loner_tpu_torch.parallel.mesh import WindowShard
+
+            self._shard = WindowShard(mesh, window_size, cfg.n_lidar_samples,
+                                      _opt.sky_rays_per_slot(cfg),
+                                      cfg.n_camera_samples if self.use_camera else 0)
         self._window = window
         # One pool for the program's graphs unless the caller shares one.
         self.pool = pool if pool is not None or not (graphs and self._cuda) else (
@@ -202,7 +219,7 @@ class PhaseProgram:
         self.scale = torch.zeros((), dtype=torch.float32, device=dev)
         self.shift = torch.zeros((3,), dtype=torch.float32, device=dev)
         if self._window is None:
-            self._window = clone_window(buffers)
+            self._window = clone_window(self._local(buffers))
         self.it = torch.zeros((), dtype=torch.float32, device=dev)  # iteration in the phase
         self.gstep = torch.zeros((), dtype=torch.float32, device=dev)  # global step
         self.slot = torch.zeros((), dtype=torch.int64, device=dev)
@@ -238,7 +255,7 @@ class PhaseProgram:
                 else:
                     dst.copy_(torch.as_tensor(src, dtype=torch.float32))
             if buffers is not self._window:
-                copy_window(self._window, buffers)
+                copy_window(self._window, self._local(buffers))
             self.it.zero_()
             self.gstep.fill_(float(step0))
             self.slot.zero_()
@@ -247,6 +264,13 @@ class PhaseProgram:
                     v.zero_()
             for g, lr in self._decayed:
                 g["lr"].fill_(lr)
+
+    def _local(self, buffers: WindowBuffers) -> WindowBuffers:
+        if self._shard is None:
+            return buffers
+        from loner_tpu_torch.parallel.mesh import shard_window_buffers
+
+        return shard_window_buffers(buffers, self._shard.mesh)
 
     # -- one iteration ----------------------------------------------------------
     def _iteration(self, d, occ_step: bool) -> None:
@@ -263,13 +287,33 @@ class PhaseProgram:
             cfg, self.field_cfg, self.sigma, self.occ,
             self.tw if self._optimize_poses else self.tw.detach(), self.intensity, self._window,
             self.scale, self.shift, d, self.it, self.gstep,
-            camera=self._camera if self.use_camera else None)
+            camera=self._camera if self.use_camera else None, shard=self._shard)
         total.backward()
         # Freezing is a gradient mask: every parameter gets a gradient (zero
         # where frozen), so Adam's moments move as the JAX package's do.
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        # The mapping loss is recorded, not the total with the proposal and
+        # camera terms; the camera loss beside it (0 without a camera branch).
+        cam = aux.get("camera_loss")
+        record = torch.stack([aux["loss"].detach(), aux["depth_eps"].detach().float(),
+                              cam.detach() if cam is not None else torch.zeros_like(aux["loss"])])
+        # The OGM step's gradient, at the forward's sample points (the JAX
+        # package steps the grid after Adam, from the same values).
+        grid_grad = None
+        if occ_step:
+            logits_grad = get_logits_grad(aux["z_m"].detach(), aux["depths_gt_m"][:, None].detach())
+            grid_grad = occ_grid_grad(self.occ, aux["points"], logits_grad * aux["valid"][:, None])
+        if self._shard is not None:
+            # The window's gradients, the grid's in an OGM step, and the record:
+            # one all-reduce of this rank's shares.
+            grads = [p.grad for p in self.params] + ([grid_grad] if occ_step else [])
+            flat = torch.cat([g.reshape(-1) for g in grads] + [record])
+            self._shard.mesh.all_reduce_(flat)
+            for g, v in zip(grads, flat.split([g.numel() for g in grads] + [3])):
+                g.copy_(v.view_as(g))
+            record = flat[-3:]
         self.tw.grad.mul_(self.mask[:, None])
         if not self._optimize_sigma:
             for p in self.sigma_params:
@@ -279,17 +323,7 @@ class PhaseProgram:
             for g, _ in self._decayed:
                 g["lr"].mul_(cfg.lr_gamma)
             if occ_step:
-                # After the Adam step, at the forward's sample points, as the JAX
-                # package updates its grid.
-                logits_grad = get_logits_grad(aux["z_m"].detach(),
-                                              aux["depths_gt_m"][:, None].detach())
-                self.occ.copy_(occ_grid_update(self.occ, aux["points"],
-                                               logits_grad * aux["valid"][:, None], cfg.occ_lr))
-            # The mapping loss is recorded, not the total with the proposal and
-            # camera terms; the camera loss beside it (0 without a camera branch).
-            cam = aux.get("camera_loss")
-            record = torch.stack([aux["loss"].detach(), aux["depth_eps"].detach().float(),
-                                  cam.detach() if cam is not None else torch.zeros_like(aux["loss"])])
+                self.occ.copy_(self.occ - cfg.occ_lr * grid_grad)
             self.history.index_copy_(1, self.slot.view(1), record.view(3, 1))
             self.slot.add_(1)
             self.it.add_(1.0)

@@ -112,7 +112,7 @@ def sample_and_build_rays(buffers: WindowBuffers, twists: torch.Tensor,
                           ray_range: Tuple[float, float], n_lidar: int, n_sky: int,
                           u: Optional[torch.Tensor] = None,
                           fixed_indices: bool = False,
-                          sky_u: Optional[torch.Tensor] = None):
+                          sky_u: Optional[torch.Tensor] = None, gather=None):
     """Sample ray indices per slot and build rays, on the device.
 
     u: (W, n_lidar) uniforms that pick the ray indices (unused with
@@ -122,7 +122,9 @@ def sample_and_build_rays(buffers: WindowBuffers, twists: torch.Tensor,
     Sky rays take the depth ray_range[1] + 1 (transparent supervision), are
     valid where their slot is and has sky directions, and are built from
     detached poses: no pose gradient comes from them. Rays with less than 1 m
-    inside the cube, or whose origin is outside it, are masked.
+    inside the cube, or whose origin is outside it, are masked. ``gather``:
+    ``(buffers, idx) -> (dirs (W, n, 3), depths (W, n))`` in place of the
+    gathers from the buffers (a mesh's ray axis, ``parallel/mesh.py``).
     """
     w = buffers.dirs.shape[0]
     counts = buffers.counts[:, None].long()
@@ -132,8 +134,11 @@ def sample_and_build_rays(buffers: WindowBuffers, twists: torch.Tensor,
         idx = torch.floor(u * counts.to(u.dtype)).long()
     idx = torch.minimum(idx, counts - 1)
 
-    dirs_s = torch.gather(buffers.dirs, 1, idx[..., None].expand(w, n_lidar, 3))
-    depths_m = torch.gather(buffers.depths, 1, idx)
+    if gather is None:
+        dirs_s = torch.gather(buffers.dirs, 1, idx[..., None].expand(w, n_lidar, 3))
+        depths_m = torch.gather(buffers.depths, 1, idx)
+    else:
+        dirs_s, depths_m = gather(buffers, idx)
     valid = buffers.slot_valid[:, None].expand(w, n_lidar)
 
     mats = se3.twist_to_matrix(twists)  # (W, 4, 4), differentiable

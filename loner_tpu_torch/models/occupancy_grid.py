@@ -28,12 +28,18 @@ def interpolate_occ_logits(grid: torch.Tensor, points: torch.Tensor) -> torch.Te
     return out.reshape(shape)
 
 
-def occ_grid_update(grid: torch.Tensor, points: torch.Tensor, logits_grad: torch.Tensor,
-                    lr: float) -> torch.Tensor:
-    """One SGD step on the grid given the upstream gradient at sample points:
-    each point's gradient scattered onto its 8 voxels with the trilinear weights."""
+def occ_grid_grad(grid: torch.Tensor, points: torch.Tensor,
+                  logits_grad: torch.Tensor) -> torch.Tensor:
+    """The grid's gradient from the upstream gradient at sample points: each
+    point's gradient scattered onto its 8 voxels with the trilinear weights."""
     with torch.enable_grad():
         g = grid.detach().requires_grad_(True)
         (grad,) = torch.autograd.grad(interpolate_occ_logits(g, points.detach()), g,
                                       logits_grad.detach())
-    return grid.detach() - lr * grad
+    return grad
+
+
+def occ_grid_update(grid: torch.Tensor, points: torch.Tensor, logits_grad: torch.Tensor,
+                    lr: float) -> torch.Tensor:
+    """One SGD step on the grid given the upstream gradient at sample points."""
+    return grid.detach() - lr * occ_grid_grad(grid, points, logits_grad)

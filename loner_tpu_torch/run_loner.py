@@ -159,68 +159,70 @@ def run_trial(
                      experiment_name=experiment_name, config_idx=config_idx,
                      trial_idx=trial_idx, traj_bounding_box=bbox, log_directory=resume_from)
     loner.start()
+    try:
+        resume_idx = 0
+        if resume_from is not None:
+            from loner_tpu_torch.runtime.resume import resume_run
 
-    resume_idx = 0
-    if resume_from is not None:
-        from loner_tpu_torch.runtime.resume import resume_run
+            resume_idx = resume_run(loner, reader, resume_from)
+            print(f"Resuming {resume_from} at scan {resume_idx}/{len(reader)}")
 
-        resume_idx = resume_run(loner, reader, resume_from)
-        print(f"Resuming {resume_from} at scan {resume_idx}/{len(reader)}")
+        fov = settings.system.lidar_fov
+        if settings.system.get("precompile", False) and len(reader) > 0:
+            # Build the kernels and run every program once before the clock
+            # starts, at the point count the streamed scans will have.
+            scan0 = reader.read_scan(0)
+            if fov.enabled:
+                scan0 = apply_fov_mask(scan0, fov.range)
+            loner.warm_up(len(scan0))
 
-    fov = settings.system.lidar_fov
-    if settings.system.get("precompile", False) and len(reader) > 0:
-        # Build the kernels and run every program once before the clock
-        # starts, at the point count the streamed scans will have.
-        scan0 = reader.read_scan(0)
-        if fov.enabled:
-            scan0 = apply_fov_mask(scan0, fov.range)
-        loner.warm_up(len(scan0))
+        # The camera stream, replayed in time order with the scans.
+        image_files = [] if settings.system.lidar_only else reader.image_files()
+        next_img = 0
+        if resume_idx > 0 and image_files:
+            # Skip the images before the resume by their timestamps, keeping those
+            # within the match tolerance of the first resumed scan's start.
+            resume_start = reader.read_scan(resume_idx).get_start_time()
+            tol = float(settings.tracker.frame_synthesis.get("frame_match_tolerance", 0.01))
+            while (next_img < len(image_files)
+                   and reader.read_image_timestamp(next_img) < resume_start - tol):
+                next_img += 1
 
-    # The camera stream, replayed in time order with the scans.
-    image_files = [] if settings.system.lidar_only else reader.image_files()
-    next_img = 0
-    if resume_idx > 0 and image_files:
-        # Skip the images before the resume by their timestamps, keeping those
-        # within the match tolerance of the first resumed scan's start.
-        resume_start = reader.read_scan(resume_idx).get_start_time()
-        tol = float(settings.tracker.frame_synthesis.get("frame_match_tolerance", 0.01))
-        while (next_img < len(image_files)
-               and reader.read_image_timestamp(next_img) < resume_start - tol):
-            next_img += 1
-
-    gt_offset = None
-    if resume_idx > 0 and reader.gt_interpolator is not None:
-        # The original run's zero-origin offset, its first scan's GT: the first
-        # scan after the resume would re-zero the trajectory mid-sequence.
-        first = reader.read_scan(0).get_start_time()
-        if reader.gt_interpolator.contains(first):
-            gt_offset = reader.gt_interpolator.at(first).inv()
-    start = time.time()
-    init_time = None
-    for scan, gt in reader.iter_from(resume_idx):
-        if init_time is None:
-            init_time = scan.get_start_time()
-        if duration is not None and scan.get_start_time() - init_time > duration:
-            break
-        while next_img < len(image_files):
-            img, img_ts = reader.read_image(next_img)
-            if img_ts > scan.get_start_time():
+        gt_offset = None
+        if resume_idx > 0 and reader.gt_interpolator is not None:
+            # The original run's zero-origin offset, its first scan's GT: the first
+            # scan after the resume would re-zero the trajectory mid-sequence.
+            first = reader.read_scan(0).get_start_time()
+            if reader.gt_interpolator.contains(first):
+                gt_offset = reader.gt_interpolator.at(first).inv()
+        start = time.time()
+        init_time = None
+        for scan, gt in reader.iter_from(resume_idx):
+            if init_time is None:
+                init_time = scan.get_start_time()
+            if duration is not None and scan.get_start_time() - init_time > duration:
                 break
-            loner.process_rgb(Image(img, img_ts))
-            next_img += 1
-        if fov.enabled:
-            scan = apply_fov_mask(scan, fov.range)
-        if len(scan) == 0:
-            continue
-        gt_pose = None
-        if gt is not None:
-            if gt_offset is None:
-                gt_offset = gt.inv()
-            gt_pose = gt_offset * gt
-        loner.process_lidar(scan, gt_pose)
-    ingest_done = time.time()
-    loner.stop()
-    end = time.time()
+            while next_img < len(image_files):
+                img, img_ts = reader.read_image(next_img)
+                if img_ts > scan.get_start_time():
+                    break
+                loner.process_rgb(Image(img, img_ts))
+                next_img += 1
+            if fov.enabled:
+                scan = apply_fov_mask(scan, fov.range)
+            if len(scan) == 0:
+                continue
+            gt_pose = None
+            if gt is not None:
+                if gt_offset is None:
+                    gt_offset = gt.inv()
+                gt_pose = gt_offset * gt
+            loner.process_lidar(scan, gt_pose)
+        ingest_done = time.time()
+        loner.stop()
+        end = time.time()
+    finally:
+        loner.close()
 
     with open(os.path.join(loner.log_directory, "runtime.txt"), "w") as f:
         f.write(f"Runtime: {ingest_done - start}\n")

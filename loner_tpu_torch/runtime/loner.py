@@ -3,7 +3,10 @@
 Counterpart of ``loner_tpu/runtime/loner.py``. One process: the tracker and
 the mapper are host threads joined by the signal bus, on one explicit torch
 device. On a CUDA device the tracker's ICP runs on its own stream beside the
-mapper's work on the default stream. The threads start at the first scan,
+mapper's work on the default stream (on card k with ``tracker.icp.device: k``).
+With ``system.mesh_devices`` the mapper's optimizer spreads over several devices:
+this process is rank 0 and the others are processes the mapper starts and
+``close`` stops (``parallel/mesh.py``). The threads start at the first scan,
 after ``warm_up`` has captured the CUDA graphs (``common/cuda_graphs.py``).
 
 Kept from the JAX package: the signals (LiDAR and rgb [synchronous], frame,
@@ -231,7 +234,14 @@ class Loner:
             self._mapping_thread.join(timeout=30)
         else:
             self._mapper.finish()
+        self.close()
         print("LONER SLAM successfully terminated.")
+
+    def close(self) -> None:
+        """Stop the mapper's mesh ranks (``system.mesh_devices``), if any; the
+        run's end calls it, and so should a caller whose run failed."""
+        if self._mapper is not None:
+            self._mapper.close()
 
     def _run_worker(self, name: str, run) -> None:
         try:

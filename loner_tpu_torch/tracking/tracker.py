@@ -13,7 +13,13 @@ schedule is one captured CUDA graph (``icp.ICPGraph``), captured by
 ``warm_up`` or ``prepare_graphs`` before the worker threads start. Each CUDA
 section of the tracker holds ``cuda_graphs.CAPTURE_LOCK``, so it never runs
 while the mapper captures. Frames carry numpy arrays only: no tensor crosses
-between the two threads.
+between the two threads, nor between cards.
+
+``tracker.icp.device: k`` puts the ICP on card k (``cuda:k``: its clouds, its
+stream, its graph and the chained velocity init), so it need not share the
+mapper's card; the pose comes back to the host as before. On the CPU only 0 is
+valid, and an index the machine does not have raises (the JAX package falls
+back to its default device instead).
 """
 from __future__ import annotations
 
@@ -34,6 +40,23 @@ from loner_tpu_torch.tracking.frame_synthesis import FrameSynthesis
 from loner_tpu_torch.tracking.icp import ICPGraph, ICPResult, run_icp_schedule
 
 
+def icp_device(device: torch.device, index) -> torch.device:
+    """The tracker's ICP device: ``device``, or card ``index`` when
+    ``tracker.icp.device`` is set (on the CPU only 0). Raises for an index the
+    machine does not have."""
+    if index is None:
+        return device
+    index = int(index)
+    if device.type == "cpu":
+        if index != 0:
+            raise ValueError(f"tracker.icp.device: {index} on the CPU (only 0 is valid)")
+        return device
+    count = torch.cuda.device_count()
+    if not 0 <= index < count:
+        raise ValueError(f"tracker.icp.device: {index}, but this machine has {count} cards")
+    return torch.device("cuda", index)
+
+
 class Tracker:
     def __init__(self, settings, rgb_signal: Optional[Signal], lidar_signal: Signal,
                  frame_signal: Signal, device: torch.device) -> None:
@@ -41,10 +64,7 @@ class Tracker:
         self._lidar_slot = lidar_signal.register()
         self._frame_signal = frame_signal
         self._settings = settings.tracker
-        if self._settings.icp.get("device", None) is not None:
-            raise NotImplementedError(
-                "tracker.icp.device is not ported: the ICP runs on the tracker's device")
-        self._device = torch.device(device)
+        self._device = icp_device(torch.device(device), self._settings.icp.get("device", None))
         # Higher priority (lower number) than the default stream's mapping work.
         self._stream = (torch.cuda.Stream(self._device, priority=-1)
                         if self._device.type == "cuda" else None)
@@ -84,8 +104,12 @@ class Tracker:
                           if self._device.type == "cuda" else None)
 
     def _on_stream(self):
-        return torch.cuda.stream(self._stream) if self._stream is not None else (
-            contextlib.nullcontext())
+        if self._stream is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.cuda.device(self._device))
+        stack.enter_context(torch.cuda.stream(self._stream))
+        return stack
 
     def prepare_graphs(self) -> None:
         """Capture the ICP graph (a CUDA device) unless it is captured; the

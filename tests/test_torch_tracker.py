@@ -100,9 +100,11 @@ def test_tracker_matches_jax(pipelined, corrupt):
 
 
 def test_tracker_rejects_what_is_not_ported():
+    # tracker.icp.device is ported (tests/test_torch_multidevice.py): on the CPU
+    # only 0 is a device, and an index the machine does not have raises.
     s = _settings(True)
     s["tracker"]["icp"]["device"] = 1
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="tracker.icp.device"):
         TTracker(TSettings(s), None, TSignal(), TSignal(), torch.device("cpu"))
     # The camera branch is ported: an rgb signal is taken.
     TTracker(TSettings(_settings(True)), TSignal(), TSignal(), TSignal(), torch.device("cpu"))
