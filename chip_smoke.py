@@ -143,17 +143,33 @@ nothing of JAX. Phases, each of which raises on failure:
    (d) ``plot_poses``, ``depth_to_warp`` / ``vis_flow`` on (c)'s frames, and
    ``run_loner --num_repeats 2 --trial_workers 2 --gpu_ids 0`` as a child
    process, both trials rc 0, each trial's wall time printed.
-21. Mesh (``system.mesh_devices``, ``parallel/mesh.py``): the flagship's W=8
-   phase (3 iterations) with two gloo ranks sharing the card, eagerly (each rank
-   runs the Fourier pair on its four slots), against the same phase without a
-   mesh (MESH_GATE; the CPU tests' tolerances printed as met or missed); then a
-   one-rank NCCL mesh through the graphs, its collectives captured, equal to the
-   bit to the graphs without a mesh. Prints cards, ranks and backend. With four
+21. Mesh (``system.mesh_devices``, ``parallel/mesh.py``): the forward of the
+   flagship's W=8 window in one batch against 2 and 4 batches of its rays, op by
+   op (``forward_batch_witness``: the proposal MLP's products, the row sum, the
+   cumsum, the inverse CDF, the sigma field, the compositing, the JS score), in
+   bf16 and f32, no ray of an op the port runs differing in any bit; the
+   flagship's W=8 phase (3 iterations) with two gloo ranks, four and [2, 2]
+   sharing the card, eagerly (each rank runs the Fourier pair on its share),
+   against the same phase without a mesh (MESH_GATE; the CPU tests' tolerances
+   printed as met or missed, and held in f32), with a planted fault MESH_GATE
+   must refuse; then a one-rank NCCL mesh through the graphs, its collectives
+   captured, equal to the bit to the graphs without a mesh. Prints cards, ranks
+   and backend. With four
    cards, ``run_mesh_cards`` (called alone, ``python3 -c "import chip_smoke,
    torch; chip_smoke.run_mesh_cards(torch.device('cuda', 0))"``) times the W=8 iteration of both configurations at 1, 2 and 4 NCCL ranks
    and on [2, 2] with the gradient all-reduce alone, runs SLAM with
    ``mesh_devices: 4`` and ``tracker.icp.device: 1`` against one card, and the
    device and trial pools over the four cards.
+22. The last ports: (a) each field option no config in cfg/ sets, whose path is
+   plain PyTorch (FIELD_OPTIONS: the Fourier encode under ``encode_impl: xla``,
+   the MLPs' autograd under ``mlp_grad: xla``, a Fourier head without its input
+   features, the hash head in bf16), on the card against the CPU at the CPU
+   tests' tolerances; (b) the robustness drill (``robustness_drill.py``):
+   courtyard_tpu_r5f.yaml at its full width, threaded, on the first
+   ROBUSTNESS_SCANS scans of the static courtyard, ``courtyard_actors``, range
+   noise 0.15 m and dropout 0.3 (the phase's one cut), each scored against the
+   static GT map; every figure finite, printed beside the JAX package's TPU
+   record of the whole drive.
 
 Each phase prints its seconds.
 
@@ -165,7 +181,9 @@ count replays (``common/cuda_graphs.py``).
 
 Each path sets every launch count to 0 just before it runs and reads them just
 after (phase 20: the record runs, the debug SLAM run, render_sequence and
-render_flythrough; phase 21: each mesh run, rank 0's launches); the kernels' record lists each path's launches (``launches_by_path``)
+render_flythrough; phase 21: each mesh run, rank 0's launches; phase 22: each
+field option, each drill run's drive and its scoring); the kernels' record lists
+each path's launches (``launches_by_path``)
 and the Fourier pair's times at the sky and courtyard call sizes
 (``at_shapes``). The second-to-last line of output is that JSON record; the
 last is ``{"ok": true, "device": {...}}``.
@@ -2649,11 +2667,12 @@ def run_breadth(dev, cfg, field_cfg, field, prop) -> dict:
 # Optimizer's run 3.7e-4, 5.0e-5); one card with its window's slots permuted or
 # its rays shuffled (no mesh: the same function summed in another order) up to
 # 3.4e-4 and 1.2e-4, sigma w0 beyond MESH_TOL in bf16 as on two ranks, f32
-# within it; four ranks ([4] and [2, 2], in f32 and with the plain sigma field
-# too) twists 1.3e-3 and parameters 8.2e-4 at least, because the card's forward
-# of a quarter of the window's rays is not bit-equal to that of all of them
-# (``forward_batch_witness``; half of them is), so the gate refuses four ranks;
-# the planted fault 0.47 and 0.26 at least. A one-rank NCCL mesh, whose collectives
+# within it; four ranks ([4] and [2, 2]) twists 4.3e-4 and parameters 8.0e-5 at
+# most, f32 within MESH_TOL, now that each ray's forward has the same bits in a
+# rank's quarter of the window as in all of it (``forward_batch_witness``; the
+# proposal MLP's last product, one column, summed each row in an order that
+# depended on the row count: 1.3e-3 and 8.2e-4 before); the planted fault 0.47
+# and 0.26 at least. A one-rank NCCL mesh, whose collectives
 # are captured in the graphs and sum one term, must equal the run without a mesh
 # to the bit, through the phase runner and through the Optimizer (warm_up, a
 # window, restore, a window, close). The reference's hash table and grid
@@ -2669,6 +2688,7 @@ MESH_SCAN_POINTS = 16384  # points of each keyframe of the Optimizer's windows
 MESH_OPT_SCHEDULE = [{"num_keyframes": -1, "iteration_schedule": [
     {"num_iterations": MESH_ITERS, "freeze_poses": False, "freeze_sigma_mlp": False}]}]
 MESH_SLAM = {"mesh_devices": 4, "icp_device": 1}  # system.mesh_devices, tracker.icp.device
+WITNESS_PARTS = (2, 4)  # the window's rays in 2 and in 4 batches: a rank's share on [2], [4]
 
 
 def mesh_configs(config: str, f32: bool = False, plain: bool = False):
@@ -2914,48 +2934,138 @@ def order_witness(dev, f32: bool = False, order: Optional[list] = None,
     return mesh_diffs(runs[1], runs[0], before)
 
 
+def _rows_differ(a: torch.Tensor, b: torch.Tensor, rays: int) -> tuple:
+    """Rays (``rays`` rows of ``a`` and ``b`` reshaped) with any bit different, NaN
+    equal to NaN; and the largest difference."""
+    a, b = a.reshape(rays, -1), b.reshape(rays, -1)
+    differ = (a != b) & ~(a.isnan() & b.isnan())
+    diff = (a - b).abs().nan_to_num(0.0)
+    return int(differ.any(dim=1).sum()), float(diff.max()) if diff.numel() else 0.0
+
+
 def forward_batch_witness(dev, parts: int = 4, f32: bool = False) -> dict:
     """One card, no mesh: the first iteration's forward of the flagship's W=8
     window in one batch and in ``parts`` contiguous batches of its rays (what
-    each rank of a ``parts``-rank mesh computes), from the same draws and
-    state. Returns how many rays' JS score and sample depths differ in any bit,
-    the largest differences, and how many rays fall on the two sides of the JS
-    threshold (``min_js_score``, where the loss's margin jumps)."""
-    from loner_tpu_torch.mapping.loss import compute_lidar_loss
+    each rank of a ``parts``-rank mesh computes), from the same draws and state.
+
+    ``ops``, op by op: each op of the forward, given the one-batch run's input to
+    it, on the whole batch and on each part; the rays whose output differs in any
+    bit and the largest difference. The proposal MLP's last product (one output
+    column) appears twice: as one product (``x @ w``, a gemv; ``port`` False) and
+    in the blocks of RAY_BLOCK rays that ``proposal_logits`` computes. Then the
+    whole forward (``compute_lidar_loss``) in one batch and in parts: how many
+    rays' JS score and sample depths differ, the largest differences, and how many
+    rays fall on the two sides of the JS threshold (``min_js_score``, where the
+    loss's margin jumps). ``first``: the first op whose output differs;
+    ``port_first``: the first of the ops the port runs."""
+    from loner_tpu_torch.mapping.loss import compute_lidar_loss, js_scores
     from loner_tpu_torch.mapping.optimizer import Optimizer, draw_step, sky_rays_per_slot
     from loner_tpu_torch.mapping.rays import sample_and_build_rays
-    from loner_tpu_torch.models.rendering import ProposalRaySampler
+    from loner_tpu_torch.models.field import query_field
+    from loner_tpu_torch.models.proposal import RAY_BLOCK, _OneColumnProduct, proposal_logits
+    from loner_tpu_torch.models.rendering import ProposalRaySampler, _inverse_cdf, raw2outputs
 
     cfg, field_cfg = mesh_configs("flagship", f32)
     buffers, twists = synthetic_window(dev, WINDOW)
     params = Optimizer(cfg, field_cfg, 12.0, np.zeros(3), [], dev).state
     d = draw_step(torch.Generator(device=dev).manual_seed(1), cfg, WINDOW, dev)
     scale, shift = torch.tensor(12.0, device=dev), torch.zeros(3, device=dev)
+    prop, n = params.occ_grid, cfg.n_samples_per_ray
+    sampler = ProposalRaySampler(n_ctrl=cfg.prop_n_ctrl or None)
+    ops = []
     with torch.no_grad():
         rays, depths, valid = sample_and_build_rays(
             buffers, twists, scale, shift, cfg.ray_range, cfg.n_lidar_samples,
             sky_rays_per_slot(cfg), u=d.ray_u, sky_u=d.sky_u)
+        b = rays.shape[0]
+        k = b // parts
+
+        def op(name: str, fn, *inputs, port: bool = True):
+            """``fn`` on the whole of ``inputs`` and on each part of their rays."""
+            whole = fn(*inputs)
+            pieces = []
+            for i in range(parts):
+                rows = [t[i * k * (t.shape[0] // b):(i + 1) * k * (t.shape[0] // b)]
+                        for t in inputs]
+                pieces.append(fn(*rows))
+            n_rays, max_abs = _rows_differ(whole, torch.cat(pieces), b)
+            ops.append({"op": name, "port": port, "rays_differ": n_rays, "max_abs": max_abs})
+            return whole
+
+        # The proposal sampler (models/rendering.py::ProposalRaySampler.get_samples).
+        near, far = rays[:, 9:10], rays[:, 10:11]
+        n_ctrl = cfg.prop_n_ctrl or n // 2
+        steps = torch.linspace(0.0, 1.0, n_ctrl, dtype=rays.dtype, device=dev)
+        z_ctrl = near * (1.0 - steps) + far * steps
+        pts = rays[:, None, 0:3] + rays[:, None, 3:6] * z_ctrl[..., None]
+        flat = pts.reshape(-1, 3)
+        proj = op("bmat projection", lambda x: x @ prop["bmat"], flat)
+        h = torch.cat([torch.sin(proj), torch.cos(proj), flat], dim=-1)
+        last = sum(1 for key in prop if key.startswith("w")) - 1
+        for i in range(last):
+            h = torch.relu(op(f"proposal product {i}", lambda x, w=prop[f"w{i}"]: x @ w, h))
+        w_last = prop[f"w{last}"]
+        op(f"proposal product {last}, one column", lambda x: x @ w_last, h, port=False)
+        op(f"proposal product {last}, in blocks of RAY_BLOCK rays", lambda x: _OneColumnProduct.apply(
+            x, w_last, RAY_BLOCK * n_ctrl), h)
+        logits = op("proposal_logits", lambda x: proposal_logits(prop, x), pts)
+        probs = 2.0 * (torch.clamp(torch.sigmoid(logits), 0.5, 1.0) - 0.5)
+        occ_w = 0.5 * (probs[:, :-1] + probs[:, 1:]) + 1e-5
+        total = op("row sum", lambda x: x.sum(dim=-1, keepdim=True), occ_w)
+        w = 0.5 / (n_ctrl - 1) + 0.5 * (occ_w / total)
+        cdf = op("cumsum", lambda x: torch.cumsum(x, dim=-1), w)
+        cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=-1)
+        q = torch.arange(n, dtype=rays.dtype, device=dev)
+        u = torch.minimum((q[None, :] + d.jitter) / n, cdf[:, -1:])
+        op("_inverse_cdf", lambda c, z, uu, lo, hi: _inverse_cdf(c, z, uu, edges=(lo, hi, steps)),
+           cdf, z_ctrl, u, near, far)
+        z = op("sampler (get_samples)",
+               lambda r, j: sampler.get_samples(r, n, cfg.perturb, prop, j), rays, d.jitter)
+        # The sigma field, the compositing and the JS score on the sampler's depths.
+        points = (rays[:, None, 0:3] + rays[:, None, 3:6] * z[..., None]).reshape(-1, 3)
+        raw = op("sigma field (query_field)",
+                 lambda x: query_field(params.field_params, x, None, field_cfg, sigma_only=True),
+                 points)
+        softplus = field_cfg.density_activation == "softplus"
+        weights = op("compositing (raw2outputs)", lambda r, zz, dd, nn, ff: raw2outputs(
+            r.reshape(zz.shape[0], n, 1), zz, dd, noise=nn, raw_noise_std=cfg.raw_noise_std,
+            softplus=softplus, far=ff)["weights"], raw, z, rays[:, 3:6], d.noise, far)
+        op("JS score", lambda zz, ww, dd: js_scores(zz, ww, dd, cfg.loss.min_depth_eps)[0],
+           z * scale, weights, depths * scale)
 
         def forward(rows):
             rows_of = (lambda t: None if t is None else t[rows])
             _, aux = compute_lidar_loss(
                 rays[rows], depths[rows], valid[rows], params.field_params, field_cfg,
-                ProposalRaySampler(n_ctrl=cfg.prop_n_ctrl or None), params.occ_grid, cfg.loss,
-                scale, cfg.n_samples_per_ray, cfg.perturb, cfg.raw_noise_std, 0.0, 0.0,
+                sampler, prop, cfg.loss, scale, n, cfg.perturb, cfg.raw_noise_std, 0.0, 0.0,
                 jitter=rows_of(d.jitter), noise=rows_of(d.noise), pdf_u=rows_of(d.pdf_u))
             return aux["js_score"], aux["z_m"]
 
-        js, z = forward(slice(None))
-        k = rays.shape[0] // parts
+        js, z_m = forward(slice(None))
         pieces = [forward(slice(i * k, (i + 1) * k)) for i in range(parts)]
     js_p, z_p = torch.cat([p[0] for p in pieces]), torch.cat([p[1] for p in pieces])
     threshold = cfg.loss.min_js_score
-    return {"rays": int(rays.shape[0]), "parts": parts,
-            "js_rays_differ": int((js != js_p).sum()),
-            "z_rays_differ": int((z != z_p).any(dim=1).sum()),
-            "js_max_abs": float((js - js_p).abs().max()),
-            "z_max_abs": float((z - z_p).abs().max()),
+    js_differ, js_max = _rows_differ(js, js_p, b)
+    z_differ, z_max = _rows_differ(z_m, z_p, b)
+    differing = [o["op"] for o in ops if o["rays_differ"]]
+    port_differing = [o["op"] for o in ops if o["rays_differ"] and o["port"]]
+    return {"rays": b, "parts": parts, "f32": f32, "ops": ops,
+            "first": differing[0] if differing else None,
+            "port_first": port_differing[0] if port_differing else None,
+            "js_rays_differ": js_differ, "z_rays_differ": z_differ,
+            "js_max_abs": js_max, "z_max_abs": z_max,
             "threshold_crossings": int(((js < threshold) != (js_p < threshold)).sum())}
+
+
+def describe_witness(res: dict) -> str:
+    return (f"{res['rays']} rays in 1 batch against {res['parts']} batches, "
+            f"{'f32' if res['f32'] else 'bf16'}: "
+            + "; ".join(f"{o['op']} {o['rays_differ']} rays ({o['max_abs']:.3e})"
+                        for o in res["ops"])
+            + f"; first op that differs: {res['first']}; first the port runs: "
+            f"{res['port_first']}; whole forward: sample depths of {res['z_rays_differ']} rays "
+            f"({res['z_max_abs']:.3e} m), JS scores of {res['js_rays_differ']} "
+            f"({res['js_max_abs']:.3e}), {res['threshold_crossings']} across the JS threshold")
 
 
 def mesh_keyframes(n: int) -> list:
@@ -3052,10 +3162,14 @@ def mesh_on_one_card(dev, specs) -> tuple:
 
 
 def run_mesh(dev) -> dict:
-    """Phase 21 on one card: (a) two gloo ranks sharing the card run the
-    flagship's W=8 phase eagerly (each rank's Fourier pair on its half of the
-    window): in bf16 held to MESH_GATE, in f32 to MESH_TOL, and with the planted
-    fault, which the gate must refuse; (b) the slot-reversed witness on one card;
+    """Phase 21 on one card: (a) the forward of the flagship's W=8 window in one
+    batch against WITNESS_PARTS batches, op by op (``forward_batch_witness``), in
+    bf16 and f32: no ray of an op the port runs, and none of the whole forward's
+    sample depths and JS scores, may differ in any bit; then two gloo ranks, four
+    and [2, 2] sharing the card run the flagship's W=8 phase eagerly (each rank's
+    Fourier pair on its share of the window): in bf16 held to MESH_GATE, in f32 to
+    MESH_TOL, and with the planted fault, which the gate must refuse; (b) the
+    slot-reversed witness on one card;
     (c) a one-rank NCCL mesh through the graphs, its collectives captured, equal
     to the bit to the graphs without a mesh; (d) the Optimizer on that one-rank
     mesh, equal to the bit to the Optimizer without one, and on the two gloo
@@ -3064,7 +3178,7 @@ def run_mesh(dev) -> dict:
     from loner_tpu_torch.common.world_cube import WorldCube
     from loner_tpu_torch.mapping.mapper import build_ckpt
     from loner_tpu_torch.mapping.optimizer import Optimizer
-    from loner_tpu_torch.parallel.mesh import make_mesh
+    from loner_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
 
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
@@ -3072,7 +3186,18 @@ def run_mesh(dev) -> dict:
     cards = torch.cuda.device_count()
     gloo, nccl = make_mesh(2, devices=[dev, dev]), make_mesh(1, dev)
 
-    shared, more = mesh_on_one_card(dev, [gloo])
+    for parts in WITNESS_PARTS:
+        for f32_witness in (False, True):
+            res = forward_batch_witness(dev, parts, f32_witness)
+            readings[f"forward in {parts} batches, {'f32' if f32_witness else 'bf16'}"] = res
+            print(f"mesh witness: one card, no mesh, flagship W={WINDOW}: "
+                  f"{describe_witness(res)}", flush=True)
+            if res["port_first"] or res["z_rays_differ"] or res["js_rays_differ"]:
+                failures.append(f"forward in {parts} batches ({'f32' if f32_witness else 'bf16'})"
+                                f": {res['port_first']} differs from one batch")
+
+    shared, more = mesh_on_one_card(dev, [gloo, make_mesh(4, devices=[dev] * 4),
+                                          make_mesh_2d(2, 2, devices=[dev] * 4)])
     readings.update(shared["readings"])
     launches.update(shared["launches"])
     failures += more
@@ -3313,6 +3438,175 @@ def run_mesh_cards(dev, slam_scans: int = SLAM_SCANS,
     return record
 
 
+# Phase 22 (a): the field options no config in cfg/ sets, whose paths are plain
+# PyTorch (models/field.py): each on the card against the same code on the CPU,
+# at the widths and the tolerances of the CPU tests that hold them to the JAX
+# package (tests/test_torch_field_options.py: over each array's largest
+# magnitude, bf16 forward 1e-3, gradients 8e-3, bias gradients under mlp_grad:
+# xla 4e-2), on FIELD_OPTION_POINTS points.
+FIELD_OPTION_POINTS = 8192
+FIELD_OPTION_TOL = {"forward": 1e-3, "gradients": 8e-3, "xla biases": 4e-2}
+FIELD_OPTIONS = (  # (label, sigma encoding, options)
+    ("Fourier sigma head, encode_impl xla", "fourier", {"encode_impl": "xla"}),
+    ("Fourier sigma head, mlp_grad xla", "fourier", {"mlp_grad": "xla"}),
+    ("Fourier sigma head without its input features", "fourier", {"include_input": False}),
+    ("hash sigma head in bf16, mlp_grad vjp", "hash", {}),
+    ("hash sigma head in bf16, mlp_grad xla", "hash", {"mlp_grad": "xla"}),
+    ("Fourier intensity head, encode_impl xla and mlp_grad xla", "fourier",
+     {"intensity_encode_impl": "xla", "mlp_grad": "xla"}),
+)
+
+
+def field_option_settings(encoding: str, **opts) -> dict:
+    """A bf16 nerf config dict at the CPU test's widths (Fourier sigma head F 8,
+    32 x 2; hash 4 levels at 2^10; Fourier intensity head F 12, 16 x 2)."""
+    cfg = {
+        "encoding_sigma": encoding, "compute_dtype": "bfloat16",
+        "sigma_network": {"n_neurons": 32, "n_hidden_layers": 2},
+        "intensity_network": {"n_neurons": 16, "n_hidden_layers": 2},
+        "pos_encoding_sigma": {"n_levels": 4, "log2_hashmap_size": 10, "base_resolution": 4},
+        "pos_encoding_intensity": {"n_levels": 2, "log2_hashmap_size": 10,
+                                   "base_resolution": 4},
+        "dir_encoding_intensity": {"degree": 2},
+        "fourier_sigma": {"n_freqs": 8, "scale": 3.0,
+                          "include_input": opts.pop("include_input", True),
+                          "encode_impl": opts.pop("encode_impl", "vjp")},
+    }
+    if "intensity_encode_impl" in opts:
+        cfg["encoding_intensity"] = "fourier"
+        cfg["fourier_intensity"] = {"n_freqs": 12, "scale": 2.0,
+                                    "encode_impl": opts.pop("intensity_encode_impl")}
+    cfg.update(opts)
+    return cfg
+
+
+def _field_option_run(nerf: dict, dev, pos: np.ndarray, dirs: np.ndarray, g: np.ndarray,
+                      sigma_only: bool) -> dict:
+    """query_field's output and the gradients of sum(out * g), as numpy, on ``dev``."""
+    from loner_tpu_torch.models.field import FieldConfig, init_field_params, query_field
+
+    cfg = FieldConfig.from_settings(nerf)
+    params = init_field_params(torch.Generator().manual_seed(11), cfg, torch.device("cpu"))
+    leaves = {f"{head}.{part}.{k}": v.to(dev).requires_grad_(True)
+              for head, tree in params.items() for part, sub in tree.items()
+              for k, v in (sub.items() if isinstance(sub, dict) else [("", sub)])}
+    tree = {head: {part: ({k: leaves[f"{head}.{part}.{k}"] for k in sub}
+                          if isinstance(sub, dict) else leaves[f"{head}.{part}."])
+                   for part, sub in t.items()} for head, t in params.items()}
+    x = torch.tensor(pos, device=dev, requires_grad=True)
+    out = query_field(tree, x, torch.tensor(dirs, device=dev), cfg, sigma_only=sigma_only)
+    (out * torch.tensor(g, device=dev)).sum().backward()
+    res = {"forward": out.detach().cpu().numpy(), "dpos": x.grad.cpu().numpy()}
+    res.update({f"d{k}": v.grad.cpu().numpy() for k, v in leaves.items() if v.grad is not None})
+    return res, cfg
+
+
+def check_field_options(dev) -> dict:
+    """Phase 22 (a): each of FIELD_OPTIONS on the card against the CPU (one
+    thread) at FIELD_OPTION_TOL, FIELD_OPTION_POINTS points from a seed; none
+    takes the Fourier kernels (the hash head takes its kernels). Returns each
+    check's largest differences and launches; raises on a miss."""
+    rng = np.random.default_rng(12)
+    pos = rng.uniform(-0.9, 0.9, (FIELD_OPTION_POINTS, 3)).astype(np.float32)
+    dirs = rng.normal(size=(FIELD_OPTION_POINTS, 3))
+    dirs = (dirs / np.linalg.norm(dirs, axis=1, keepdims=True)).astype(np.float32)
+    record, failures = {}, []
+    for label, encoding, changes in FIELD_OPTIONS:
+        nerf = field_option_settings(encoding, **changes)
+        sigma_only = "fourier_intensity" not in nerf
+        g = rng.normal(size=(FIELD_OPTION_POINTS, 1 if sigma_only else 4)).astype(np.float32)
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        reset_counts()
+        card, cfg = _field_option_run(nerf, dev, pos, dirs, g, sigma_only)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)  # the CPU reference in one thread's order, each run alike
+        try:
+            cpu, _ = _field_option_run(nerf, torch.device("cpu"), pos, dirs, g, sigma_only)
+        finally:
+            torch.set_num_threads(threads)
+        worst = {}
+        for key, want in cpu.items():
+            tol = FIELD_OPTION_TOL["forward" if key == "forward" else "gradients"]
+            if cfg.mlp_grad == "xla" and key.split(".")[-1].startswith("b"):
+                tol = FIELD_OPTION_TOL["xla biases"]
+            diff = float(np.abs(card[key] - want).max() / max(np.abs(want).max(), 1.0))
+            worst[key] = diff
+            if not diff <= tol:
+                failures.append(f"{label}: {key} {diff:.3e} beyond {tol:g}")
+        record[label] = {"largest": worst, "launches": counts, "fused": cfg.fused_fourier}
+        print(f"field option on the card against the CPU: {label} ("
+              f"{FIELD_OPTION_POINTS} points, fused function {cfg.fused_fourier}): forward "
+              f"{worst['forward']:.3e}, gradients up to {max(v for k, v in worst.items() if k != 'forward'):.3e} "
+              f"of their scale; launches {counts}; {time.perf_counter() - t0:.2f} s", flush=True)
+        if cfg.fused_fourier or counts["fourier_mlp_fwd"] or counts["fourier_mlp_fwd_f32"]:
+            failures.append(f"{label}: took the fused function ({counts})")
+    if failures:
+        raise RuntimeError("field options: " + "; ".join(failures))
+    return record
+
+
+# Phase 22 (b): the robustness drill (loner_tpu_torch/robustness_drill.py) at
+# courtyard_tpu_r5f.yaml's full width on the first ROBUSTNESS_SCANS scans of each
+# of ROBUSTNESS_RUNS (the phase's one cut: the whole drill, six runs over 1513
+# scans, takes a chip call of its own).
+ROBUSTNESS_SCANS = 80  # 8 s of the 151 s drive: three keyframes at 3 s
+ROBUSTNESS_RUNS = ("static", "actors", "noise_0.15m", "dropout_30pct")
+JAX_TPU_ROBUSTNESS = ("the JAX package's TPU drill, the whole drive "
+                      "(artifacts/scale_drive_r5/robustness.yaml): static ATE 0.3097 m, "
+                      "F 0.5755; actors 0.8024 / 0.2491; noise 0.15 m 1.9474 / 0.0631")
+
+
+def run_robustness(dev) -> dict:
+    """Phase 22 (b): ``robustness_drill``'s datasets (written together), its GT map,
+    then each run of ROBUSTNESS_RUNS driven (threaded SLAM at courtyard_tpu_r5f.yaml
+    with --precompile) and scored as the module scores it, on the card. Prints
+    each row, the launches of its drive and of its scoring; raises unless every
+    figure is finite and each drive launched the Fourier pair."""
+    import tempfile
+
+    from loner_tpu_torch import robustness_drill as drill
+
+    variants = drill.select([f"{label}={label}_{ROBUSTNESS_SCANS}"
+                             for label in ROBUSTNESS_RUNS], ROBUSTNESS_SCANS)
+    table, launches, failures = {}, {}, []
+    with tempfile.TemporaryDirectory(prefix="loner_tpu_torch_robustness_") as root:
+        t0 = time.perf_counter()
+        data = drill.datasets(variants, root, ROBUSTNESS_SCANS)
+        gt = drill.gt_map(root, ROBUSTNESS_SCANS)
+        print(f"robustness drill: {len(variants)} datasets of {ROBUSTNESS_SCANS} scans and the "
+              f"static GT map in {time.perf_counter() - t0:.2f} s", flush=True)
+        for v, path in zip(variants, data):
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            reset_counts()
+            log_dir = drill.drive(v, path, drill.CONFIG, root, str(dev))
+            torch.cuda.synchronize()
+            drive_counts = read_counts()
+            t1 = time.perf_counter()
+            reset_counts()
+            row = drill.score(log_dir, path, gt, str(dev))
+            torch.cuda.synchronize()
+            score_counts = read_counts()
+            table[v.label] = row
+            launches[f"robustness {v.label}"] = drive_counts
+            launches[f"robustness {v.label} scoring"] = score_counts
+            print(f"robustness drill {v.label}: {row}; drive {t1 - t0:.2f} s, scoring "
+                  f"{time.perf_counter() - t1:.2f} s; launches: drive {drive_counts}, scoring "
+                  f"{score_counts}", flush=True)
+            if not all(np.isfinite(x) for x in row.values()):
+                failures.append(f"{v.label}: {row}")
+            if min(drive_counts["fourier_mlp_fwd"], drive_counts["fourier_mlp_bwd"]) < 1:
+                failures.append(f"{v.label}: the drive launched {drive_counts}")
+    print(f"robustness drill, static ATE {table['static']['ate_rmse_m']} m over "
+          f"{ROBUSTNESS_SCANS} scans; {JAX_TPU_ROBUSTNESS}", flush=True)
+    if failures:
+        raise RuntimeError("robustness drill: " + "; ".join(failures))
+    return {"table": table, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs only on a GPU",
@@ -3437,6 +3731,9 @@ def main() -> int:
     phase_done("20 (run breadth)")
     mesh = run_mesh(dev)
     phase_done("21 (mesh)")
+    options = check_field_options(dev)
+    robustness = run_robustness(dev)
+    phase_done("22 (field options, robustness drill)")
     # The f32 pair's record: checked at box_room_camera's render chunk, launched on
     # its SLAM path.
     f32_kernels = camera["kernels"]["fourier_f32_render"]
@@ -3472,6 +3769,8 @@ def main() -> int:
             paths[name + " eval"] = {step: c for step, c in run["eval_launches"].items()}
     paths.update(breadth)
     paths.update(mesh["launches"])
+    paths.update(robustness["launches"])
+    paths.update({f"field option: {label}": rec["launches"] for label, rec in options.items()})
     for name in ("sky", "sky off"):
         paths[f"{name} floaters"] = sky[name]["floaters"]["launches"]
         paths[f"{name} floaters 150"] = sky_short[name]["floaters"]["launches"]

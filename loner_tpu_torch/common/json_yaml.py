@@ -22,15 +22,17 @@ _STRING_OR_NON_FINITE = re.compile(r'"(?:\\.|[^"\\])*"|(-?)\.(nan|inf)\b')
 _JSON_NON_FINITE = {("", "nan"): "NaN", ("", "inf"): "Infinity", ("-", "inf"): "-Infinity"}
 
 
-def _json_text(value) -> str:
+def _json_text(value, sort_keys: bool = True) -> str:
     """JSON text that YAML 1.1 loaders read to the same values: floats always
     carry a decimal point (``1.0e-08``, not ``1e-08``, which PyYAML reads as a
-    string); mappings in key order, as ``yaml.safe_dump`` writes them."""
+    string); mappings in key order, as ``yaml.safe_dump`` writes them, or in
+    their own order without ``sort_keys``."""
     if isinstance(value, dict):
-        return "{" + ", ".join(f"{json.dumps(str(k))}: {_json_text(v)}"
-                               for k, v in sorted(value.items(), key=lambda kv: str(kv[0]))) + "}"
+        items = sorted(value.items(), key=lambda kv: str(kv[0])) if sort_keys else value.items()
+        return "{" + ", ".join(f"{json.dumps(str(k))}: {_json_text(v, sort_keys)}"
+                               for k, v in items) + "}"
     if isinstance(value, (list, tuple)):
-        return "[" + ", ".join(_json_text(v) for v in value) + "]"
+        return "[" + ", ".join(_json_text(v, sort_keys) for v in value) + "]"
     if isinstance(value, (bool, np.bool_)) or value is None:
         return json.dumps(None if value is None else bool(value))
     if isinstance(value, (int, np.integer)):
@@ -45,10 +47,10 @@ def _json_text(value) -> str:
     return json.dumps(str(value))
 
 
-def write_json_yaml(path: str, value) -> None:
-    """``value`` as one line of JSON text."""
+def write_json_yaml(path: str, value, sort_keys: bool = True) -> None:
+    """``value`` as one line of JSON text (``yaml.safe_dump``'s ``sort_keys``)."""
     with open(path, "w") as f:
-        f.write(_json_text(value) + "\n")
+        f.write(_json_text(value, sort_keys) + "\n")
 
 
 def read_json_yaml(path: str):

@@ -69,6 +69,18 @@ def opaque_rays(depths_cube: torch.Tensor, far: torch.Tensor, valid: torch.Tenso
     return (depths_cube > 0) & (~(depths_cube > far)) & valid
 
 
+def js_scores(z_m: torch.Tensor, w_pred: torch.Tensor, depths_gt_m: torch.Tensor,
+              eps_min: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each ray's JS score, from the rendered weights' mean and spread along the
+    ray against a Gaussian of sigma ``eps_min / 3`` at the measured depth; and
+    that spread. z_m, w_pred: (B, S); depths_gt_m: (B,)."""
+    w_sum = w_pred.sum(dim=1)
+    mean = (z_m * w_pred).sum(dim=1) / (w_sum + 1e-10)
+    var = ((z_m - mean[:, None]) ** 2 * w_pred).sum(dim=1) / (w_sum + 1e-10) + 1e-10
+    std = torch.sqrt(var)
+    return js_divergence_gaussian(depths_gt_m, eps_min / 3.0, mean, std), std
+
+
 def compute_camera_loss(rays, intensities, valid, field_params, field_cfg, sampler, occ_state,
                         n_samples: int, perturb: float, detach_sigma: bool = True,
                         jitter: Optional[torch.Tensor] = None,
@@ -119,13 +131,8 @@ def compute_lidar_loss(rays, depths_cube, valid, field_params, field_cfg, sample
     z_m = result["z_vals"] * world_scale  # (B, S) meters
     w_pred = result["weights"]
 
-    # Rendered weight-distribution moments -> JS score per ray.
-    w_sum = w_pred.sum(dim=1)
-    mean = (z_m * w_pred).sum(dim=1) / (w_sum + 1e-10)
-    var = ((z_m - mean[:, None]) ** 2 * w_pred).sum(dim=1) / (w_sum + 1e-10) + 1e-10
-    std = torch.sqrt(var)
     eps_min = cfg.min_depth_eps
-    js_score = js_divergence_gaussian(depths_gt_m, eps_min / 3.0, mean, std)
+    js_score, std = js_scores(z_m, w_pred, depths_gt_m, eps_min)
 
     depth_pred_m = result["depth"] * world_scale
     depth_loss = _masked_mean((depth_pred_m - depths_gt_m) ** 2, opaque, n_opaque)

@@ -752,6 +752,8 @@ class Optimizer:
             fcfg = self._field_cfg
             if fcfg.encoding_sigma == "hash":
                 hash_grid._lib()
+            elif not fcfg.fused_fourier:
+                pass  # the unfused Fourier head is plain PyTorch
             elif fcfg.compute_dtype == torch.float32:
                 fourier_mlp._lib_f32()
             else:

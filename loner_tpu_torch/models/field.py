@@ -11,7 +11,11 @@ Two sigma heads:
   bias-free ReLU MLP of plain ``torch`` matmuls, as the JAX package computes it
   outside any kernel;
 - ``fourier``: the fused Fourier-feature + MLP function of
-  ``ops/fourier_mlp.py`` (the JAX package's ``sigma_kernel: pallas`` path).
+  ``ops/fourier_mlp.py`` (the JAX package's ``sigma_kernel: pallas`` path)
+  wherever that is the function the settings ask for (``FieldConfig.fused_fourier``),
+  else the JAX package's encode and MLP as plain PyTorch: ``fourier_encode`` or,
+  under ``encode_impl: xla``, ``fourier_encode_autograd``; ``mlp_apply_vjp`` or,
+  under ``mlp_grad: xla``, ``mlp_apply_autograd``.
 
 The intensity head (``query_field(sigma_only=False)``) encodes the position by
 a hash table (``encoding_intensity: hash``, through the same hash kernels) or
@@ -55,6 +59,10 @@ class FourierConfig:
     scale: float = 6.0
     include_input: bool = True
     seed: int = 1234
+    # "vjp": sin/cos of the f32 phase emitted and saved in the compute dtype, with
+    # the JAX package's custom VJP (``fourier_encode``); "xla": f32 features and
+    # plain autograd (``fourier_encode_autograd``).
+    encode_impl: str = "vjp"
 
     @property
     def output_dim(self) -> int:
@@ -62,14 +70,15 @@ class FourierConfig:
 
     @staticmethod
     def from_settings(cfg: dict) -> "FourierConfig":
-        if str(cfg.get("encode_impl", "vjp")) != "vjp":
-            raise NotImplementedError("the port's Fourier encodes are the JAX package's "
-                                      "encode_impl: vjp (every config in cfg/)")
+        encode_impl = str(cfg.get("encode_impl", "vjp"))
+        if encode_impl not in ("vjp", "xla"):
+            raise ValueError(f"fourier encode_impl must be 'vjp' or 'xla', got {encode_impl!r}")
         return FourierConfig(
             n_freqs=int(cfg.get("n_freqs", 64)),
             scale=float(cfg.get("scale", 6.0)),
             include_input=bool(cfg.get("include_input", True)),
             seed=int(cfg.get("seed", 1234)),
+            encode_impl=encode_impl,
         )
 
 
@@ -125,6 +134,14 @@ class FieldConfig:
     # The hash encode's compute dtype. Renders encode in f32; the optimizer sets
     # the training encode's (OptimizerConfig.encode_impl: vjp_bf16 -> bfloat16).
     hash_encode_dtype: torch.dtype = torch.float32
+    # The MLPs' backward, the JAX package's ``mlp_grad``: "vjp", its custom VJP
+    # (``mlp_apply_vjp``: bf16 cotangents, f32 dW and db); "xla", plain autograd
+    # in the compute dtype (``mlp_apply_autograd``). One function in float32.
+    mlp_grad: str = "vjp"
+    # The JAX package's ``sigma_kernel`` word: "xla", "auto" or "pallas". It says
+    # which function the Fourier sigma head computes (``fused_fourier``); "auto"
+    # is the fused function only on a TPU, so here it is "xla".
+    fourier_sigma_impl: str = "xla"
 
     @property
     def sigma_input_dim(self) -> int:
@@ -138,12 +155,26 @@ class FieldConfig:
             return self.fourier_intensity.output_dim
         return self.pos_encoding_intensity.output_dim
 
+    @property
+    def fused_fourier(self) -> bool:
+        """Whether the Fourier sigma head computes the fused function of
+        ``ops/fourier_mlp.py`` (the CUDA kernels): where the JAX package runs its
+        fused kernel (``sigma_kernel: pallas``, with the input features), and
+        where its unfused path computes the same function, the custom-VJP encode
+        and MLP (``encode_impl: vjp``, ``mlp_grad: vjp``), as every config in
+        cfg/ asks."""
+        if self.encoding_sigma != "fourier" or not self.fourier_sigma.include_input:
+            return False
+        return self.fourier_sigma_impl == "pallas" or (
+            self.fourier_sigma.encode_impl == "vjp" and self.mlp_grad == "vjp")
+
     @staticmethod
     def from_settings(nerf_cfg: dict, num_colors: int = 3,
                       compute_dtype: torch.dtype = torch.float32) -> "FieldConfig":
-        """Build from the nerf config dict (cfg/nerf_config/*.yaml). The JAX
-        package's ``sigma_kernel`` choice does not apply: the port has one path
-        for each sigma head."""
+        """Build from the nerf config dict (cfg/nerf_config/*.yaml). ``mlp_grad``
+        and ``sigma_kernel`` are the JAX package's words; where it takes any
+        other value silently as "xla" (``mlp_grad`` not "vjp", ``sigma_kernel``
+        not "pallas" or "auto"), the port raises ``ValueError``."""
         encoding = str(nerf_cfg.get("encoding_sigma", "hash"))
         if encoding not in ("hash", "fourier"):
             raise ValueError(f"unknown encoding_sigma {encoding!r}")
@@ -153,6 +184,12 @@ class FieldConfig:
         sigma_net = nerf_cfg["sigma_network"]
         if "compute_dtype" in nerf_cfg:
             compute_dtype = torch.bfloat16 if "bf" in str(nerf_cfg["compute_dtype"]) else torch.float32
+        mlp_grad = str(nerf_cfg.get("mlp_grad", "vjp"))
+        if mlp_grad not in ("vjp", "xla"):
+            raise ValueError(f"mlp_grad must be 'vjp' or 'xla', got {mlp_grad!r}")
+        sigma_impl = str(nerf_cfg.get("sigma_kernel", "xla"))
+        if sigma_impl not in ("xla", "auto", "pallas"):
+            raise ValueError(f"sigma_kernel must be 'xla', 'auto' or 'pallas', got {sigma_impl!r}")
         return FieldConfig(
             num_colors=num_colors,
             enable_view_dependence=bool(nerf_cfg.get("enable_view_dependence", True)),
@@ -183,6 +220,8 @@ class FieldConfig:
             ),
             sigma_mlp_bias=bool(nerf_cfg.get("sigma_mlp_bias", encoding == "fourier")),
             compute_dtype=compute_dtype,
+            mlp_grad=mlp_grad,
+            fourier_sigma_impl=sigma_impl,
         )
 
 
@@ -239,22 +278,20 @@ def query_sigma(params: Dict[str, Any], pos: torch.Tensor, cfg: FieldConfig) -> 
         raise ValueError(f"sigma_kernel must be 'fused' or 'plain', got {cfg.sigma_kernel!r}")
     pos01 = (pos + 1.0) * 0.5
     if cfg.encoding_sigma != "fourier":
-        if cfg.compute_dtype != torch.float32:
-            raise NotImplementedError("the hash field's MLP runs in float32: no config in cfg/ "
-                                      "sets another compute_dtype for it")
         feats = hash_encode(params["sigma"]["table"], pos01, cfg.pos_encoding_sigma,
                             cfg.hash_encode_dtype, plain=cfg.sigma_kernel == "plain")
-        return mlp_apply(params["sigma"]["mlp"], feats)
-    if not cfg.fourier_sigma.include_input:
-        raise NotImplementedError("the port's Fourier sigma head is the fused MLP with "
-                                  "include_input")
-    return fourier_sigma_fused(
-        params["sigma"]["mlp"],
-        pos01,
-        fourier_bmat(cfg.fourier_sigma, pos.device),
-        compute_dtype=cfg.compute_dtype,
-        plain=cfg.sigma_kernel == "plain",
-    )
+        if cfg.compute_dtype == torch.float32:  # both of the JAX package's MLP backwards
+            return mlp_apply(params["sigma"]["mlp"], feats)
+        return field_mlp(params["sigma"]["mlp"], feats, cfg)
+    if cfg.fused_fourier:
+        return fourier_sigma_fused(
+            params["sigma"]["mlp"],
+            pos01,
+            fourier_bmat(cfg.fourier_sigma, pos.device),
+            compute_dtype=cfg.compute_dtype,
+            plain=cfg.sigma_kernel == "plain",
+        )
+    return field_mlp(params["sigma"]["mlp"], encode_fourier(pos01, cfg.fourier_sigma, cfg), cfg)
 
 
 def _round(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -263,25 +300,32 @@ def _round(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 class _MLPFunction(torch.autograd.Function):
-    """The JAX package's ``mlp_apply_vjp`` in ``dtype`` for a bias-free ReLU MLP
-    (the intensity head's): the input, weights and hidden activations rounded
-    to ``dtype``, the last layer in f32; backward with cotangents rounded to
-    ``dtype`` (the ReLU mask from the saved activations) and f32 weight
-    gradients. Values are held in float32: a product of two bf16 values is exact
-    there, so a float32 matmul is the bf16 product with f32 accumulation up to
-    the order of summation. In float32 it is plain autograd's arithmetic."""
+    """The JAX package's ``mlp_apply_vjp`` in ``dtype`` for a ReLU MLP, with
+    biases or without: the input, weights, hidden products, biases and hidden
+    activations rounded to ``dtype``, the last layer in f32; backward with
+    cotangents rounded to ``dtype`` (the ReLU mask from the saved activations)
+    and f32 weight and bias gradients. Values are held in float32: a product of
+    two bf16 values is exact there, so a float32 matmul is the bf16 product with
+    f32 accumulation up to the order of summation. In float32 it is plain
+    autograd's arithmetic."""
 
     @staticmethod
-    def forward(ctx, x, dtype, *ws):
+    def forward(ctx, x, dtype, n, *wbs):
+        ws, bs = wbs[:n], wbs[n:]
         h = _round(x, dtype)
         acts = [h]
         for i, w in enumerate(ws):
             h = h @ _round(w, dtype)
-            if i < len(ws) - 1:
-                h = torch.relu(_round(h, dtype))
+            if i < n - 1:
+                h = _round(h, dtype)
+                if bs:
+                    h = _round(h + _round(bs[i], dtype), dtype)
+                h = torch.relu(h)
                 acts.append(h)
+            elif bs:
+                h = h + bs[i]
         ctx.save_for_backward(*acts, *ws)
-        ctx.dtype = dtype
+        ctx.dtype, ctx.bias = dtype, bool(bs)
         return h
 
     @staticmethod
@@ -291,23 +335,61 @@ class _MLPFunction(torch.autograd.Function):
         n = len(saved) // 2
         acts, ws = saved[:n], saved[n:]
         dws: List[Optional[torch.Tensor]] = [None] * n
+        dbs: List[Optional[torch.Tensor]] = [None] * n if ctx.bias else []
         gz = gh = _round(g, dtype)
         for i in range(n - 1, -1, -1):
             dws[i] = acts[i].t() @ gz
+            if ctx.bias:
+                dbs[i] = gz.sum(dim=0)
             gh = _round(gz @ _round(ws[i], dtype).t(), dtype)
             if i > 0:
                 gz = torch.where(acts[i] > 0, gh, torch.zeros((), dtype=gh.dtype, device=gh.device))
-        return (gh, None, *dws)
+        return (gh, None, None, *dws, *dbs)
+
+
+def _layers(params: Dict[str, torch.Tensor]) -> tuple:
+    """The MLP's weights in order, and its biases (none if it has none)."""
+    n = sum(1 for k in params if k.startswith("w"))
+    ws = [params[f"w{i}"] for i in range(n)]
+    bs = [params[f"b{i}"] for i in range(n)] if "b0" in params else []
+    return ws, bs
 
 
 def mlp_apply_vjp(params: Dict[str, torch.Tensor], x: torch.Tensor,
                   dtype: torch.dtype) -> torch.Tensor:
-    """Bias-free ReLU MLP in ``dtype`` with the JAX package's custom VJP
+    """ReLU MLP in ``dtype`` with the JAX package's custom VJP
     (``_MLPFunction``). Returns the last layer in f32."""
-    if any(k.startswith("b") for k in params):
-        raise ValueError("the intensity MLP has no biases")
-    n = sum(1 for k in params if k.startswith("w"))
-    return _MLPFunction.apply(x, dtype, *(params[f"w{i}"] for i in range(n)))
+    ws, bs = _layers(params)
+    return _MLPFunction.apply(x, dtype, len(ws), *ws, *bs)
+
+
+def mlp_apply_autograd(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """The JAX package's ``_apply_mlp`` under ``mlp_grad: xla``: the ReLU MLP on
+    ``dtype`` tensors (the hidden products and activations written in
+    ``dtype``, the last product of ``dtype`` values in f32) and autograd's
+    backward through them, whose weight gradients are products in ``dtype`` too.
+    Returns the last layer in f32."""
+    ws, bs = _layers(params)
+    h = x.to(dtype)
+    for i, w in enumerate(ws):
+        last = i == len(ws) - 1
+        h = h.float() @ w.to(dtype).float() if last else h @ w.to(dtype)
+        if bs:
+            h = h + bs[i].to(h.dtype)
+        if not last:
+            h = torch.relu(h)
+    return h
+
+
+def field_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor,
+              cfg: "FieldConfig") -> torch.Tensor:
+    """The JAX package's ``_mlp``: the custom VJP (``mlp_apply_vjp``), or under
+    ``mlp_grad: xla`` in a compute dtype other than f32 plain autograd
+    (``mlp_apply_autograd``); in f32 the two are one function."""
+    if cfg.mlp_grad == "xla" and cfg.compute_dtype != torch.float32:
+        return mlp_apply_autograd(params, x, cfg.compute_dtype)
+    return mlp_apply_vjp(params, x, cfg.compute_dtype)
 
 
 def _fourier_proj(pos01: torch.Tensor, bmat: torch.Tensor) -> torch.Tensor:
@@ -352,6 +434,21 @@ def fourier_encode(pos01: torch.Tensor, cfg: FourierConfig, dtype: torch.dtype) 
                                         cfg.include_input)
 
 
+def fourier_encode_autograd(pos01: torch.Tensor, cfg: FourierConfig) -> torch.Tensor:
+    """The JAX package's ``fourier_encode`` (``encode_impl: xla``): f32 features
+    and plain autograd."""
+    proj = _fourier_proj(pos01, fourier_bmat(cfg, pos01.device))
+    feats = [torch.sin(proj), torch.cos(proj)] + ([pos01] if cfg.include_input else [])
+    return torch.cat(feats, dim=-1)
+
+
+def encode_fourier(pos01: torch.Tensor, fcfg: FourierConfig, cfg: "FieldConfig") -> torch.Tensor:
+    """A Fourier head's features by its ``encode_impl``."""
+    if fcfg.encode_impl == "xla":
+        return fourier_encode_autograd(pos01, fcfg)
+    return fourier_encode(pos01, fcfg, cfg.compute_dtype)
+
+
 def query_intensity(params: Dict[str, Any], pos: torch.Tensor, dirs: torch.Tensor,
                     cfg: FieldConfig) -> torch.Tensor:
     """Intensity head. pos, dirs: (N, 3) in [-1, 1]. Returns (N, C) colours in
@@ -360,7 +457,7 @@ def query_intensity(params: Dict[str, Any], pos: torch.Tensor, dirs: torch.Tenso
     to both tables then), else in f32 (its plain ``hash_encode``)."""
     pos01 = (pos + 1.0) * 0.5
     if cfg.encoding_intensity == "fourier":
-        h_x = fourier_encode(pos01, cfg.fourier_intensity, cfg.compute_dtype)
+        h_x = encode_fourier(pos01, cfg.fourier_intensity, cfg)
     else:
         dtype = cfg.hash_encode_dtype if cfg.encoding_sigma != "fourier" else torch.float32
         h_x = hash_encode(params["intensity"]["table"], pos01, cfg.pos_encoding_intensity,
@@ -368,7 +465,7 @@ def query_intensity(params: Dict[str, Any], pos: torch.Tensor, dirs: torch.Tenso
     if cfg.enable_view_dependence:
         h_d = sh_encode((dirs + 1.0) * 0.5, cfg.sh_degree)
         h_x = torch.cat([h_x, h_d], dim=-1)
-    return torch.sigmoid(mlp_apply_vjp(params["intensity"]["mlp"], h_x, cfg.compute_dtype))
+    return torch.sigmoid(field_mlp(params["intensity"]["mlp"], h_x, cfg))
 
 
 def query_field(params: Dict[str, Any], pos: torch.Tensor, dirs: Optional[torch.Tensor],

@@ -73,12 +73,16 @@ def _check_scene(scene_name: str, dropout: float) -> None:
 
 def synthetic_dataset_path(num_scans: int = 100, scene_name: str = "box_room",
                            noise_std: float = 0.0, dropout: float = 0.0,
-                           with_camera: bool = False) -> str:
+                           with_camera: bool = False,
+                           courtyard_scans: Optional[int] = None) -> str:
     """``./outputs/synthetic_dataset<suffix>``, the directory the JAX package's
-    runner names for the same flags."""
+    runner names for the same flags. ``courtyard_scans`` (the first scans of a
+    courtyard drive; the JAX runner has no such cut) puts the count in the name,
+    as the box room's does, so a cut drive is never taken for the whole one."""
     _check_scene(scene_name, dropout)
     if scene_name.startswith("courtyard"):
-        suffix = ""  # the length comes from the waypoint loop
+        # The length comes from the waypoint loop, unless the drive is cut.
+        suffix = "" if courtyard_scans is None else f"_{courtyard_scans}"
     else:
         suffix = "" if num_scans == 100 else f"_{num_scans}"
     if with_camera:
@@ -95,24 +99,30 @@ def synthetic_dataset_path(num_scans: int = 100, scene_name: str = "box_room",
 def build_synthetic_dataset(
     out_dir: str, num_scans: int = 100, with_camera: bool = False,
     scene_name: str = "box_room", noise_std: float = 0.0, dropout: float = 0.0,
+    courtyard_scans: Optional[int] = None,
 ) -> str:
     """Write a synthetic dataset to ``out_dir``: ``num_scans`` scans of a 32 x 512
     LiDAR in the box room (``open_sky``: without its ceiling), or the courtyard
     drive (``courtyard``, ``courtyard_actors`` with moving pedestrians; its
-    length is the waypoint loop's, ``num_scans`` is not read); with the GT poses
-    and, with ``with_camera``, one virtual-camera image a scan at its start time.
+    length is the waypoint loop's, ``num_scans`` is not read, or its first
+    ``courtyard_scans`` scans with the whole drive's GT poses, so that the world
+    cube is the drive's); with the GT poses and, with ``with_camera``, one
+    virtual-camera image a scan at its start time.
     The same scans as ``examples/run_loner.py::build_synthetic_dataset``; ``dropout``
     on a box-room scene raises. Written to ``<out_dir>.partial`` and renamed, so
     an interrupted build leaves no dataset that looks complete."""
     from loner_tpu_torch.datasets.synthetic import (
         BoxRoomScene, VirtualCamera, VirtualLidar, generate_courtyard_sequence,
-        generate_sequence, write_sequence,
+        generate_sequence, make_courtyard, make_waypoint_trajectory, write_sequence,
     )
 
     _check_scene(scene_name, dropout)
     if scene_name.startswith("courtyard"):
         scans, poses, ts, scene, _ = generate_courtyard_sequence(
-            with_actors=scene_name.endswith("_actors"), noise_std=noise_std, dropout=dropout)
+            with_actors=scene_name.endswith("_actors"), noise_std=noise_std, dropout=dropout,
+            num_scans=courtyard_scans)
+        if courtyard_scans is not None:
+            poses, ts = make_waypoint_trajectory(*make_courtyard()[1:])
     else:
         scans, poses, ts, scene, _ = generate_sequence(
             num_scans=num_scans, scene=BoxRoomScene(open_top=(scene_name == "open_sky")),
