@@ -143,23 +143,30 @@ nothing of JAX. Phases, each of which raises on failure:
    (d) ``plot_poses``, ``depth_to_warp`` / ``vis_flow`` on (c)'s frames, and
    ``run_loner --num_repeats 2 --trial_workers 2 --gpu_ids 0`` as a child
    process, both trials rc 0, each trial's wall time printed.
-21. Mesh (``system.mesh_devices``, ``parallel/mesh.py``): the forward of the
-   flagship's W=8 window in one batch against 2 and 4 batches of its rays, op by
-   op (``forward_batch_witness``: the proposal MLP's products, the row sum, the
-   cumsum, the inverse CDF, the sigma field, the compositing, the JS score), in
-   bf16 and f32, no ray of an op the port runs differing in any bit; the
-   flagship's W=8 phase (3 iterations) with two gloo ranks, four and [2, 2]
-   sharing the card, eagerly (each rank runs the Fourier pair on its share),
-   against the same phase without a mesh (MESH_GATE; the CPU tests' tolerances
-   printed as met or missed, and held in f32), with a planted fault MESH_GATE
-   must refuse; then a one-rank NCCL mesh through the graphs, its collectives
-   captured, equal to the bit to the graphs without a mesh. Prints cards, ranks
-   and backend. With four
-   cards, ``run_mesh_cards`` (called alone, ``python3 -c "import chip_smoke,
-   torch; chip_smoke.run_mesh_cards(torch.device('cuda', 0))"``) times the W=8 iteration of both configurations at 1, 2 and 4 NCCL ranks
-   and on [2, 2] with the gradient all-reduce alone, runs SLAM with
-   ``mesh_devices: 4`` and ``tracker.icp.device: 1`` against one card, and the
-   device and trial pools over the four cards.
+21. Mesh (``system.mesh_devices``, ``parallel/mesh.py``): the forward of three
+   W=8 windows (the flagship's 4096 LiDAR rays, its 4608 LiDAR and sky rays, the
+   camera configuration's 1024 camera rays) in one batch against 2 and 4
+   batches of its rays, op by op (``forward_batch_witness``: the ray build, the
+   proposal MLP's products, the row sum, the cumsum, the inverse CDF, the sigma
+   field, the compositing, the JS score; for camera rays the intensity head and
+   the colours), in bf16 and f32, no ray of an op the port runs differing in any
+   bit; the flagship's W=8 phase (3 iterations) with two gloo ranks, four and
+   [2, 2] sharing the card, eagerly (each rank runs the Fourier pair on its
+   share), and on four ranks the sky window's too, against the same phase
+   without a mesh (MESH_GATE; the CPU tests' tolerances printed as met or
+   missed, and held in f32), with a planted fault MESH_GATE must refuse; then a
+   one-rank NCCL mesh through the graphs, its collectives captured, equal to the
+   bit to the graphs without a mesh, and the Optimizer on it through its
+   teardown. Prints cards, ranks and backend. With four cards,
+   ``run_mesh_cards`` (called alone, ``python3 -c "import chip_smoke, torch;
+   chip_smoke.run_mesh_cards(torch.device('cuda', 0))"``) runs
+   ``run_loner``'s SLAM with ``mesh_devices`` 2, 4 (``tracker.icp.device: 1``)
+   and [2, 2] against one card, each to a clean exit with every NCCL
+   communicator destroyed and each rank's teardown seconds; the device and
+   trial pools over the four cards; the W=8 iteration of both configurations
+   at 1, 2 and 4 NCCL ranks and on [2, 2] with the gradient all-reduce alone;
+   and a follower killed inside a W=8 phase on four NCCL ranks, which rank 0
+   must name, leaving no process and no card memory behind.
 22. The last ports: (a) each field option no config in cfg/ sets, whose path is
    plain PyTorch (FIELD_OPTIONS: the Fourier encode under ``encode_impl: xla``,
    the MLPs' autograd under ``mlp_grad: xla``, a Fourier head without its input
@@ -1532,7 +1539,6 @@ def run_slam(dev, label: str, settings: dict, sequence: dict, out_dir: str, trai
     of ``map_kernels`` in the map check; with ``check_icp`` the ICP card-vs-CPU
     check, with ``measure_test_chunk`` one test-render chunk's time and memory.
     The run's directory is returned under "log_dir" for the caller to score."""
-    from loner_tpu_torch.analysis.traj_metrics import evaluate_trajectory_files
     from loner_tpu_torch.mapping.optimizer import sky_rays_per_slot
 
     dataset, scene, gt_poses, ts = (sequence[k] for k in ("dataset", "scene", "poses", "ts"))
@@ -1565,34 +1571,24 @@ def run_slam(dev, label: str, settings: dict, sequence: dict, out_dir: str, trai
               "icp_pool_gb": pool_bytes(loner.tracker.icp_graph.pool()) / 1e9}
     print(f"SLAM {label} CUDA graphs: {json.dumps(graphs)}", flush=True)
 
-    runtime = float(open(os.path.join(log_dir, "runtime.txt")).read().split()[1])
-    seq_s = float(ts[-1] - ts[0]) + 0.1
+    nums = slam_log_numbers(log_dir, ts)
     timing = np.loadtxt(os.path.join(log_dir, "timing.csv"), delimiter=",", ndmin=2)
-    track = np.loadtxt(os.path.join(log_dir, "track_times.csv"), delimiter=",", ndmin=2)
-    its = int(timing[:, 0].sum())
-    boot_ms = 1e3 * timing[0, 1] / timing[0, 0]
-    win_ms = 1e3 * timing[1:, 1].sum() / max(timing[1:, 0].sum(), 1)
+    its, ate = nums["iterations"], nums["ate"]
     window = settings["mapper"]["keyframe_manager"]["window_selection"]["window_size"]
     print(f"SLAM {label}: {len(timing)} keyframes, {its} mapping iterations; per keyframe "
           "(iterations, s): " + ", ".join(f"({int(n)}, {t:.3f})" for n, t in timing),
           flush=True)
-    print(f"SLAM {label}: runtime {runtime:.3f} s for {seq_s:.1f} s of sequence, real-time "
-          f"factor {seq_s / runtime:.4f}; ms per mapping iteration: W=1 bootstrap "
-          f"{boot_ms:.3f}, W={window} windows {win_ms:.3f}; tracking latency ({len(track)} updates) "
-          f"median {1e3 * float(np.median(track[:, 0])):.3f} ms, p95 "
-          f"{1e3 * float(np.quantile(track[:, 0], 0.95)):.3f} ms; peak device memory "
+    print(f"SLAM {label}: runtime {nums['runtime_s']:.3f} s for {nums['seq_s']:.1f} s of "
+          f"sequence, real-time factor {nums['rtf']:.4f}; ms per mapping iteration: W=1 "
+          f"bootstrap {nums['boot_ms']:.3f}, W={window} windows {nums['win_ms']:.3f}; tracking "
+          f"latency ({nums['track_updates']} updates) median {nums['track_p50_ms']:.3f} ms, p95 "
+          f"{nums['track_p95_ms']:.3f} ms; peak device memory "
           f"{peak_gb:.3f} GB; run_trial {wall:.3f} s; launches {launches}; tensors on "
           f"{sorted({str(d) for d in placed.values()})}", flush=True)
     for name, count in launches.items():
         if count < its:
             raise RuntimeError(f"{name} launched {count} times in {its} mapping iterations")
 
-    ate = {}
-    for name in ("estimated_trajectory", "tracking_only"):
-        res = evaluate_trajectory_files(
-            os.path.join(log_dir, "trajectory", f"{name}.txt"),
-            os.path.join(log_dir, "trajectory", "groundtruth.txt"), delta_m=1.0)
-        ate[name] = res["ate"]["rmse"]
     print(f"SLAM {label} ATE RMSE: estimated {ate['estimated_trajectory']:.4f} m, tracking "
           f"only {ate['tracking_only']:.4f} m "
           f"({'bound ' + str(ate_max) if ate_max else 'printed, not gated'})", flush=True)
@@ -1603,12 +1599,9 @@ def run_slam(dev, label: str, settings: dict, sequence: dict, out_dir: str, trai
     if measure_test_chunk:
         test_chunk_memory(dev, log_dir)
     return {"log_dir": log_dir, "launches": launches, "counts": counts,
-            "map_launches": mapped["launches"], "ate": ate,
-            "sky_rays": sky_rays_per_slot(opt.config),
-            "graphs": graphs, "track_p50_ms": 1e3 * float(np.median(track[:, 0])),
-            "track_p95_ms": 1e3 * float(np.quantile(track[:, 0], 0.95)), "peak_gb": peak_gb,
-            "rtf": seq_s / runtime, "boot_ms": boot_ms, "win_ms": win_ms, "iterations": its,
-            "boot_iterations": int(timing[0, 0]), "camera_losses": opt.camera_loss_log, **icp}
+            "map_launches": mapped["launches"], "sky_rays": sky_rays_per_slot(opt.config),
+            "graphs": graphs, "peak_gb": peak_gb, "boot_iterations": int(timing[0, 0]),
+            "camera_losses": opt.camera_loss_log, **nums, **icp}
 
 
 DISPATCH_ITERS, DISPATCH_K = 7, 3  # two dispatches of 3 iterations, then one single step
@@ -2687,20 +2680,38 @@ MESH_ALLREDUCE_REPS = 20
 MESH_SCAN_POINTS = 16384  # points of each keyframe of the Optimizer's windows
 MESH_OPT_SCHEDULE = [{"num_keyframes": -1, "iteration_schedule": [
     {"num_iterations": MESH_ITERS, "freeze_poses": False, "freeze_sigma_mlp": False}]}]
-MESH_SLAM = {"mesh_devices": 4, "icp_device": 1}  # system.mesh_devices, tracker.icp.device
+# The mesh SLAM runs through run_loner's command line, each a child process:
+# (label, system.mesh_devices, tracker.icp.device or None for the run's card).
+MESH_SLAM = (("mesh2", 2, None), ("mesh4 icp1", 4, 1), ("mesh2x2", [2, 2], None))
+MESH_SLAM_SECONDS = 240  # a child's limit: dataset read, warm-up, SLAM and teardown
+# The follower-death stage: four NCCL ranks run one W=8 phase of MESH_DEATH
+# ["iterations"] through the Optimizer, joined with a collective timeout of
+# MESH_DEATH["timeout_s"]; rank MESH_DEATH["rank"] is killed MESH_DEATH["after_s"]
+# into the phase, and rank 0 must raise naming it within the timeout plus
+# MESH_DEATH["margin_s"], leaving no process of the run and no card memory.
+MESH_DEATH = {"rank": 2, "after_s": 3.0, "iterations": 4000, "timeout_s": 60.0,
+              "margin_s": 10.0}
+MESH_DEATH_SECONDS = 180  # the stage's child process limit
+MESH_LEFT_BYTES = 64 << 20  # card memory the stage may leave (allocation granularity)
 WITNESS_PARTS = (2, 4)  # the window's rays in 2 and in 4 batches: a rank's share on [2], [4]
+# The witness's windows at W=8: the flagship's 4096 LiDAR rays, its 4608 LiDAR
+# and sky rays (SKY_RAYS a slot), the camera configuration's 1024 camera rays.
+WITNESS_WINDOWS = ("lidar", "sky", "camera")
 
 
 def mesh_configs(config: str, f32: bool = False, plain: bool = False):
-    """profile_iteration's ``config`` at k = 3, one dispatch in flight; ``f32``:
+    """profile_iteration's ``config`` at k = 3, one dispatch in flight (``sky``:
+    the flagship with SKY_RAYS sky rays a slot); ``f32``:
     the field in f32 (the f32 Fourier pair); ``plain``: the sigma field's plain
     PyTorch version in place of its kernels."""
     from dataclasses import replace
 
     from loner_tpu_torch.analysis.profile_iteration import configs
 
-    cfg, field_cfg = configs(config)
+    cfg, field_cfg = configs("flagship" if config == "sky" else config)
     cfg = replace(cfg, steps_per_dispatch=3, max_inflight_dispatches=1)
+    if config == "sky":
+        cfg = replace(cfg, enable_sky=True, n_sky_samples=SKY_RAYS)
     if f32:
         field_cfg = replace(field_cfg, compute_dtype=torch.float32)
     if plain:
@@ -2731,14 +2742,12 @@ def mesh_phase(mesh, config: str, graphs: bool, timed: int = 0, dev=None, f32: b
     device ms of MESH_TRACED more under torch.profiler (rank 0) with the share of
     NCCL's kernels, and the flat gradient all-reduce alone (its size, eager,
     MESH_ALLREDUCE_REPS times)."""
-    import torch.distributed as dist
-
     from loner_tpu_torch.analysis.profile_iteration import device_events
     from loner_tpu_torch.mapping.optimizer import Optimizer, PhaseSettings, make_phase_runner
 
     dev = mesh.device if mesh is not None else dev
     cfg, field_cfg = mesh_configs(config, f32, plain)
-    buffers, twists = synthetic_window(dev, WINDOW)
+    buffers, twists = synthetic_window(dev, WINDOW, SKY_DIRS if config == "sky" else 0)
     state = Optimizer(cfg, field_cfg, 12.0, np.zeros(3), [], dev).state
     if fault and mesh is not None and mesh.rank == mesh.spec.size - 1:
         _leave_out_gradients(mesh)
@@ -2783,12 +2792,12 @@ def mesh_phase(mesh, config: str, graphs: bool, timed: int = 0, dev=None, f32: b
         res["allreduce_numel"] = numel
         if mesh is not None:
             flat = torch.ones(numel, device=dev)
-            dist.all_reduce(flat)
+            mesh.all_reduce_(flat)
             torch.cuda.synchronize(dev)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             for _ in range(MESH_ALLREDUCE_REPS):
-                dist.all_reduce(flat)
+                mesh.all_reduce_(flat)
             end.record()
             torch.cuda.synchronize(dev)
             res["allreduce_ms"] = start.elapsed_time(end) / MESH_ALLREDUCE_REPS
@@ -2943,55 +2952,101 @@ def _rows_differ(a: torch.Tensor, b: torch.Tensor, rays: int) -> tuple:
     return int(differ.any(dim=1).sum()), float(diff.max()) if diff.numel() else 0.0
 
 
-def forward_batch_witness(dev, parts: int = 4, f32: bool = False) -> dict:
-    """One card, no mesh: the first iteration's forward of the flagship's W=8
-    window in one batch and in ``parts`` contiguous batches of its rays (what
-    each rank of a ``parts``-rank mesh computes), from the same draws and state.
+def witness_configs(window: str, f32: bool):
+    """The configurations of ``forward_batch_witness``'s windows: the flagship
+    (``lidar``), the flagship with SKY_RAYS sky rays a slot (``sky``) and
+    cfg/synthetic/box_room_tpu_camera_r5.yaml (``camera``); ``f32``: the field
+    in f32."""
+    from dataclasses import replace
+
+    from loner_tpu_torch.analysis.profile_iteration import configs
+
+    if window != "camera":
+        return mesh_configs("sky" if window == "sky" else "flagship", f32)
+    cfg, field_cfg = configs("camera")
+    return cfg, replace(field_cfg, compute_dtype=torch.float32) if f32 else field_cfg
+
+
+def forward_batch_witness(dev, parts: int = 4, f32: bool = False, window: str = "lidar") -> dict:
+    """One card, no mesh: the first iteration's forward of a W=8 window
+    (``witness_configs``: the flagship's LiDAR rays, its LiDAR and sky rays, or
+    the camera configuration's camera rays) in one batch and in ``parts``
+    contiguous batches of its rays (what each rank of a ``parts``-rank mesh
+    computes), from the same draws and state.
 
     ``ops``, op by op: each op of the forward, given the one-batch run's input to
-    it, on the whole batch and on each part; the rays whose output differs in any
-    bit and the largest difference. The proposal MLP's last product (one output
-    column) appears twice: as one product (``x @ w``, a gemv; ``port`` False) and
-    in the blocks of RAY_BLOCK rays that ``proposal_logits`` computes. Then the
-    whole forward (``compute_lidar_loss``) in one batch and in parts: how many
-    rays' JS score and sample depths differ, the largest differences, and how many
-    rays fall on the two sides of the JS threshold (``min_js_score``, where the
-    loss's margin jumps). ``first``: the first op whose output differs;
-    ``port_first``: the first of the ops the port runs."""
-    from loner_tpu_torch.mapping.loss import compute_lidar_loss, js_scores
-    from loner_tpu_torch.mapping.optimizer import Optimizer, draw_step, sky_rays_per_slot
-    from loner_tpu_torch.mapping.rays import sample_and_build_rays
-    from loner_tpu_torch.models.field import query_field
+    it, on the whole batch and on each part (rows split evenly: slots, rays or
+    points); the rays whose output differs in any bit and the largest
+    difference. The ray build (``sample_and_build_rays`` or
+    ``sample_and_build_camera_rays`` on the parts' slots); the proposal
+    sampler's ops, its MLP's last product (one output column) twice: as one
+    product (``x @ w``, a gemv; ``port`` False) and in the blocks of RAY_BLOCK
+    rays that ``proposal_logits`` computes; the sigma field; the compositing's
+    transmittance twice, as one ``torch.cumprod`` (``port`` False: CUDA's scan
+    shares a row among more threads when there are fewer rows) and in the blocks
+    of SCAN_ROWS rays that ``raw2outputs`` computes; the compositing;
+    for LiDAR and sky rays the JS score, for camera rays the intensity head's
+    Fourier features, its products as ``_MLPFunction`` runs them and
+    ``query_intensity``, then the colours. Then the whole forward
+    (``compute_lidar_loss``, ``compute_camera_loss``) in one batch and in
+    parts: how many rays' outputs differ (sample depths and JS scores, with the
+    rays on the two sides of the JS threshold; colours and squared errors).
+    ``first``: the first op whose output differs; ``port_first``: the first of
+    the ops the port runs."""
+    from loner_tpu_torch.analysis.profile_iteration import camera_window
+    from loner_tpu_torch.mapping.loss import compute_camera_loss, compute_lidar_loss, js_scores
+    from loner_tpu_torch.mapping.optimizer import (
+        Optimizer, _camera_rays, draw_step, sky_rays_per_slot,
+    )
+    from loner_tpu_torch.mapping.rays import WindowBuffers, sample_and_build_rays
+    from loner_tpu_torch.models.field import _round, encode_fourier, query_field, query_intensity
     from loner_tpu_torch.models.proposal import RAY_BLOCK, _OneColumnProduct, proposal_logits
-    from loner_tpu_torch.models.rendering import ProposalRaySampler, _inverse_cdf, raw2outputs
+    from loner_tpu_torch.models.rendering import (
+        ProposalRaySampler, _inverse_cdf, _PositiveCumprod, raw2outputs,
+    )
+    from loner_tpu_torch.models.sh_encoding import sh_encode
 
-    cfg, field_cfg = mesh_configs("flagship", f32)
-    buffers, twists = synthetic_window(dev, WINDOW)
+    cfg, field_cfg = witness_configs(window, f32)
+    buffers, twists = synthetic_window(dev, WINDOW, SKY_DIRS if window == "sky" else 0)
     params = Optimizer(cfg, field_cfg, 12.0, np.zeros(3), [], dev).state
-    d = draw_step(torch.Generator(device=dev).manual_seed(1), cfg, WINDOW, dev)
+    camera = window == "camera"
+    d = draw_step(torch.Generator(device=dev).manual_seed(1), cfg, WINDOW, dev, camera=camera)
     scale, shift = torch.tensor(12.0, device=dev), torch.zeros(3, device=dev)
     prop, n = params.occ_grid, cfg.n_samples_per_ray
     sampler = ProposalRaySampler(n_ctrl=cfg.prop_n_ctrl or None)
     ops = []
     with torch.no_grad():
-        rays, depths, valid = sample_and_build_rays(
-            buffers, twists, scale, shift, cfg.ray_range, cfg.n_lidar_samples,
-            sky_rays_per_slot(cfg), u=d.ray_u, sky_u=d.sky_u)
+        if camera:
+            cam = camera_window(WINDOW, field_cfg.num_colors, dev)
+            rays_of = lambda tw, intens, has, valid, u: _camera_rays(  # noqa: E731
+                cfg, type(cam)(cam.cam_dirs, intens, has, cam.lidar_to_camera), tw, scale, shift,
+                valid, u)
+            slot_inputs = (twists, cam.intensities, cam.has_image, buffers.slot_valid, d.cam_u)
+            jitter, pdf_u = d.cam_jitter, d.cam_pdf_u
+        else:
+            rays_of = lambda tw, di, de, co, sd, sc, sv, u, su: sample_and_build_rays(  # noqa: E731
+                WindowBuffers(di, de, co, sd, sc, sv), tw, scale, shift, cfg.ray_range,
+                cfg.n_lidar_samples, sky_rays_per_slot(cfg), u=u, sky_u=su)
+            slot_inputs = (twists, buffers.dirs, buffers.depths, buffers.counts, buffers.sky_dirs,
+                           buffers.sky_counts, buffers.slot_valid, d.ray_u, d.sky_u)
+            if d.sky_u is None:
+                slot_inputs = slot_inputs[:-1]
+                rays_of = (lambda f: lambda *a: f(*a, None))(rays_of)
+            jitter, pdf_u = d.jitter, d.pdf_u
+        rays, depths, valid = rays_of(*slot_inputs)
         b = rays.shape[0]
-        k = b // parts
 
         def op(name: str, fn, *inputs, port: bool = True):
-            """``fn`` on the whole of ``inputs`` and on each part of their rays."""
+            """``fn`` on the whole of ``inputs`` and on each part of their rows."""
             whole = fn(*inputs)
-            pieces = []
-            for i in range(parts):
-                rows = [t[i * k * (t.shape[0] // b):(i + 1) * k * (t.shape[0] // b)]
-                        for t in inputs]
-                pieces.append(fn(*rows))
+            pieces = [fn(*(t[i * (t.shape[0] // parts):(i + 1) * (t.shape[0] // parts)]
+                           for t in inputs)) for i in range(parts)]
             n_rays, max_abs = _rows_differ(whole, torch.cat(pieces), b)
             ops.append({"op": name, "port": port, "rays_differ": n_rays, "max_abs": max_abs})
             return whole
 
+        op("camera rays (sample_and_build_camera_rays)" if camera else
+           "rays (sample_and_build_rays)", lambda *a: rays_of(*a)[0], *slot_inputs)
         # The proposal sampler (models/rendering.py::ProposalRaySampler.get_samples).
         near, far = rays[:, 9:10], rays[:, 10:11]
         n_ctrl = cfg.prop_n_ctrl or n // 2
@@ -3016,56 +3071,127 @@ def forward_batch_witness(dev, parts: int = 4, f32: bool = False) -> dict:
         cdf = op("cumsum", lambda x: torch.cumsum(x, dim=-1), w)
         cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=-1)
         q = torch.arange(n, dtype=rays.dtype, device=dev)
-        u = torch.minimum((q[None, :] + d.jitter) / n, cdf[:, -1:])
+        u = torch.minimum((q[None, :] + jitter) / n, cdf[:, -1:])
         op("_inverse_cdf", lambda c, z, uu, lo, hi: _inverse_cdf(c, z, uu, edges=(lo, hi, steps)),
            cdf, z_ctrl, u, near, far)
         z = op("sampler (get_samples)",
-               lambda r, j: sampler.get_samples(r, n, cfg.perturb, prop, j), rays, d.jitter)
-        # The sigma field, the compositing and the JS score on the sampler's depths.
+               lambda r, j: sampler.get_samples(r, n, cfg.perturb, prop, j), rays, jitter)
+        # The field, the compositing and the loss terms on the sampler's depths.
         points = (rays[:, None, 0:3] + rays[:, None, 3:6] * z[..., None]).reshape(-1, 3)
         raw = op("sigma field (query_field)",
                  lambda x: query_field(params.field_params, x, None, field_cfg, sigma_only=True),
                  points)
         softplus = field_cfg.density_activation == "softplus"
-        weights = op("compositing (raw2outputs)", lambda r, zz, dd, nn, ff: raw2outputs(
-            r.reshape(zz.shape[0], n, 1), zz, dd, noise=nn, raw_noise_std=cfg.raw_noise_std,
-            softplus=softplus, far=ff)["weights"], raw, z, rays[:, 3:6], d.noise, far)
-        op("JS score", lambda zz, ww, dd: js_scores(zz, ww, dd, cfg.loss.min_depth_eps)[0],
-           z * scale, weights, depths * scale)
+        # raw2outputs' transmittance: one scan of each ray's 1 - alpha (the LiDAR
+        # rays' sigma with its noise).
+        sigma = raw.reshape(b, n)
+        if not camera and cfg.raw_noise_std > 0:
+            sigma = sigma + d.noise * cfg.raw_noise_std
+        deltas = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 1e10)], dim=-1)
+        deltas = deltas * torch.linalg.norm(rays[:, 3:6], dim=-1, keepdim=True)
+        act = torch.nn.functional.softplus(sigma) if softplus else torch.relu(sigma)
+        alphas = 1.0 - torch.exp(-deltas * act)
+        scan_in = torch.cat([torch.ones_like(alphas[:, :1]), 1.0 - alphas + 1e-10], dim=-1)
+        op("transmittance, one cumprod", lambda x: torch.cumprod(x, dim=-1), scan_in, port=False)
+        op("transmittance in blocks of SCAN_ROWS rays", _PositiveCumprod.apply, scan_in)
+        if camera:
+            view = rays[:, None, 6:9].expand(b, n, 3).reshape(-1, 3)
+            intensity = params.field_params["intensity"]
+            pos01 = (points + 1.0) * 0.5
+            h = op("intensity Fourier features",
+                   lambda x: encode_fourier(x, field_cfg.fourier_intensity, field_cfg), pos01)
+            if field_cfg.enable_view_dependence:
+                h = torch.cat([h, op("SH encode", lambda v: sh_encode((v + 1.0) * 0.5,
+                                                                      field_cfg.sh_degree),
+                                     view)], dim=-1)
+            mlp = intensity["mlp"]
+            n_layers = sum(1 for key in mlp if key.startswith("w"))
+            dtype = field_cfg.compute_dtype
+            h = _round(h, dtype)
+            for i in range(n_layers):
+                h = op(f"intensity product {i}", lambda x, wi=_round(mlp[f"w{i}"], dtype): x @ wi, h)
+                if i < n_layers - 1:
+                    h = _round(h, dtype)
+                    if f"b{i}" in mlp:
+                        h = _round(h + _round(mlp[f"b{i}"], dtype), dtype)
+                    h = torch.relu(h)
+            rgb = op("intensity head (query_intensity)",
+                     lambda x, v: query_intensity(params.field_params, x, v, field_cfg),
+                     points, view)
+            raw_c = torch.cat([rgb, raw], dim=-1)
+            weights = op("compositing, weights (raw2outputs)", lambda r, zz, dd, ff: raw2outputs(
+                r.reshape(zz.shape[0], n, 1), zz, dd, softplus=softplus, far=ff)["weights"],
+                raw, z, rays[:, 3:6], far)
+            op("colour sum over the samples", lambda ww, cc: (ww[..., None] * cc).sum(dim=-2),
+               weights, rgb.reshape(b, n, -1))
+            op("compositing, colours (raw2outputs)", lambda r, zz, dd, ff: raw2outputs(
+                r.reshape(zz.shape[0], n, -1), zz, dd, softplus=softplus, far=ff,
+                sigma_only=False, num_colors=field_cfg.num_colors)["rgb"],
+               raw_c, z, rays[:, 3:6], far)
 
-        def forward(rows):
-            rows_of = (lambda t: None if t is None else t[rows])
-            _, aux = compute_lidar_loss(
-                rays[rows], depths[rows], valid[rows], params.field_params, field_cfg,
-                sampler, prop, cfg.loss, scale, n, cfg.perturb, cfg.raw_noise_std, 0.0, 0.0,
-                jitter=rows_of(d.jitter), noise=rows_of(d.noise), pdf_u=rows_of(d.pdf_u))
-            return aux["js_score"], aux["z_m"]
+            def forward(rows):
+                rows_of = (lambda t: None if t is None else t[rows])
+                mse, rgb_out = compute_camera_loss(
+                    rays[rows], cam_i[rows], valid[rows], params.field_params, field_cfg,
+                    sampler, prop, n, cfg.perturb, detach_sigma=cfg.detach_rgb_from_sigma,
+                    jitter=rows_of(jitter), pdf_u=rows_of(pdf_u))
+                return rgb_out, (rgb_out - cam_i[rows]) ** 2
 
-        js, z_m = forward(slice(None))
+            cam_i = rays_of(*slot_inputs)[1]
+        else:
+            weights = op("compositing (raw2outputs)", lambda r, zz, dd, nn, ff: raw2outputs(
+                r.reshape(zz.shape[0], n, 1), zz, dd, noise=nn, raw_noise_std=cfg.raw_noise_std,
+                softplus=softplus, far=ff)["weights"], raw, z, rays[:, 3:6], d.noise, far)
+            op("depth (raw2outputs)", lambda r, zz, dd, nn, ff: raw2outputs(
+                r.reshape(zz.shape[0], n, 1), zz, dd, noise=nn, raw_noise_std=cfg.raw_noise_std,
+                softplus=softplus, far=ff)["depth"], raw, z, rays[:, 3:6], d.noise, far)
+            op("JS score", lambda zz, ww, dd: js_scores(zz, ww, dd, cfg.loss.min_depth_eps)[0],
+               z * scale, weights, depths * scale)
+
+            def forward(rows):
+                rows_of = (lambda t: None if t is None else t[rows])
+                _, aux = compute_lidar_loss(
+                    rays[rows], depths[rows], valid[rows], params.field_params, field_cfg,
+                    sampler, prop, cfg.loss, scale, n, cfg.perturb, cfg.raw_noise_std, 0.0, 0.0,
+                    jitter=rows_of(jitter), noise=rows_of(d.noise), pdf_u=rows_of(pdf_u))
+                return aux["js_score"], aux["z_m"]
+
+        k = b // parts
+        whole = forward(slice(None))
         pieces = [forward(slice(i * k, (i + 1) * k)) for i in range(parts)]
-    js_p, z_p = torch.cat([p[0] for p in pieces]), torch.cat([p[1] for p in pieces])
-    threshold = cfg.loss.min_js_score
-    js_differ, js_max = _rows_differ(js, js_p, b)
-    z_differ, z_max = _rows_differ(z_m, z_p, b)
+    out_a, out_b = (_rows_differ(w_, torch.cat([p[j] for p in pieces]), b)
+                    for j, w_ in enumerate(whole))
     differing = [o["op"] for o in ops if o["rays_differ"]]
     port_differing = [o["op"] for o in ops if o["rays_differ"] and o["port"]]
-    return {"rays": b, "parts": parts, "f32": f32, "ops": ops,
-            "first": differing[0] if differing else None,
-            "port_first": port_differing[0] if port_differing else None,
-            "js_rays_differ": js_differ, "z_rays_differ": z_differ,
-            "js_max_abs": js_max, "z_max_abs": z_max,
-            "threshold_crossings": int(((js < threshold) != (js_p < threshold)).sum())}
+    res = {"window": window, "rays": b, "parts": parts, "f32": f32, "ops": ops,
+           "first": differing[0] if differing else None,
+           "port_first": port_differing[0] if port_differing else None,
+           "whole_rays_differ": out_a[0] + out_b[0]}
+    if camera:
+        res.update({"rgb_rays_differ": out_a[0], "rgb_max_abs": out_a[1],
+                    "err_rays_differ": out_b[0], "err_max_abs": out_b[1]})
+    else:
+        js, js_p = whole[0], torch.cat([p[0] for p in pieces])
+        threshold = cfg.loss.min_js_score
+        res.update({"js_rays_differ": out_a[0], "js_max_abs": out_a[1],
+                    "z_rays_differ": out_b[0], "z_max_abs": out_b[1],
+                    "threshold_crossings": int(((js < threshold) != (js_p < threshold)).sum())})
+    return res
 
 
 def describe_witness(res: dict) -> str:
-    return (f"{res['rays']} rays in 1 batch against {res['parts']} batches, "
-            f"{'f32' if res['f32'] else 'bf16'}: "
+    whole = (f"colours of {res['rgb_rays_differ']} rays ({res['rgb_max_abs']:.3e}), squared "
+             f"errors of {res['err_rays_differ']} ({res['err_max_abs']:.3e})"
+             if res["window"] == "camera" else
+             f"sample depths of {res['z_rays_differ']} rays ({res['z_max_abs']:.3e} m), JS scores "
+             f"of {res['js_rays_differ']} ({res['js_max_abs']:.3e}), "
+             f"{res['threshold_crossings']} across the JS threshold")
+    return (f"{res['window']} window, {res['rays']} rays in 1 batch against {res['parts']} "
+            f"batches, {'f32' if res['f32'] else 'bf16'}: "
             + "; ".join(f"{o['op']} {o['rays_differ']} rays ({o['max_abs']:.3e})"
                         for o in res["ops"])
             + f"; first op that differs: {res['first']}; first the port runs: "
-            f"{res['port_first']}; whole forward: sample depths of {res['z_rays_differ']} rays "
-            f"({res['z_max_abs']:.3e} m), JS scores of {res['js_rays_differ']} "
-            f"({res['js_max_abs']:.3e}), {res['threshold_crossings']} across the JS threshold")
+            f"{res['port_first']}; whole forward: {whole}")
 
 
 def mesh_keyframes(n: int) -> list:
@@ -3128,47 +3254,59 @@ def mesh_optimizer_run(dev, spec, ckpt) -> dict:
 def mesh_on_one_card(dev, specs) -> tuple:
     """Gloo meshes of ``specs`` whose ranks all share ``dev``: the flagship's W=8
     phase eagerly on each, in bf16 held to MESH_GATE, in f32 to MESH_TOL, and
-    with the planted fault, which the gate must refuse. Returns ({"readings",
+    with the planted fault, which the gate must refuse; on four ranks also the
+    sky window's phase (``mesh_configs("sky")``: the window's LiDAR and sky rays
+    over the ranks) in bf16 and with the planted fault. Returns ({"readings",
     "launches"}, failures)."""
     readings, launches, failures = {}, {}, []
     jobs = [{"config": "flagship", "graphs": False},
             {"config": "flagship", "graphs": False, "f32": True},
             {"config": "flagship", "graphs": False, "fault": True}]
-    ones = [mesh_phase(None, dev=dev, **jobs[0]), mesh_phase(None, dev=dev, **jobs[1])]
+    sky_jobs = [{"config": "sky", "graphs": False}, {"config": "sky", "graphs": False, "fault": True}]
+    ones = {"bf16": mesh_phase(None, dev=dev, **jobs[0]), "f32": mesh_phase(None, dev=dev, **jobs[1]),
+            "sky": mesh_phase(None, dev=dev, **sky_jobs[0])}
     for spec in specs:
         name = f"gloo {spec.size} ranks" + (f" {list(spec.shape)}" if spec.two_axes else "")
         t0 = time.perf_counter()
-        sound, f32, fault = run_mesh_jobs(spec, jobs)
-        for label, res, one in (("bf16", sound, ones[0]), ("f32", f32, ones[1]),
-                                ("bf16, planted fault", fault, ones[0])):
-            diffs = mesh_diffs(res["outputs"], one["outputs"], one["before"])
+        with_sky = spec.size == 4
+        results = run_mesh_jobs(spec, jobs + (sky_jobs if with_sky else []))
+        labelled = [("flagship bf16", "bf16"), ("flagship f32", "f32"),
+                    ("flagship bf16, planted fault", "bf16"), ("sky bf16", "sky"),
+                    ("sky bf16, planted fault", "sky")]
+        for (label, one), res in zip(labelled, results):
+            diffs = mesh_diffs(res["outputs"], ones[one]["outputs"], ones[one]["before"])
             readings[f"{name} {label}"] = diffs
-            print(f"mesh: cards {torch.cuda.device_count()}, {name} on one card, eager; flagship "
+            print(f"mesh: cards {torch.cuda.device_count()}, {name} on one card, eager; "
                   f"W={WINDOW} {label}, {MESH_ITERS} iterations; against one card: "
                   f"{describe_diffs(diffs)}; launches {res['counts']}", flush=True)
-        print(f"mesh: {name}: three jobs in {time.perf_counter() - t0:.3f} s with the spawn",
-              flush=True)
-        failures += gate_failures(f"{name} bf16", readings[f"{name} bf16"],
-                                  readings[f"{name} bf16, planted fault"])
-        if not all(d["cpu_tol"] for d in readings[f"{name} f32"].values()):
+        print(f"mesh: {name}: {len(results)} jobs in {time.perf_counter() - t0:.3f} s with the "
+              "spawn", flush=True)
+        for window in ("flagship", "sky") if with_sky else ("flagship",):
+            failures += gate_failures(f"{name} {window} bf16", readings[f"{name} {window} bf16"],
+                                      readings[f"{name} {window} bf16, planted fault"])
+        if not all(d["cpu_tol"] for d in readings[f"{name} flagship f32"].values()):
             failures.append(f"{name} f32: beyond the CPU tests' tolerances")
-        launches[f"mesh {name}, one card"] = sound["counts"]
-        launches[f"mesh {name}, one card, f32"] = f32["counts"]
-        for label, res, kernel in (("bf16", sound, "fourier_mlp_fwd"),
-                                   ("f32", f32, "fourier_mlp_fwd_f32")):
+        launches[f"mesh {name}, one card"] = results[0]["counts"]
+        launches[f"mesh {name}, one card, f32"] = results[1]["counts"]
+        if with_sky:
+            launches[f"mesh {name}, one card, sky"] = results[3]["counts"]
+        for label, res, kernel in (("bf16", results[0], "fourier_mlp_fwd"),
+                                   ("f32", results[1], "fourier_mlp_fwd_f32")) + (
+                (("sky", results[3], "fourier_mlp_fwd"),) if with_sky else ()):
             if min(res["counts"][kernel], res["counts"][kernel.replace("fwd", "bwd")]) < MESH_ITERS:
                 failures.append(f"{name} {label}: launches {res['counts']}")
     return {"readings": readings, "launches": launches}, failures
 
 
 def run_mesh(dev) -> dict:
-    """Phase 21 on one card: (a) the forward of the flagship's W=8 window in one
+    """Phase 21 on one card: (a) the forward of each of WITNESS_WINDOWS in one
     batch against WITNESS_PARTS batches, op by op (``forward_batch_witness``), in
     bf16 and f32: no ray of an op the port runs, and none of the whole forward's
-    sample depths and JS scores, may differ in any bit; then two gloo ranks, four
-    and [2, 2] sharing the card run the flagship's W=8 phase eagerly (each rank's
-    Fourier pair on its share of the window): in bf16 held to MESH_GATE, in f32 to
-    MESH_TOL, and with the planted fault, which the gate must refuse; (b) the
+    outputs, may differ in any bit; then two gloo ranks, four and [2, 2] sharing
+    the card run the flagship's W=8 phase eagerly (each rank's Fourier pair on
+    its share of the window), and four ranks the sky window's: in bf16 held to
+    MESH_GATE, in f32 to MESH_TOL, and with the planted fault, which the gate
+    must refuse (``mesh_on_one_card``); (b) the
     slot-reversed witness on one card;
     (c) a one-rank NCCL mesh through the graphs, its collectives captured, equal
     to the bit to the graphs without a mesh; (d) the Optimizer on that one-rank
@@ -3186,15 +3324,17 @@ def run_mesh(dev) -> dict:
     cards = torch.cuda.device_count()
     gloo, nccl = make_mesh(2, devices=[dev, dev]), make_mesh(1, dev)
 
-    for parts in WITNESS_PARTS:
-        for f32_witness in (False, True):
-            res = forward_batch_witness(dev, parts, f32_witness)
-            readings[f"forward in {parts} batches, {'f32' if f32_witness else 'bf16'}"] = res
-            print(f"mesh witness: one card, no mesh, flagship W={WINDOW}: "
-                  f"{describe_witness(res)}", flush=True)
-            if res["port_first"] or res["z_rays_differ"] or res["js_rays_differ"]:
-                failures.append(f"forward in {parts} batches ({'f32' if f32_witness else 'bf16'})"
-                                f": {res['port_first']} differs from one batch")
+    for window in WITNESS_WINDOWS:
+        for parts in WITNESS_PARTS:
+            for f32_witness in (False, True):
+                t0 = time.perf_counter()
+                res = forward_batch_witness(dev, parts, f32_witness, window)
+                label = f"{window} forward in {parts} batches, {'f32' if f32_witness else 'bf16'}"
+                readings[label] = res
+                print(f"mesh witness: one card, no mesh, W={WINDOW}: {describe_witness(res)} "
+                      f"({time.perf_counter() - t0:.2f} s)", flush=True)
+                if res["port_first"] or res["whole_rays_differ"]:
+                    failures.append(f"{label}: {res['port_first']} differs from one batch")
 
     shared, more = mesh_on_one_card(dev, [gloo, make_mesh(4, devices=[dev] * 4),
                                           make_mesh_2d(2, 2, devices=[dev] * 4)])
@@ -3276,12 +3416,13 @@ def topology() -> str:
 
 
 def mesh_iterations(dev) -> tuple:
-    """Four cards, (c): the W=8 phase through the graphs on 1 card (no mesh), 4
-    NCCL ranks and [2, 2]: both configurations timed (ms an iteration, the
-    device ms traced and NCCL's kernels in it, the gradient all-reduce's ms
-    alone), and the flagship also in f32 (held to MESH_TOL) and with the
-    planted fault (which MESH_GATE must refuse); the outputs against one card,
-    the flagship's bf16 gated. Returns (record, failures)."""
+    """Four cards, (c): the W=8 phase through the graphs on 1 card (no mesh), 2
+    and 4 NCCL ranks and [2, 2]: both configurations timed (ms an iteration,
+    the device ms traced and NCCL's kernels in it, the gradient all-reduce's ms
+    alone), and the flagship also in f32 (held to MESH_TOL) and with the planted
+    fault (which MESH_GATE must refuse); the outputs against one card, the
+    flagship's bf16 gated. Each mesh's teardown prints every rank's seconds.
+    Returns (record, failures)."""
     from loner_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
 
     timed = [{"config": c, "graphs": True, "timed": MESH_TIMED} for c in ("flagship", "reference")]
@@ -3297,7 +3438,8 @@ def mesh_iterations(dev) -> tuple:
         print(f"mesh {config}: 1 card, no mesh: {one['ms']:.3f} ms an iteration through the "
               f"graphs ({MESH_TIMED} iterations), device {one['device_ms']:.3f} ms traced",
               flush=True)
-    for label, spec in (("4 ranks", make_mesh(4, dev)), ("[2, 2]", make_mesh_2d(2, 2, dev))):
+    for label, spec in (("2 ranks", make_mesh(2, dev)), ("4 ranks", make_mesh(4, dev)),
+                        ("[2, 2]", make_mesh_2d(2, 2, dev))):
         jobs = timed + checks
         t0 = time.perf_counter()
         results = run_mesh_jobs(spec, jobs)
@@ -3329,24 +3471,264 @@ def mesh_iterations(dev) -> tuple:
     return record, failures
 
 
-def mesh_slam(dev, root: str, sequence: dict) -> dict:
-    """Four cards, (a): threaded SLAM at the flagship's settings on ``sequence``,
-    on one card and with ``system.mesh_devices: 4`` and ``tracker.icp.device:
-    1`` (run_slam's checks, ATE gated). Returns each run's numbers."""
-    record = {}
-    for label, on_mesh in (("flagship 1card", False), ("flagship mesh4 icp1", True)):
-        settings = flagship_slam_settings("")
-        if on_mesh:
-            settings["system"]["mesh_devices"] = MESH_SLAM["mesh_devices"]
-            settings["tracker"]["icp"]["device"] = MESH_SLAM["icp_device"]
-        t0 = time.perf_counter()
-        slam = run_slam(dev, label, settings, sequence, os.path.join(root, label.split()[1]),
-                        ("fourier_mlp_fwd", "fourier_mlp_bwd"), ("composite", "fourier_mlp_fwd"),
-                        "pallas")
-        record[label] = {k: slam[k] for k in ("rtf", "boot_ms", "win_ms", "track_p50_ms",
-                                              "track_p95_ms", "ate", "graphs", "counts")}
-        print(f"SLAM {label}: {time.perf_counter() - t0:.1f} s with its checks", flush=True)
-    return record
+def run_child(args: list, seconds: float, log_path: Optional[str] = None, **kwargs) -> dict:
+    """``args`` as a child process in a process group of its own, its output read
+    line by line with the time each arrived; at ``seconds`` every process of the
+    group is killed. Returns rc (None if killed), the lines and their times
+    (seconds from the start); the whole output goes to ``log_path`` if given."""
+    import signal
+    import threading
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(args, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            process_group=0, **kwargs)
+    lines = []
+
+    def read():
+        for line in proc.stdout:
+            lines.append((time.perf_counter() - t0, line.rstrip("\n")))
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        rc = proc.wait(timeout=seconds)
+    except subprocess.TimeoutExpired:
+        rc = None
+    try:  # what the child left in its group (a mesh's followers, if it failed)
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+    reader.join(timeout=10)
+    if log_path is not None:
+        with open(log_path, "w") as f:
+            f.write("\n".join(f"[{t:9.3f}] {line}" for t, line in lines) + "\n")
+    return {"rc": rc, "lines": lines, "s": time.perf_counter() - t0}
+
+
+def nccl_comms(lines) -> dict:
+    """Every NCCL communicator in NCCL_DEBUG=INFO output, by (process, comm):
+    its rank, ranks, and whether its init and its destroy completed."""
+    import re
+
+    comms = {}
+    pattern = re.compile(r":(\d+):\d+ \[\d+\] NCCL INFO (?:ncclCommInitRankConfig )?comm "
+                         r"(0x[0-9a-f]+) rank (\d+) nranks (\d+).* - (Init|Destroy) COMPLETE")
+    for _, line in lines:
+        m = pattern.search(line)
+        if m:
+            c = comms.setdefault((m.group(1), m.group(2)), {"rank": int(m.group(3)),
+                                                            "nranks": int(m.group(4))})
+            c[m.group(5).lower()] = True
+    return comms
+
+
+def slam_log_numbers(log_dir: str, ts: np.ndarray) -> dict:
+    """A SLAM run's numbers from its log directory: RTF, ms a mapping iteration
+    (the W=1 or bootstrap keyframe, the windows), tracking latency p50 / p95 and
+    the ATE RMSE of both trajectories."""
+    from loner_tpu_torch.analysis.traj_metrics import evaluate_trajectory_files
+
+    runtime = float(open(os.path.join(log_dir, "runtime.txt")).read().split()[1])
+    timing = np.loadtxt(os.path.join(log_dir, "timing.csv"), delimiter=",", ndmin=2)
+    track = np.loadtxt(os.path.join(log_dir, "track_times.csv"), delimiter=",", ndmin=2)
+    ate = {name: evaluate_trajectory_files(
+        os.path.join(log_dir, "trajectory", f"{name}.txt"),
+        os.path.join(log_dir, "trajectory", "groundtruth.txt"), delta_m=1.0)["ate"]["rmse"]
+        for name in ("estimated_trajectory", "tracking_only")}
+    seq_s = float(ts[-1] - ts[0]) + 0.1
+    return {"rtf": seq_s / runtime, "runtime_s": runtime, "seq_s": seq_s,
+            "keyframes": len(timing), "iterations": int(timing[:, 0].sum()),
+            "boot_ms": 1e3 * timing[0, 1] / timing[0, 0],
+            "win_ms": 1e3 * timing[1:, 1].sum() / max(timing[1:, 0].sum(), 1),
+            "track_updates": len(track), "track_p50_ms": 1e3 * float(np.median(track[:, 0])),
+            "track_p95_ms": 1e3 * float(np.quantile(track[:, 0], 0.95)), "ate": ate}
+
+
+def mesh_slam_cli(dev, root: str, sequence: dict, label: str, mesh_devices, icp_device,
+                  log_dir: Optional[str] = None) -> dict:
+    """``python -m loner_tpu_torch.run_loner`` on ``sequence`` at the flagship's
+    settings with ``system.mesh_devices`` (and ``tracker.icp.device``), a child
+    process under NCCL_DEBUG=INFO with MESH_SLAM_SECONDS: rc 0, every NCCL
+    communicator it made destroyed, each rank's teardown seconds (the mesh's
+    "Mesh teardown" line) and the seconds from "Mapping Done." to the exit, and
+    the run's numbers (ATE gated at ATE_MAX). Raises on any miss."""
+    from loner_tpu_torch.common.json_yaml import write_json_yaml
+
+    out = os.path.join(root, label.replace(" ", "_"))
+    os.makedirs(out, exist_ok=True)
+    settings = flagship_slam_settings(os.path.join(out, "outputs"))
+    settings["system"]["mesh_devices"] = mesh_devices
+    if icp_device is not None:
+        settings["tracker"]["icp"]["device"] = icp_device
+    config = os.path.join(out, "config.yaml")
+    write_json_yaml(config, settings)
+    env = dict(os.environ, NCCL_DEBUG="INFO",
+               PYTHONPATH=os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")]))
+    run = run_child([sys.executable, "-m", "loner_tpu_torch.run_loner", sequence["dataset"],
+                     config, "--experiment_name", f"smoke_{label.replace(' ', '_')}",
+                     "--device", str(dev)], MESH_SLAM_SECONDS,
+                    None if log_dir is None else os.path.join(log_dir, f"mesh_slam_{label.replace(' ', '_')}.log"),
+                    cwd=out, env=env)
+    lines = run["lines"]
+    mapped = [t for t, line in lines if line.strip() == "Mapping Done."]
+    teardown = [json.loads(line.split(": ", 1)[1]) for _, line in lines
+                if line.startswith("Mesh teardown, ")]
+    comms = nccl_comms(lines)
+    undestroyed = sorted((c["rank"], c["nranks"]) for c in comms.values() if not c.get("destroy"))
+    res = {"rc": run["rc"], "wall_s": run["s"], "comms": len(comms), "undestroyed": undestroyed,
+           "teardown": teardown[-1] if teardown else None,
+           "exit_after_mapping_s": run["s"] - mapped[-1] if mapped else None}
+    print(f"SLAM flagship {label} (run_loner, mesh_devices {mesh_devices}, icp.device "
+          f"{icp_device}): rc {run['rc']} in {run['s']:.1f} s; NCCL communicators {len(comms)}, "
+          f"not destroyed {undestroyed}; 'Mapping Done.' to the exit "
+          + (f"{res['exit_after_mapping_s']:.3f} s" if mapped else "never mapped")
+          + "; teardown s per rank "
+          + (", ".join(f"{r}: {t['total']:.3f}" for r, t in res["teardown"].items()
+                       if r.isdigit() and t) + f"; close {res['teardown']['close']:.3f}"
+             if res["teardown"] else "not reported"), flush=True)
+    if run["rc"] != 0 or undestroyed or not comms or res["teardown"] is None:
+        raise RuntimeError(f"SLAM {label}: rc {run['rc']}, undestroyed {undestroyed}; last lines:\n"
+                           + "\n".join(line for _, line in lines[-40:]))
+    log_line = [line for _, line in lines if line.startswith("Finished. Logs in ")][-1]
+    res.update(slam_log_numbers(log_line.split("Finished. Logs in ", 1)[1], sequence["ts"]))
+    print(f"SLAM flagship {label}: RTF {res['rtf']:.4f}, ms per mapping iteration W=8 "
+          f"{res['win_ms']:.3f} (first keyframe {res['boot_ms']:.3f}), tracking p50 "
+          f"{res['track_p50_ms']:.3f} / p95 {res['track_p95_ms']:.3f} ms, ATE estimated "
+          f"{res['ate']['estimated_trajectory']:.4f} m, tracking only "
+          f"{res['ate']['tracking_only']:.4f} m (bound {ATE_MAX})", flush=True)
+    if not all(v < ATE_MAX for v in res["ate"].values()):
+        raise RuntimeError(f"SLAM {label}: ATE above {ATE_MAX} m: {res['ate']}")
+    return res
+
+
+def mesh_slam(dev, root: str, sequence: dict, log_dir: Optional[str] = None) -> tuple:
+    """Four cards, (a): threaded SLAM at the flagship's settings on ``sequence`` on
+    one card (run_slam's checks, ATE gated), then each of MESH_SLAM through
+    run_loner's command line (``mesh_slam_cli``). Returns (record, failures)."""
+    import traceback
+
+    record, failures = {}, []
+    t0 = time.perf_counter()
+    slam = run_slam(dev, "flagship 1card", flagship_slam_settings(""), sequence,
+                    os.path.join(root, "1card"), ("fourier_mlp_fwd", "fourier_mlp_bwd"),
+                    ("composite", "fourier_mlp_fwd"), "pallas")
+    record["1 card"] = {k: slam[k] for k in ("rtf", "boot_ms", "win_ms", "track_p50_ms",
+                                             "track_p95_ms", "ate", "graphs", "counts")}
+    print(f"SLAM flagship 1card: {time.perf_counter() - t0:.1f} s with its checks", flush=True)
+    for label, mesh_devices, icp_device in MESH_SLAM:
+        try:
+            record[label] = mesh_slam_cli(dev, root, sequence, label, mesh_devices, icp_device,
+                                          log_dir)
+        except Exception as e:  # the other runs still run; raised at the end
+            traceback.print_exc()
+            failures.append(f"SLAM {label}: {str(e)[:3000]}")
+    return record, failures
+
+
+def follower_death_rank0() -> None:
+    """Rank 0 of the follower-death stage, as a process of its own (``python -c``):
+    the Optimizer on four NCCL ranks joined with MESH_DEATH's timeout, warmed
+    up, then one W=8 window of MESH_DEATH["iterations"]; a thread kills rank
+    MESH_DEATH["rank"] MESH_DEATH["after_s"] into it. Prints one JSON line
+    "follower death: {...}": the error rank 0 raised, the seconds from the kill
+    to the raise, the followers' pids and what ``close`` then did."""
+    import signal
+    import threading
+    from datetime import timedelta
+
+    from loner_tpu_torch.mapping.optimizer import Optimizer, serve_replica
+    from loner_tpu_torch.parallel.mesh import launch, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cfg, field_cfg = mesh_configs("flagship")
+    schedule = [{"num_keyframes": -1, "iteration_schedule": [
+        {"num_iterations": MESH_DEATH["iterations"], "freeze_poses": False,
+         "freeze_sigma_mlp": False}]}]
+    replica = dict(cfg=cfg, field_cfg=field_cfg, world_scale=12.0,
+                   world_shift=np.zeros(3, np.float32), keyframe_schedule=schedule,
+                   skip_pose_refinement=False, use_gt_poses=False, freeze_poses=False, seed=5,
+                   camera_rays=None)
+    mesh = launch(make_mesh(4, dev), serve_replica, (replica,),
+                  timeout=timedelta(seconds=MESH_DEATH["timeout_s"]))
+    opt = Optimizer(cfg, field_cfg, 12.0, np.zeros(3), schedule, dev, seed=5,
+                    skip_pose_refinement=False, mesh=mesh)
+    opt.warm_up(MESH_SCAN_POINTS)
+    pids = [p.pid for p in mesh._processes]
+    victim = mesh._processes[MESH_DEATH["rank"] - 1]
+    killed = {}
+
+    def kill():
+        time.sleep(MESH_DEATH["after_s"])
+        killed["at"] = time.monotonic()
+        os.kill(victim.pid, signal.SIGKILL)
+
+    threading.Thread(target=kill, daemon=True).start()
+    t0 = time.monotonic()
+    error = None
+    try:
+        opt.iterate_optimizer(mesh_keyframes(WINDOW))
+    except Exception as e:  # what rank 0 raised is the stage's result
+        error = f"{type(e).__name__}: {e}"
+    raised = time.monotonic()
+    t1 = time.perf_counter()
+    close_error = None
+    try:
+        opt.close()
+    except Exception as e:  # reported, and failed by the stage
+        close_error = f"{type(e).__name__}: {e}"
+    print("follower death: " + json.dumps({
+        "error": error, "phase_s": raised - t0,
+        "kill_to_raise_s": raised - killed["at"] if "at" in killed else None,
+        "close_s": time.perf_counter() - t1, "close_error": close_error, "pids": pids,
+        "exitcodes": [p.exitcode for p in mesh._processes]}), flush=True)
+
+
+def mesh_follower_death(log_dir: Optional[str] = None) -> tuple:
+    """Four cards, (d): ``follower_death_rank0`` as a child process; then no process
+    of it may be left and no card may hold more memory than before it
+    (``torch.cuda.mem_get_info`` of each card, within MESH_LEFT_BYTES). Returns
+    (record, failures)."""
+    n = torch.cuda.device_count()
+    used = lambda: [(lambda f, t: t - f)(*torch.cuda.mem_get_info(i)) for i in range(n)]  # noqa: E731
+    before = used()
+    code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+            "chip_smoke.follower_death_rank0()")
+    run = run_child([sys.executable, "-c", code], MESH_DEATH_SECONDS,
+                    None if log_dir is None else os.path.join(log_dir, "mesh_death.log"),
+                    cwd=REPO, env=dict(os.environ, NCCL_DEBUG="WARN"))
+    time.sleep(2.0)  # a killed process's card memory is freed as it is reaped
+    after = used()
+    lines = [line for _, line in run["lines"] if line.startswith("follower death: ")]
+    res = json.loads(lines[-1].split(": ", 1)[1]) if lines else {}
+    alive = []
+    for pid in res.get("pids", []):
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    res.update({"rc": run["rc"], "wall_s": run["s"], "alive": alive,
+                "left_bytes": [a - b for a, b in zip(after, before)]})
+    bound = MESH_DEATH["timeout_s"] + MESH_DEATH["margin_s"]
+    print(f"mesh follower death: rank {MESH_DEATH['rank']} of 4 NCCL ranks killed "
+          f"{MESH_DEATH['after_s']} s into a W={WINDOW} phase; rank 0 raised "
+          f"{res.get('error')!r} {res.get('kill_to_raise_s')} s after the kill (bound {bound} s: "
+          f"the collective timeout {MESH_DEATH['timeout_s']} s + {MESH_DEATH['margin_s']} s); "
+          f"close {res.get('close_s')} s ({res.get('close_error')}); child rc {run['rc']} in "
+          f"{run['s']:.1f} s; followers left alive {alive}; card memory left "
+          f"{res['left_bytes']} bytes", flush=True)
+    failures = []
+    named = f"rank {MESH_DEATH['rank']} exited"
+    if (run["rc"] != 0 or res.get("error") is None or named not in res["error"]
+            or res.get("kill_to_raise_s") is None or res["kill_to_raise_s"] > bound
+            or res.get("close_error") or alive
+            or any(b > MESH_LEFT_BYTES for b in res["left_bytes"])):
+        failures.append("follower death: " + json.dumps(res)[:2000] + "\n" + "\n".join(
+            line for _, line in run["lines"][-30:]))
+    return res, failures
 
 
 def mesh_pools(dev, root: str, sequence: dict) -> tuple:
@@ -3393,11 +3775,13 @@ def mesh_pools(dev, root: str, sequence: dict) -> tuple:
 
 
 def run_mesh_cards(dev, slam_scans: int = SLAM_SCANS,
-                   stages=("slam", "pools", "iterations")) -> dict:
+                   stages=("slam", "pools", "iterations", "death"),
+                   log_dir: Optional[str] = None) -> dict:
     """The mesh on four cards: the topology, then of ``stages`` ``mesh_slam``,
-    ``mesh_pools`` and ``mesh_iterations``, in that order. Every stage runs; the
-    record is printed as one JSON line and the stages' failures are raised at
-    the end."""
+    ``mesh_pools``, ``mesh_iterations`` and ``mesh_follower_death``, in that
+    order; the children's whole output goes under ``log_dir`` if given. Every
+    stage runs; the record is printed as one JSON line and the stages' failures
+    are raised at the end."""
     import tempfile
     import traceback
 
@@ -3411,27 +3795,28 @@ def run_mesh_cards(dev, slam_scans: int = SLAM_SCANS,
     def stage(name: str, fn):
         t0 = time.perf_counter()
         try:
-            return fn()
+            out = fn()
         except Exception as e:  # the later stages still run; raised at the end
             traceback.print_exc()
             failures.append(f"{name}: {e}")
             return None
         finally:
             print(f"mesh cards: stage {name} {time.perf_counter() - t0:.1f} s", flush=True)
+        record[name], more = out
+        failures.extend(more)
+        return out
 
     with tempfile.TemporaryDirectory(prefix="loner_tpu_torch_mesh_") as root:
-        sequence = write_slam_dataset(os.path.join(root, "dataset"), slam_scans)
+        if "slam" in stages or "pools" in stages:
+            sequence = write_slam_dataset(os.path.join(root, "dataset"), slam_scans)
         if "slam" in stages:
-            record["slam"] = stage("SLAM", lambda: mesh_slam(dev, root, sequence))
-        pools = stage("pools", lambda: mesh_pools(dev, root, sequence)) if "pools" in stages else None
-        if pools is not None:
-            record["pools"], more = pools
-            failures += more
-    iterations = (stage("iterations", lambda: mesh_iterations(dev))
-                  if "iterations" in stages else None)
-    if iterations is not None:
-        record["iterations"], more = iterations
-        failures += more
+            stage("slam", lambda: mesh_slam(dev, root, sequence, log_dir))
+        if "pools" in stages:
+            stage("pools", lambda: mesh_pools(dev, root, sequence))
+    if "iterations" in stages:
+        stage("iterations", lambda: mesh_iterations(dev))
+    if "death" in stages:
+        stage("death", lambda: mesh_follower_death(log_dir))
     print(json.dumps({"mesh_cards": record}, default=str), flush=True)
     if failures:
         raise RuntimeError("mesh on four cards: " + "; ".join(failures))

@@ -24,8 +24,9 @@ other, so drift on the card shows as a difference between the two runs of a side
   backward stands in). One JSON line per run.
 * ``--iteration``: ``profile_iteration.profile`` of this checkout, run against
   each side's package, at the reference and the flagship configurations: the W=8
-  iteration and the W=1 bootstrap's (frozen poses), each through the eager loop
-  and, on a side that has them, through CUDA graphs (k replays a dispatch).
+  iteration and the W=1 bootstrap's (frozen poses); at the sky and the camera
+  configurations the W=8 iteration; each through the eager loop and, on a side
+  that has them, through CUDA graphs (k replays a dispatch).
 * ``--smoke``: each side's ``chip_smoke.py``, whole; the logs go to ``--out``.
 
 Needs a CUDA card; prints the card's name and power limit first.
@@ -262,8 +263,10 @@ def time_iteration() -> dict:
     modes = ("eager", "graphs") if "graphs" in inspect.signature(
         make_phase_runner).parameters else ("eager",)
     out = {}
-    for config in ("reference", "flagship"):
+    for config in ("reference", "flagship", "sky", "camera"):
         for name, w, frozen in (("w8", 8, False), ("w1_bootstrap", 1, True)):
+            if name != "w8" and config in ("sky", "camera"):
+                continue
             for mode in modes:
                 out[f"{config}_{name}_{mode}"] = prof(config, w, freeze_poses=frozen,
                                                       graphs=mode == "graphs")

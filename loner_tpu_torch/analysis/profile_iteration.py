@@ -1,6 +1,7 @@
 """Where the time of one mapping iteration goes, on one CUDA card.
 
-    python3 -m loner_tpu_torch.analysis.profile_iteration [--config reference|flagship]
+    python3 -m loner_tpu_torch.analysis.profile_iteration
+        [--config reference|flagship|sky|camera]
         [--window 8] [--iters 20] [--freeze-poses] [--graphs | --eager]
 
 Builds the mapper's joint iteration through ``make_phase_runner`` on a synthetic
@@ -24,7 +25,10 @@ runs the same iterations eagerly (``make_phase_runner(..., graphs=False)``).
 ``reference`` is cfg/defaults.yaml's model (hash grid 16 x 2 at 2^18, 64-wide
 MLP, OGM sampler, bf16 training encode; k = 10, 2 dispatches in flight);
 ``flagship`` the Fourier field and proposal sampler of
-cfg/synthetic/box_room_tpu_rt_r4.yaml (k = 3, 1 in flight). ``--freeze-poses``
+cfg/synthetic/box_room_tpu_rt_r4.yaml (k = 3, 1 in flight); ``sky`` the
+flagship with 64 sky rays a slot (cfg/synthetic/box_room_sky.yaml; 2048 sky
+directions a slot); ``camera`` cfg/synthetic/box_room_tpu_camera_r5.yaml, its
+intensity head trained from 128 camera rays a slot of random 96 x 64 images. ``--freeze-poses``
 runs the phase with frozen poses, as the W=1 bootstrap of KF#1 does
 (``--window 1 --freeze-poses``). Prints the card's name and power limit, then
 one JSON line. ``profile`` is the same measurement as a function; it imports
@@ -36,12 +40,16 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import time
 
 import numpy as np
 import torch
 
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+SKY_RAYS = 64  # sky rays a slot of ``sky`` (cfg/synthetic/box_room_sky.yaml)
+SKY_DIRS = 2048  # sky directions a slot of its window
 
 def configs(name: str):
     from loner_tpu_torch.mapping.optimizer import OptimizerConfig
@@ -50,6 +58,14 @@ def configs(name: str):
 
     if name == "reference":  # the dataclasses' defaults are cfg/defaults.yaml's
         return OptimizerConfig(n_sky_samples=0), FieldConfig()
+    if name == "camera":
+        from loner_tpu_torch.common.settings import load_config
+
+        settings, _ = load_config(os.path.join(REPO, "cfg", "synthetic",
+                                               "box_room_tpu_camera_r5.yaml"))
+        opt = settings.mapper.optimizer
+        return (OptimizerConfig.from_settings(opt, opt.model_config),
+                FieldConfig.from_settings(opt.model_config.model.nerf_config))
     # box_room_tpu_rt_r4.yaml's dispatch knobs (a checkout before them reads neither).
     dispatch = {"steps_per_dispatch": 3}
     if "max_inflight_dispatches" in {f.name for f in dataclasses.fields(OptimizerConfig)}:
@@ -62,6 +78,8 @@ def configs(name: str):
         encoding_sigma="fourier", fourier_sigma=FourierConfig(n_freqs=48, scale=6.0),
         sigma_mlp=MLPConfig(n_neurons=256, n_hidden_layers=2, output_dim=1),
         density_activation="softplus", sigma_mlp_bias=True, compute_dtype=torch.bfloat16)
+    if name == "sky":
+        cfg = dataclasses.replace(cfg, enable_sky=True, n_sky_samples=SKY_RAYS)
     return cfg, field_cfg
 
 
@@ -74,6 +92,23 @@ def device_events(prof) -> list:
     host = {e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU}
     return [e for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in host]
+
+
+def camera_window(w: int, num_colors: int, dev):
+    """Static camera buffers of ``w`` slots: random 96 x 64 images through the
+    virtual camera of cfg/synthetic/box_room_tpu_camera_r5.yaml."""
+    from loner_tpu_torch.common.camera import get_ray_directions
+    from loner_tpu_torch.datasets.synthetic import VirtualCamera
+    from loner_tpu_torch.mapping.rays import build_camera_window_buffers
+
+    camera = VirtualCamera()
+    cam_dirs, _, _ = get_ray_directions(camera.height, camera.width, camera.k)
+    rng = np.random.default_rng(4)
+    images = [rng.uniform(size=(camera.height, camera.width, num_colors)).astype(np.float32)
+              for _ in range(w)]
+    return build_camera_window_buffers(images, cam_dirs,
+                                       camera.lidar_to_camera().matrix.astype(np.float32), w,
+                                       num_colors, dev)
 
 
 def profile(config: str = "reference", window: int = 8, iters: int = 20,
@@ -95,7 +130,14 @@ def profile(config: str = "reference", window: int = 8, iters: int = 20,
         d /= np.linalg.norm(d, axis=0, keepdims=True)
         dirs.append(d.astype(np.float32))
         depths.append(rng.uniform(1.5, 9.5, 65536).astype(np.float32))
-    buffers = build_window_buffers(dirs, depths, [None] * w, w, device=dev)
+    sky = [None] * w
+    if cfg.enable_sky:
+        sky_rng = np.random.default_rng(1)
+        for i in range(w):
+            u = sky_rng.normal(size=(3, SKY_DIRS))
+            u[2] = np.abs(u[2]) + 0.5
+            sky[i] = (u / np.linalg.norm(u, axis=0, keepdims=True)).astype(np.float32)
+    buffers = build_window_buffers(dirs, depths, sky, w, device=dev)
     opt = Optimizer(cfg, field_cfg, 12.0, np.zeros(3), [], dev)  # for its initial state only
     state = opt.state
     twists = torch.from_numpy(rng.normal(0, 0.02, (w, 6)).astype(np.float32)).to(dev)
@@ -103,14 +145,19 @@ def profile(config: str = "reference", window: int = 8, iters: int = 20,
     if graphs and not has_graphs:
         raise ValueError("this checkout's make_phase_runner has no CUDA graphs")
     kwargs = {"graphs": graphs} if has_graphs else {}
-    run = make_phase_runner(cfg, field_cfg, PhaseSettings(freeze_poses=freeze_poses), w,
+    camera = config == "camera"
+    if camera:
+        kwargs["camera"] = camera_window(w, field_cfg.num_colors, dev)
+    run = make_phase_runner(cfg, field_cfg,
+                            PhaseSettings(freeze_poses=freeze_poses, freeze_rgb_mlp=not camera), w,
                             buffers.dirs.shape[1], buffers.sky_dirs.shape[1], dev, **kwargs)
     gen = torch.Generator(device=dev).manual_seed(1)
     common = (twists, buffers, torch.ones(w, device=dev), torch.tensor(12.0, device=dev),
               torch.zeros(3, device=dev))
 
     def phase(n: int, step0: int = 1):
-        return run(state.field_params, state.occ_grid, *common, step0, gen, num_iterations=n)
+        return run(state.field_params, state.occ_grid, *common, step0, gen, num_iterations=n,
+                   **({"camera": kwargs["camera"]} if camera else {}))
 
     phase(3)
     torch.cuda.synchronize()
@@ -137,7 +184,8 @@ def profile(config: str = "reference", window: int = 8, iters: int = 20,
     return {
         "config": config, "window": w, "freeze_poses": freeze_poses,
         "graphs": bool(graphs and has_graphs), "steps_per_dispatch": k,
-        "points": w * cfg.n_lidar_samples * cfg.n_samples_per_ray,
+        "points": w * (cfg.n_lidar_samples + (SKY_RAYS if cfg.enable_sky else 0)
+                       + (cfg.n_camera_samples if camera else 0)) * cfg.n_samples_per_ray,
         "host_ms_per_iteration": host_ms, "device_ms_per_iteration": device_ms / n_prof,
         "device_busy_share_traced": device_ms / wall_ms,
         "kernel_launches_per_iteration": len(events) / n_prof,
@@ -148,7 +196,8 @@ def profile(config: str = "reference", window: int = 8, iters: int = 20,
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--config", choices=("reference", "flagship"), default="reference")
+    parser.add_argument("--config", choices=("reference", "flagship", "sky", "camera"),
+                        default="reference")
     parser.add_argument("--window", type=int, default=8)
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--freeze-poses", action="store_true",

@@ -86,6 +86,10 @@ class CountedGraph:
     def pool(self):
         return self._graph.pool()
 
+    def release(self) -> None:
+        """Destroy the captured graph; a replay after this raises."""
+        self._graph.reset()
+
 
 def pool_bytes(pool) -> int:
     """Device bytes reserved by a graph memory pool (its segments)."""

@@ -521,6 +521,7 @@ class Optimizer:
         self.graph_pool = (torch.cuda.graph_pool_handle() if self._device.type == "cuda"
                            else None)
         self.late_captures = 0
+        self._released_captures = 0  # captures of the programs ``close`` dropped
         self.last_losses: Optional[np.ndarray] = None
         self.last_depth_eps: Optional[np.ndarray] = None
         self.last_camera_losses: Optional[np.ndarray] = None
@@ -591,7 +592,14 @@ class Optimizer:
         replicate(self._state_tensors(), self._mesh)
 
     def close(self) -> None:
-        """Stop the mesh's other ranks and leave its group (rank 0; idempotent)."""
+        """Under a mesh: drop this rank's programs (their graphs hold the mesh's
+        collectives) and, on rank 0, stop the other ranks and run the teardown
+        with them (``Mesh.close``, which raises naming a rank that fails it;
+        idempotent). Without a mesh, nothing."""
+        if self._mesh is None:
+            return
+        self._released_captures += sum(r.captures for r in self._runner_cache.values())
+        self._runner_cache.clear()
         if self._leader():
             self._mesh.close()
 
@@ -726,8 +734,8 @@ class Optimizer:
 
     @property
     def graph_captures(self) -> int:
-        """Graphs captured by the runners alive now."""
-        return sum(r.captures for r in self._runner_cache.values())
+        """Graphs captured by the runners, those ``close`` dropped included."""
+        return self._released_captures + sum(r.captures for r in self._runner_cache.values())
 
     def _window_classes_for_item(self, first_kf: int, last_kf: Optional[int]) -> set:
         """Window sizes a schedule item can run at: KF#k optimises a window of
@@ -978,5 +986,8 @@ def _plain(x):
 
 def serve_replica(mesh, replica: dict) -> None:
     """A mesh follower's life: an ``Optimizer`` replica on its rank's device,
-    serving rank 0's commands."""
-    Optimizer(device=mesh.device, mesh=mesh, **replica).serve()
+    serving rank 0's commands until the stop; then it drops its programs
+    (``parallel/mesh.py::_follower`` runs the teardown)."""
+    opt = Optimizer(device=mesh.device, mesh=mesh, **replica)
+    opt.serve()
+    opt.close()

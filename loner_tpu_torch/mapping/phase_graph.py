@@ -372,6 +372,8 @@ class PhaseProgram:
             graph.capture(lambda v=occ_step: self._iteration(self.draws, v), pool=self.pool)
             self._steps[occ_step] = graph
             self.captures += 1
+            if self._shard is not None:
+                self._shard.mesh.hold(graph)  # released before the mesh's group is left
         if generator is not None:
             self._capture_draws(generator)
 
@@ -475,10 +477,15 @@ class PhaseProgram:
             n_dispatched += 1
             filled += k
 
-        _opt.run_dispatches(n_iters, self.k, self.depth, dispatch,
-                            torch.cuda.Event if self._cuda else None)
+        mesh = self._shard.mesh if self._shard is not None else None
+        make_event = None
+        if self._cuda:
+            make_event = mesh.event if mesh is not None else torch.cuda.Event
+        _opt.run_dispatches(n_iters, self.k, self.depth, dispatch, make_event)
         while pending:
             collect()
+        if mesh is not None:
+            mesh.wait()  # rank 0 watches its followers while the phase's collectives run
         records.append(self.history[:, :filled])
         log = torch.cat(records, dim=1)
 

@@ -85,16 +85,33 @@ def stratified_z_vals(near: torch.Tensor, far: torch.Tensor, n_samples: int,
     return z
 
 
+# Rows (rays) a call of the transmittance's cumprod. On a CUDA tensor PyTorch's
+# scan along the last axis picks how many threads share a row by the row count,
+# and with it the order of each row's products: a ray's weights would round
+# differently in a window's 1024 camera rays and in a mesh rank's 256 (with 513
+# samples a row, 16 threads above 512 rows, 32 at 257-512). The forward runs on
+# blocks of this many rows, the last padded with ones, one shape a call.
+SCAN_ROWS = 1024
+
+
 class _PositiveCumprod(torch.autograd.Function):
-    """``torch.cumprod`` along the last axis of strictly positive values, with
-    the gradient PyTorch's own backward takes when no value is zero,
-    ``reversed_cumsum(out * grad) / x``. PyTorch's backward first checks the
-    input for zeros with ``.item()``: a host synchronisation, which a CUDA graph
-    cannot capture and which stalls an eager loop once an iteration."""
+    """``torch.cumprod`` along the last axis of strictly positive values (N, S),
+    SCAN_ROWS rows a call, with the gradient PyTorch's own backward takes when no
+    value is zero, ``reversed_cumsum(out * grad) / x``. PyTorch's backward first
+    checks the input for zeros with ``.item()``: a host synchronisation, which a
+    CUDA graph cannot capture and which stalls an eager loop once an iteration."""
 
     @staticmethod
     def forward(ctx, x):
-        out = torch.cumprod(x, dim=-1)
+        n = x.shape[0]
+        out = torch.empty_like(x)
+        full = n - n % SCAN_ROWS
+        for i in range(0, full, SCAN_ROWS):
+            torch.cumprod(x[i:i + SCAN_ROWS], dim=-1, out=out[i:i + SCAN_ROWS])
+        if full < n:
+            tail = x.new_ones((SCAN_ROWS,) + tuple(x.shape[1:]))
+            tail[:n - full] = x[full:]
+            out[full:] = torch.cumprod(tail, dim=-1)[:n - full]
         ctx.save_for_backward(x, out)
         return out
 

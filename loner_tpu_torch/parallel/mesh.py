@@ -38,19 +38,33 @@ device, and the program says where the collectives go:
 On the card every collective of the iteration is captured in its CUDA graph; the
 process group is warmed up by an eager collective at join and by the eager
 warm-up iterations before any capture, and every rank captures the same programs
-in the same order. A follower that exits makes rank 0 raise at its next command
-(``check_followers``) or inside a collective (gloo: at once; NCCL: the
-watchdog, after ``COLLECTIVE_TIMEOUT``). Nothing drops to one device on its own.
-NCCL's teardown is collective: ``Mesh.close`` sends the stop, leaves the group
-with the followers, and only then waits for them.
+in the same order. A follower that exits makes rank 0 raise, naming it, at its
+next command (``check_followers``) or while it waits for its device
+(``Mesh.wait``: a collective replayed in a graph has no watchdog); gloo's eager
+collectives raise at once, NCCL's after the group's timeout. Nothing drops to
+one device on its own.
+
+The teardown (``Mesh.leave``) is the same on every rank, after rank 0's stop:
+release the graphs that captured the mesh's collectives (NCCL keeps a
+communicator until each such graph is destroyed, and a rank that destroys its
+group with one alive waits for ever), synchronize, a barrier on the control
+group, then leave the device groups and the control group. Every wait in it is
+bounded and raises naming the rank; only a mesh with a rank known gone or stuck
+is aborted (``Mesh.abandon``).
 """
 from __future__ import annotations
 
 import dataclasses
+import faulthandler
+import json
 import multiprocessing
 import os
 import socket
 import sys
+import threading
+import time
+import traceback
+import weakref
 from dataclasses import dataclass
 from datetime import timedelta
 from typing import Any, Callable, List, Optional, Sequence, Tuple
@@ -66,7 +80,12 @@ CONTROL_TIMEOUT = timedelta(days=1)
 # A collective waits this long for the other ranks (the rendezvous, too); a
 # capture or a kernel build on one rank is the longest wait in a healthy run.
 COLLECTIVE_TIMEOUT = timedelta(seconds=300)
-JOIN_SECONDS = 30.0  # a follower that has not joined by then is waited for no longer
+JOIN_SECONDS = 30.0  # a follower that is killed is waited for no longer
+# Each wait of the teardown (``Mesh.leave``): the barrier, leaving the groups,
+# rank 0's wait for the followers to exit. A healthy teardown takes about a
+# second (PERF.md).
+TEARDOWN_SECONDS = 60.0
+POLL_SECONDS = 2e-4  # rank 0's poll of its device while it watches the followers
 
 # Draws with one row per window slot; the rest have one row per ray.
 SLOT_DRAWS = ("ray_u", "sky_u", "cam_u")
@@ -157,26 +176,43 @@ def free_port() -> int:
 
 
 class Mesh:
-    """One rank's view of a running mesh: its device, shards and groups."""
+    """One rank's view of a running mesh: its device, shards and groups.
 
-    def __init__(self, spec: MeshSpec, rank: int, processes: Sequence = ()) -> None:
+    Groups, joined by every rank in one order: the world (gloo; the rendezvous
+    only), ``control`` (gloo, rank 0's commands, a long timeout), ``group``
+    (the device group: NCCL on cards of their own, else gloo; every tensor
+    collective) and, on a ray axis, this rank's ``ray_group`` (the device
+    backend)."""
+
+    def __init__(self, spec: MeshSpec, rank: int, processes: Sequence = (),
+                 reports: Sequence = (), timeout: timedelta = COLLECTIVE_TIMEOUT) -> None:
         self.spec = spec
         self.rank = rank
         self.device = torch.device(spec.devices[rank])
         self.kf_index, self.ray_index = divmod(rank, spec.n_ray)
+        self.timeout = timeout
         self._processes = list(processes)
+        self._reports = list(reports)  # rank 0: each follower's end of its report pipe
         self._closed = False
+        self.broken: Optional[str] = None  # rank 0: why the mesh cannot go on, once known
+        # CUDA graphs that captured this mesh's collectives (``hold``).
+        self._captured: "weakref.WeakSet" = weakref.WeakSet()
+        self.teardown: dict = {}  # rank 0 after ``close``: each rank's teardown seconds
         self.control = dist.new_group(backend="gloo", timeout=CONTROL_TIMEOUT)
+        self.group = dist.new_group(backend=spec.backend, timeout=timeout)
+        self._device_groups = [self.group]
         self.ray_group = None
         if spec.n_ray > 1:
             for a in range(spec.n_kf):  # every rank creates every group, in one order
-                group = dist.new_group([a * spec.n_ray + b for b in range(spec.n_ray)])
+                group = dist.new_group([a * spec.n_ray + b for b in range(spec.n_ray)],
+                                       backend=spec.backend, timeout=timeout)
+                self._device_groups.append(group)
                 if a == self.kf_index:
                     self.ray_group = group
         # Eager collectives on every group: the communicators exist before any
         # capture.
         probe = torch.ones(1, device=self.device)
-        dist.all_reduce(probe)
+        dist.all_reduce(probe, group=self.group)
         if self.ray_group is not None:
             dist.all_reduce(probe, group=self.ray_group)
         if int(probe.item()) != spec.size * spec.n_ray:
@@ -208,7 +244,7 @@ class Mesh:
     # -- collectives -------------------------------------------------------------
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
         """Sum over every rank, in place (at one rank too: the program is the same)."""
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=self.group)
         return t
 
     def ray_sum_(self, t: torch.Tensor) -> torch.Tensor:
@@ -218,14 +254,53 @@ class Mesh:
         return t
 
     def broadcast_(self, t: torch.Tensor) -> torch.Tensor:
-        dist.broadcast(t, src=0)
+        dist.broadcast(t, src=0, group=self.group)
         return t
 
+    def hold(self, graph) -> None:
+        """``graph`` (a ``CountedGraph``) captured this mesh's collectives. NCCL
+        keeps a communicator until every graph holding its collectives is
+        destroyed, so the teardown releases the graphs still alive first."""
+        self._captured.add(graph)
+
+    # -- waits -------------------------------------------------------------------
+    def wait(self, event: Optional["torch.cuda.Event"] = None) -> None:
+        """Wait for ``event`` (default: all work queued so far on the current
+        stream). Rank 0 of a launched mesh polls it, checking its followers: a
+        follower that exits makes it raise, naming the rank, where a plain wait
+        would sit on its collectives for ever (a collective replayed in a graph has
+        no watchdog); so does ``timeout`` passing. Other ranks wait plainly."""
+        if self.device.type != "cuda":
+            return
+        if event is None:
+            event = torch.cuda.Event()
+            event.record()
+        if not self._processes:
+            event.synchronize()
+            return
+        deadline = time.monotonic() + self.timeout.total_seconds()
+        while not event.query():
+            self.check_followers()
+            if time.monotonic() > deadline:
+                self.broken = (f"rank 0's work on {self.device} did not end within "
+                               f"{self.timeout.total_seconds():.0f} s (followers alive: ranks "
+                               f"{[r for r, _ in self._alive()]})")
+                raise TimeoutError(self.broken)
+            time.sleep(POLL_SECONDS)
+
+    def event(self) -> "_MeshEvent":
+        """A CUDA event whose ``synchronize`` is ``wait``."""
+        return _MeshEvent(self)
+
     # -- commands ----------------------------------------------------------------
+    def _alive(self) -> List[Tuple[int, Any]]:
+        return [(r, p) for r, p in enumerate(self._processes, start=1) if p.exitcode is None]
+
     def check_followers(self) -> None:
         for r, p in enumerate(self._processes, start=1):
             if p.exitcode is not None:
-                raise RuntimeError(f"mesh follower rank {r} exited with code {p.exitcode}")
+                self.broken = f"mesh follower rank {r} exited with code {p.exitcode}"
+                raise RuntimeError(self.broken)
 
     def send(self, message: dict) -> None:
         """Rank 0: a command to every follower."""
@@ -238,68 +313,182 @@ class Mesh:
         dist.broadcast_object_list(box, src=0, group=self.control)
         return box[0]
 
+    # -- teardown ----------------------------------------------------------------
+    def leave(self) -> dict:
+        """Every rank's teardown, after the stop, in one order: release the CUDA
+        graphs holding the mesh's collectives, synchronize the device, meet every
+        rank at a barrier on the control group (every rank is idle), then leave
+        the device groups, then the control group and the world. Each wait is
+        bounded (``_teardown_bound``) and raises: the barrier names the ranks
+        that did not arrive. Before that bound each rank dumps the stacks of its
+        threads on its standard error, rank r after TEARDOWN_SECONDS + r seconds
+        (the dump's "Timeout" header names the rank by its seconds), and a
+        follower then exits with code 1. Returns the seconds of each step."""
+        faulthandler.dump_traceback_later(TEARDOWN_SECONDS + self.rank, exit=self.rank > 0)
+        bound = self._teardown_bound()
+        try:
+            times, t0 = {}, time.perf_counter()
+            for graph in list(self._captured):
+                graph.release()
+            self._captured = weakref.WeakSet()
+            times["release"] = time.perf_counter() - t0
+            self.wait()
+            times["synchronize"] = time.perf_counter() - t0 - times["release"]
+            t1 = time.perf_counter()
+            dist.monitored_barrier(group=self.control, wait_all_ranks=True,
+                                   timeout=timedelta(seconds=bound))
+            times["barrier"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            _bounded(lambda: leave_group(True, self._device_groups + [self.control]),
+                     f"rank {self.rank} leaving its {self.spec.backend} groups", bound)
+            times["leave"] = time.perf_counter() - t1
+            times["total"] = time.perf_counter() - t0
+            return times
+        finally:
+            faulthandler.cancel_dump_traceback_later()
+
+    def _teardown_bound(self) -> float:
+        """Seconds each wait of the teardown may take: past every rank's dump."""
+        return TEARDOWN_SECONDS + self.spec.size
+
     def close(self) -> None:
-        """Rank 0: stop the followers and leave the group (idempotent). NCCL's
-        teardown is collective (a follower leaves its group once it has the
-        stop), so rank 0 leaves its own before it waits for the followers; with
-        a follower gone, an NCCL group is aborted instead."""
+        """Rank 0: stop the followers and run the teardown with them (``leave``),
+        then wait for each to exit with code 0 and its report: ``teardown`` holds
+        every rank's seconds (idempotent). A follower that exits early, misses
+        the barrier, or does not exit in time after it, makes ``close`` raise,
+        naming its rank, once every follower is stopped and the group aborted
+        (``abandon``). A mesh already ``broken`` (rank 0 raised for it) is
+        abandoned."""
         if self._closed:
             return
+        if self.broken is not None:
+            self.abandon()
+            return
         self._closed = True
-        alive = all(p.exitcode is None for p in self._processes)
+        t0 = time.perf_counter()
         try:
-            if self.rank == 0 and alive:
-                dist.broadcast_object_list([{"cmd": "stop"}], src=0, group=self.control)
-        finally:
-            leave_group(clean=alive or self.spec.backend == "gloo")
-            for p in self._processes:
-                p.join(timeout=JOIN_SECONDS)
-            for p in self._processes:
-                if p.exitcode is None:
-                    p.kill()
-                    p.join(timeout=JOIN_SECONDS)
+            self.send({"cmd": "stop"})
+            self.teardown[0] = self.leave()
+            deadline = time.monotonic() + self._teardown_bound()
+            for r, (p, report) in enumerate(zip(self._processes, self._reports), start=1):
+                p.join(timeout=max(deadline - time.monotonic(), 0.0))
+                if p.exitcode != 0:
+                    raise RuntimeError(
+                        f"mesh follower rank {r} did not end its teardown: "
+                        + ("still running" if p.exitcode is None else f"exit code {p.exitcode}")
+                        + f" {self._teardown_bound():.0f} s after the barrier (its stacks are "
+                        "on the standard error)")
+                self.teardown[r] = report.recv() if report.poll() else None
+            self.teardown["close"] = time.perf_counter() - t0
+            print(f"Mesh teardown, {self.spec.size} ranks over {self.spec.backend}: "
+                  + json.dumps(self.teardown), flush=True)
+        except BaseException:
+            self.abandon()
+            raise
+
+    def abandon(self) -> None:
+        """A mesh with a rank that is gone or stuck: release the graphs, kill the
+        followers still running, abort the device groups (NCCL's collective
+        teardown would wait for the missing ranks)."""
+        self._closed = True
+        for graph in list(self._captured):
+            graph.release()
+        self._captured = weakref.WeakSet()
+        for _, p in self._alive():
+            p.kill()
+        for p in self._processes:
+            p.join(timeout=JOIN_SECONDS)
+        leave_group(clean=False)
 
 
-def leave_group(clean: bool = True) -> None:
-    """Destroy this process's group; ``clean=False`` (a rank is gone) aborts an
-    NCCL group where this torch can, since its collective teardown would wait
-    for the missing rank."""
+class _MeshEvent:
+    """A CUDA event waited on through ``Mesh.wait``."""
+
+    def __init__(self, mesh: Mesh) -> None:
+        self._mesh = mesh
+        self._event = torch.cuda.Event()
+
+    def record(self) -> None:
+        self._event.record()
+
+    def synchronize(self) -> None:
+        self._mesh.wait(self._event)
+
+
+def _bounded(fn: Callable[[], None], what: str, seconds: float) -> None:
+    """``fn()`` in a thread of its own; raises if it has not ended after ``seconds``."""
+    error: List[BaseException] = []
+
+    def run() -> None:
+        try:
+            fn()
+        except BaseException as e:  # re-raised by the caller's thread
+            error.append(e)
+
+    thread = threading.Thread(target=run, name=what, daemon=True)
+    thread.start()
+    thread.join(seconds)
+    if thread.is_alive():
+        raise TimeoutError(f"{what} did not end within {seconds:.0f} s")
+    if error:
+        raise error[0]
+
+
+def leave_group(clean: bool = True, groups: Sequence = ()) -> None:
+    """Leave the process groups: ``groups`` in order, then whatever is left
+    with the world. ``clean=False`` (a rank is gone) aborts every group where
+    this torch can: NCCL's teardown would wait for the missing rank."""
     if not dist.is_initialized():
         return
     abort = getattr(dist.distributed_c10d, "_abort_process_group", None)
-    if clean or abort is None or dist.get_backend() != "nccl":
-        dist.destroy_process_group()
-    else:
+    if not clean and abort is not None:
         abort()
+        return
+    for group in groups:
+        dist.destroy_process_group(group)
+    dist.destroy_process_group()
 
 
-def join(spec: MeshSpec, rank: int, port: int, processes: Sequence = ()) -> Mesh:
-    """Join the mesh's process group as ``rank`` (every rank calls this)."""
+def join(spec: MeshSpec, rank: int, port: int, processes: Sequence = (), reports: Sequence = (),
+         timeout: timedelta = COLLECTIVE_TIMEOUT) -> Mesh:
+    """Join the mesh's process groups as ``rank`` (every rank calls this);
+    ``timeout``: how long a collective (the rendezvous, too) waits for the
+    other ranks."""
     device = torch.device(spec.devices[rank])
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    dist.init_process_group(spec.backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                            world_size=spec.size, timeout=COLLECTIVE_TIMEOUT)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=spec.size, timeout=timeout)
     try:
-        return Mesh(spec, rank, processes)
+        return Mesh(spec, rank, processes, reports, timeout)
     except BaseException:
         leave_group(clean=False)
         raise
 
 
-def _follower(spec: MeshSpec, rank: int, port: int, main: Callable, args: tuple) -> None:
-    mesh = join(spec, rank, port)
-    clean = False
+def _follower(spec: MeshSpec, rank: int, port: int, main: Callable, args: tuple,
+              timeout: timedelta, report) -> None:
+    mesh = join(spec, rank, port, timeout=timeout)
     try:
         main(mesh, *args)
-        clean = True
-    finally:
-        leave_group(clean)
+    except BaseException:
+        leave_group(clean=False)
+        raise
+    try:
+        report.send(mesh.leave())
+    except BaseException:  # a teardown that failed: rank 0 reads the exit code
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)  # a thread may still sit in NCCL's teardown
+    report.close()
 
 
-def launch(spec: MeshSpec, main: Callable, args: tuple = ()) -> Mesh:
-    """Rank 0: spawn ranks 1..N-1, each running ``main(mesh, *args)``, and join
-    the group. ``main`` and ``args`` must pickle (a module-level function)."""
+def launch(spec: MeshSpec, main: Callable, args: tuple = (),
+           timeout: timedelta = COLLECTIVE_TIMEOUT) -> Mesh:
+    """Rank 0: spawn ranks 1..N-1, each running ``main(mesh, *args)`` until it
+    returns (after rank 0's stop: ``Mesh.receive``) and then the teardown, and
+    join the groups. ``main`` and ``args`` must pickle (a module-level
+    function). ``timeout``: ``join``'s."""
     main_file = getattr(sys.modules["__main__"], "__file__", None)
     if main_file is not None and not os.path.isfile(main_file):
         # A spawned rank runs the parent's __main__ again from its file; without
@@ -308,12 +497,16 @@ def launch(spec: MeshSpec, main: Callable, args: tuple = ()) -> Mesh:
                            "does not exist: run the program from a file or with -c")
     ctx = multiprocessing.get_context("spawn")
     port = free_port()
-    processes = [ctx.Process(target=_follower, args=(spec, r, port, main, args), daemon=True,
-                             name=f"mesh-rank-{r}") for r in range(1, spec.size)]
+    pipes = [ctx.Pipe(duplex=False) for _ in range(1, spec.size)]
+    processes = [ctx.Process(target=_follower, args=(spec, r, port, main, args, timeout, send),
+                             daemon=True, name=f"mesh-rank-{r}")
+                 for r, (_, send) in zip(range(1, spec.size), pipes)]
     for p in processes:
         p.start()
+    for _, send in pipes:
+        send.close()  # the followers hold the sending ends
     try:
-        return join(spec, 0, port, processes)
+        return join(spec, 0, port, processes, [recv for recv, _ in pipes], timeout)
     except BaseException:
         for p in processes:
             p.kill()

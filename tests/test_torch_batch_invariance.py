@@ -12,9 +12,10 @@ ranks' sums differ from one device's by more than the order of summation
   tail).
 - The proposal MLP's logits at every point count from 2 to 70 against one batch.
 - Four gloo ranks, ``[4]`` and ``[2, 2]``, each computing its share of a W=8
-  window's first iteration (``iteration_loss`` with its ``WindowShard``): the
-  ranks' per-ray JS scores, sample depths and weights, in rank order, equal to
-  the bit one device's for the whole window. (The ranks' phase against one
+  window's first iteration (``iteration_loss`` with its ``WindowShard``), with
+  LiDAR rays only and with N_SKY sky rays a slot too: the ranks' per-ray JS
+  scores, sample depths and weights, in rank order, equal to the bit one
+  device's for the whole window. (The ranks' phase against one
   device at tests/test_torch_multidevice.py's tolerances is that file's
   ``test_sharded_phase_matches_jax_and_one_device``.)
 
@@ -47,6 +48,7 @@ RUN = 32  # rays: the batches' multiple (module docstring)
 B = 7 * RUN
 N_CTRL, S = 33, 64  # the flagship's proposal control points; samples a ray (cut)
 W, N_LIDAR = 8, 32  # the mesh window: 256 rays, 64 a rank on [4] and on [2, 2]
+N_SKY = 16  # sky rays a slot of the sky window: 384 rays, 96 a rank on [4] and on [2, 2]
 
 
 def _batches(n: int, parts: int) -> list:
@@ -133,32 +135,38 @@ def test_proposal_logits_do_not_depend_on_the_row_count():
 
 
 # -- four gloo ranks ---------------------------------------------------------------
-def _window_case() -> dict:
+def _window_case(n_sky: int = 0) -> dict:
+    """W scans of 256 rays and, with ``n_sky``, 40 upward sky directions a slot."""
     rng = np.random.default_rng(2)
-    dirs, deps = [], []
+    dirs, deps, sky = [], [], []
     for _ in range(W):
         d = rng.normal(size=(3, 256))
         dirs.append((d / np.linalg.norm(d, axis=0)).astype(np.float32))
         deps.append(rng.uniform(1.0, 10.0, 256).astype(np.float32))
-    return {"dirs": dirs, "deps": deps, "twists": rng.normal(0.0, 0.02, (W, 6)).astype(np.float32)}
+        u = rng.normal(size=(3, 40))
+        u[2] = np.abs(u[2]) + 0.5
+        sky.append((u / np.linalg.norm(u, axis=0)).astype(np.float32) if n_sky else None)
+    return {"dirs": dirs, "deps": deps, "sky": sky, "n_sky": n_sky,
+            "twists": rng.normal(0.0, 0.02, (W, 6)).astype(np.float32)}
 
 
 def _window_forward(case: dict, mesh=None) -> dict:
     """The first iteration's forward of the window (this rank's share under a
-    mesh): per-ray JS scores, sample depths and weights."""
+    mesh): per-ray JS scores, sample depths and weights of its LiDAR and sky
+    rays."""
     cfg = topt.OptimizerConfig(
-        n_lidar_samples=N_LIDAR, n_sky_samples=0, n_samples_per_ray=S, window_size=W,
-        ray_range=(0.5, 12.0), samples_strategy="PROPOSAL", prop_n_ctrl=N_CTRL,
-        prop_train_subsample=8, steps_per_dispatch=3)
+        n_lidar_samples=N_LIDAR, n_sky_samples=case["n_sky"], enable_sky=case["n_sky"] > 0,
+        n_samples_per_ray=S, window_size=W, ray_range=(0.5, 12.0), samples_strategy="PROPOSAL",
+        prop_n_ctrl=N_CTRL, prop_train_subsample=8, steps_per_dispatch=3)
     fcfg = _field_cfg(torch.bfloat16)
     params = tfield.init_field_params(torch.Generator().manual_seed(6), fcfg, CPU)
     prop = _proposal()
-    buffers = trays.build_window_buffers(case["dirs"], case["deps"], [None] * W, W, device=CPU)
+    buffers = trays.build_window_buffers(case["dirs"], case["deps"], case["sky"], W, device=CPU)
     draws = topt.draw_step(torch.Generator().manual_seed(3), cfg, W, CPU)
     shard = None
     if mesh is not None:
         buffers = tmesh.shard_window_buffers(buffers, mesh)
-        shard = tmesh.WindowShard(mesh, W, N_LIDAR, 0)
+        shard = tmesh.WindowShard(mesh, W, N_LIDAR, case["n_sky"])
     with torch.no_grad():
         _, aux = topt.iteration_loss(cfg, fcfg, params["sigma"], prop,
                                      torch.from_numpy(case["twists"]), params["intensity"],
@@ -175,19 +183,24 @@ def _rank(rank: int, spec, port: int, case: dict) -> dict:
         torch.distributed.destroy_process_group()
 
 
-@pytest.mark.parametrize("shape", [(4,), (2, 2)], ids=["mesh4", "mesh2x2"])
-def test_four_ranks_compute_one_devices_forward(shape):
-    case = _window_case()
+@pytest.mark.parametrize("shape,n_sky", [((4,), 0), ((2, 2), 0), ((4,), N_SKY), ((2, 2), N_SKY)],
+                         ids=["mesh4", "mesh2x2", "mesh4_sky", "mesh2x2_sky"])
+def test_four_ranks_compute_one_devices_forward(shape, n_sky):
+    case = _window_case(n_sky)
     spec = tmesh.make_mesh(4, CPU) if len(shape) == 1 else tmesh.make_mesh_2d(2, 2, CPU)
     ranks = in_processes(4, _rank, (spec, tmesh.free_port(), case))
     one = _window_forward(case)
-    assert one["js_score"].shape == (W * N_LIDAR,)
+    assert one["js_score"].shape == (W * (N_LIDAR + n_sky),)
     for name in one:
         np.testing.assert_array_equal(np.concatenate([r[name] for r in ranks]), one[name],
                                       err_msg=name)
+    if n_sky:  # the sky rays (each slot's last N_SKY) were rendered, not masked out
+        sky = one["z_m"].reshape(W, N_LIDAR + n_sky, -1)[:, N_LIDAR:]
+        assert np.isfinite(sky).all() and np.ptp(sky) > 0
 
 
 def test_window_shares_are_whole_runs():
     """The mesh test's shares keep the module docstring's multiple."""
-    for n_kf, n_ray in ((4, 1), (2, 2)):
-        assert (W // n_kf) * N_LIDAR // n_ray % RUN == 0
+    for n_sky in (0, N_SKY):
+        for n_kf, n_ray in ((4, 1), (2, 2)):
+            assert (W // n_kf) * (N_LIDAR + n_sky) // n_ray % RUN == 0

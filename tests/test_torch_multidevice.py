@@ -15,7 +15,11 @@ device (``tracker.icp.device``), on the CPU with gloo at small widths.
   runs on one device, not on its virtual mesh.
 - A one-rank mesh runs the one-device program to the bit.
 - A camera phase (the intensity head trained from the window's images) on
-  ``[2, 2]`` against one device, at the same tolerances.
+  ``[2, 2]`` and on ``[4]`` against one device, at the same tolerances.
+- The proposal + Fourier configuration with N_SKY sky rays a slot (the sky
+  buffers filled) on ``[4]`` and ``[2, 2]``: against the port's one device, JAX's
+  one device and JAX's own sharded phase on as many virtual devices, at the
+  same tolerances.
 - ``Optimizer(mesh=...)`` on a hash field against ``mesh=None``: an m=2 window
   on ``[2]`` and ``[2, 2]``, at the JAX Optimizer-level tolerances (twists
   rtol 1e-3 / atol 1e-4, losses rtol 2e-3 / atol 2e-4: the table's scatter-add
@@ -31,15 +35,23 @@ device (``tracker.icp.device``), on the CPU with gloo at small widths.
   follower left afterwards.
 - A killed follower makes rank 0 raise at its next command; ``launch`` refuses
   a ``__main__`` without a file (a spawned rank could not start).
+- The teardown (``Mesh.leave``): four gloo ranks run a window through the
+  ``Optimizer``, and ``close()`` returns within TEARDOWN_BOUND with every
+  follower's exit code 0, each rank's teardown seconds reported and the runner
+  cache empty; a follower that never reaches the teardown's barrier makes
+  ``close()`` raise within the barrier's bound (shortened here), naming its
+  rank, and leaves no process and no group behind.
 - ``tracker.icp.device: 0`` on the CPU gives the unset tracker's transforms; an
   index the machine does not have raises (the JAX package falls back instead).
 
 Every spawned process runs under a deadline of its own (``RANK_SECONDS``) and is
 killed at teardown: pytest-timeout is not installed.
 """
+import contextlib
 import multiprocessing
 import os
 import pickle
+import re
 import signal
 import time
 import traceback
@@ -62,6 +74,7 @@ CPU = torch.device("cpu")
 SPAWN = multiprocessing.get_context("spawn")
 RANK_SECONDS = 120.0
 W, N_LIDAR, S, ITERS = 8, 32, 16, 3
+N_SKY = 8  # sky rays a slot of the sky case (cfg/synthetic/box_room_sky.yaml's, cut)
 
 
 # -- processes ---------------------------------------------------------------------
@@ -130,7 +143,23 @@ def _scans(w: int, n: int = 256, seed: int = 0):
     return dirs, deps
 
 
+def _sky_dirs(w: int, n: int = 40, seed: int = 1) -> list:
+    """Upward unit directions, n a slot (every slot has sky)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(w):
+        d = rng.normal(size=(3, n))
+        d[2] = np.abs(d[2]) + 0.5
+        out.append((d / np.linalg.norm(d, axis=0, keepdims=True)).astype(np.float32))
+    return out
+
+
 def _port_cfgs(config: str):
+    if config == "proposal_fourier_sky":
+        from dataclasses import replace
+
+        cfg, fcfg = _port_cfgs("proposal_fourier")
+        return replace(cfg, enable_sky=True, n_sky_samples=N_SKY), fcfg
     if config == "ogm_hash":
         cfg = topt.OptimizerConfig(n_lidar_samples=N_LIDAR, n_sky_samples=0, n_samples_per_ray=S,
                                    window_size=W, occ_voxel_size=8, ray_range=(0.5, 12.0),
@@ -154,7 +183,10 @@ def _port_cfgs(config: str):
 
 
 def _jax_case(config: str) -> dict:
-    """The JAX package's one-device phase and its inputs and draws, as numpy."""
+    """The JAX package's one-device phase and its inputs and draws, as numpy; for
+    the sky case also its phase on the virtual devices of ``[4]`` and ``[2,
+    2]`` (GSPMD shards the window's slots, the sky buffers with them, and each
+    slot's points on the ray axis)."""
     import jax
     import jax.numpy as jnp
     from loner_tpu.mapping import optimizer as jopt
@@ -163,8 +195,10 @@ def _jax_case(config: str) -> dict:
     from loner_tpu.models.hash_encoding import HashEncodingConfig as JHash
     from loner_tpu.models.occupancy_grid import init_occ_grid
     from loner_tpu.models.proposal import ProposalConfig as JProp, init_proposal_params
-    from test_torch_dispatch import _dispatch_draws
+    from loner_tpu.parallel import mesh as jmesh
+    from test_torch_step import jax_step_draws
 
+    sky = config == "proposal_fourier_sky"
     if config == "ogm_hash":
         cfg = jopt.OptimizerConfig(n_lidar_samples=N_LIDAR, n_sky_samples=0, n_samples_per_ray=S,
                                    window_size=W, occ_voxel_size=8, ray_range=(0.5, 12.0),
@@ -184,25 +218,46 @@ def _jax_case(config: str) -> dict:
             sigma_kernel="pallas", pos_encoding_intensity=JHash(n_levels=2, log2_hashmap_size=10),
             encoding_sigma="fourier", density_activation="softplus", sigma_mlp_bias=True)
         occ = init_proposal_params(jax.random.key(5), cfg.proposal)
+        if sky:
+            from dataclasses import replace
+
+            cfg = replace(cfg, enable_sky=True, n_sky_samples=N_SKY)
     dirs, deps = _scans(W)
+    sky_dirs = _sky_dirs(W) if sky else [None] * W
     params = jfield.init_field_params(jax.random.key(0), fcfg)
     # The runner donates its inputs: take their values first.
     params_np, occ_np = jax.tree.map(np.asarray, params), jax.tree.map(np.asarray, occ)
     key = jax.random.key(1)
-    bj = jrays.build_window_buffers(dirs, deps, [None] * W, W)
+    bj = jrays.build_window_buffers(dirs, deps, sky_dirs, W)
     run = jopt.make_phase_runner(cfg, fcfg, jopt.PhaseSettings(num_iterations=ITERS), W,
                                  bj.dirs.shape[1], bj.sky_dirs.shape[1])
-    out = run(params, occ, jnp.zeros((W, 6), jnp.float32), bj, jnp.ones((W,), jnp.float32),
-              jnp.asarray(12.0, jnp.float32), jnp.zeros(3, jnp.float32), 0, key,
-              num_iterations=ITERS)
-    draws = _dispatch_draws(key, W, N_LIDAR, S, config == "ogm_hash", n_iters=ITERS, k=3)
-    return {
-        "config": config,
+
+    def phase(mesh=None) -> dict:
+        inputs = (jax.tree.map(jnp.asarray, params_np), jax.tree.map(jnp.asarray, occ_np),
+                  jnp.zeros((W, 6), jnp.float32), bj, jnp.ones((W,), jnp.float32))
+        ctx = contextlib.nullcontext()
+        if mesh is not None:
+            inputs = (*(jmesh.replicate(t, mesh) for t in inputs[:3]),
+                      jmesh.shard_window_buffers(bj, mesh), jmesh.replicate(inputs[4], mesh))
+            ctx = jax.set_mesh(mesh)
+        with ctx:
+            out = run(*inputs, jnp.asarray(12.0, jnp.float32), jnp.zeros(3, jnp.float32), 0, key,
+                      num_iterations=ITERS)
+        return _outputs(jax.tree.map(np.asarray, out[0]), jax.tree.map(np.asarray, out[1]),
+                        out[2], out[3])
+
+    # The draws of JAX's programs at 3 fused steps a dispatch (one dispatch).
+    draws = [jax_step_draws(jax.random.fold_in(jax.random.fold_in(key, 0), j), W, N_LIDAR, S,
+                            config == "ogm_hash", n_sky=N_SKY if sky else 0) for j in range(ITERS)]
+    case = {
+        "config": config, "sky": sky_dirs,
         "params": params_np, "occ": occ_np,
         "draws": [{k: v.numpy() for k, v in vars(d).items() if v is not None} for d in draws],
-        "want": _outputs(jax.tree.map(np.asarray, out[0]), jax.tree.map(np.asarray, out[1]),
-                         out[2], out[3]),
+        "want": phase(),
     }
+    if sky:
+        case["sharded"] = {(4,): phase(jmesh.make_mesh(4)), (2, 2): phase(jmesh.make_mesh_2d(2, 2))}
+    return case
 
 
 def _outputs(field, occ, twists, losses) -> dict:
@@ -222,7 +277,7 @@ def _outputs(field, occ, twists, losses) -> dict:
 def _port_phase(case: dict, mesh=None) -> dict:
     cfg, fcfg = _port_cfgs(case["config"])
     dirs, deps = _scans(W)
-    b = trays.build_window_buffers(dirs, deps, [None] * W, W, device=CPU)
+    b = trays.build_window_buffers(dirs, deps, case["sky"], W, device=CPU)
     if case["config"] == "ogm_hash":
         occ = convert.occ_grid_from_jax(case["occ"], CPU)
     else:
@@ -280,7 +335,7 @@ def _close_hash(got: dict, want: dict) -> None:
 
 
 @pytest.mark.parametrize("shape", [(4,), (2, 2)], ids=["mesh4", "mesh2x2"])
-@pytest.mark.parametrize("config", ["ogm_hash", "proposal_fourier"])
+@pytest.mark.parametrize("config", ["ogm_hash", "proposal_fourier", "proposal_fourier_sky"])
 def test_sharded_phase_matches_jax_and_one_device(config, shape, jax_cases):
     if config not in jax_cases:
         jax_cases[config] = _jax_case(config)
@@ -293,10 +348,12 @@ def test_sharded_phase_matches_jax_and_one_device(config, shape, jax_cases):
             np.testing.assert_array_equal(ranks[r][k], ranks[0][k], err_msg=f"rank {r}: {k}")
     one = _port_phase(case)
     _close(ranks[0], one, "mesh against the port's one device")
-    if config == "proposal_fourier":
-        _close(ranks[0], case["want"], "mesh against JAX")
-    else:
+    if config == "ogm_hash":
         _close_hash(ranks[0], case["want"])
+    else:
+        _close(ranks[0], case["want"], "mesh against JAX")
+    if "sharded" in case:
+        _close(ranks[0], case["sharded"][shape], "mesh against JAX's sharded phase")
     # The phase moved the state.
     assert np.abs(ranks[0]["twists"]).max() > 1e-4
 
@@ -358,7 +415,15 @@ def _camera_phase(_, spec=None, port=None) -> dict:
 def test_camera_phase_on_a_2x2_mesh_matches_one_device():
     """Each rank builds its slots' camera rays and takes its share of them on
     the ray axis; the camera loss's mean is the window's."""
-    spec = tmesh.make_mesh_2d(2, 2, CPU)
+    _check_camera_phase(tmesh.make_mesh_2d(2, 2, CPU))
+
+
+def test_camera_phase_on_a_four_rank_mesh_matches_one_device():
+    """``[4]``: each rank builds and renders its two slots' camera rays whole."""
+    _check_camera_phase(tmesh.make_mesh(4, CPU))
+
+
+def _check_camera_phase(spec) -> None:
     ranks = in_processes(4, _camera_phase, (spec, tmesh.free_port()))
     one = _camera_phase(0)
     for r in range(1, 4):
@@ -594,6 +659,74 @@ def test_a_killed_follower_makes_rank_0_raise():
     (res,) = in_processes(1, _killed_run, ())
     assert res["error"] is not None and "rank 1 exited" in res["error"], res
     assert res["seconds"] < 5.0
+
+
+# -- the teardown ----------------------------------------------------------------------
+TEARDOWN_BOUND = 20.0  # seconds: close() of a healthy 4-rank gloo mesh (~1 s here)
+
+
+def _four_rank_close(_) -> dict:
+    """An m=3 window on four gloo ranks (window 4: a slot a rank), then close()."""
+    opt = _optimizer(tmesh.make_mesh(4, CPU), window_size=4)
+    mesh = opt.mesh
+    try:
+        opt.iterate_optimizer(_keyframes(3))
+    finally:
+        t0 = time.time()
+        opt.close()
+        seconds = time.time() - t0
+    return {"seconds": seconds, "exitcodes": [p.exitcode for p in mesh._processes],
+            "teardown": mesh.teardown, "runners": len(opt._runner_cache),
+            "captures": opt.graph_captures, "children": len(multiprocessing.active_children()),
+            "initialized": torch.distributed.is_initialized()}
+
+
+def test_close_after_a_phase_ends_every_rank_of_four():
+    (res,) = in_processes(1, _four_rank_close, ())
+    assert res["seconds"] < TEARDOWN_BOUND, res
+    assert res["exitcodes"] == [0, 0, 0], res
+    assert sorted(k for k in res["teardown"] if isinstance(k, int)) == [0, 1, 2, 3], res
+    for r in range(4):
+        steps = res["teardown"][r]
+        assert set(steps) == {"release", "synchronize", "barrier", "leave", "total"}, steps
+        assert steps["total"] < TEARDOWN_BOUND
+    assert res["runners"] == 0 and res["children"] == 0 and not res["initialized"]
+    assert res["captures"] == 0  # gloo on the CPU: eager, nothing captured
+
+
+def _stuck_at_rank_2(mesh) -> None:
+    """A follower's main: rank 2 never returns after the stop, so never reaches
+    the teardown's barrier; the others return and run the teardown."""
+    mesh.receive()
+    if mesh.rank == 2:
+        time.sleep(3600)
+
+
+def _stuck_close(_, bound: float) -> dict:
+    tmesh.TEARDOWN_SECONDS = bound
+    mesh = tmesh.launch(tmesh.make_mesh(4, CPU), _stuck_at_rank_2)
+    t0 = time.time()
+    try:
+        mesh.close()
+        error = None
+    except RuntimeError as e:
+        error = str(e)
+    return {"error": error, "seconds": time.time() - t0,
+            "alive": [p.is_alive() for p in mesh._processes],
+            "children": len(multiprocessing.active_children()),
+            "initialized": torch.distributed.is_initialized()}
+
+
+def test_a_follower_that_misses_the_teardown_barrier_makes_close_raise():
+    bound = 3.0
+    (res,) = in_processes(1, _stuck_close, (bound,))
+    assert res["error"] is not None, res
+    named = re.search(r"Ranks? ([\d, ]+) failed to pass monitoredBarrier", res["error"])
+    assert named is not None and named.group(1).strip() == "2", res["error"]
+    # The barrier's bound (TEARDOWN_SECONDS + the ranks), then the stuck follower is
+    # killed and the group aborted.
+    assert bound + 4 <= res["seconds"] < bound + 14.0, res
+    assert not any(res["alive"]) and res["children"] == 0 and not res["initialized"], res
 
 
 # -- SLAM ------------------------------------------------------------------------------
