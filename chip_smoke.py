@@ -53,12 +53,17 @@ nothing of JAX. Phases, each of which raises on failure:
    CPU, with no host synchronisation in a dispatch.
 10. Hash kernels: the hash-grid encode's forward and backward kernels against
    their plain version at the reference's grid (16 levels x 2 features at
-   2^18), features and dpos equal to the bit, in bf16 and f32, with dpos and
-   without: at the mapping path's 2,097,152 and 262,144 points in the order a
-   mapping iteration gives them (rays of 512 sorted samples) and at random,
-   and at the edge cases of the warp-level work (one index for every lane,
-   runs across warps and blocks, ragged counts, the unit cube's faces); timed
-   at both orders and counts beside the plain version and the bound.
+   2^18), features, dpos and the fixed-point table gradient equal to the bit, in
+   bf16 and f32, with dpos and without: at the mapping path's 2,097,152 and
+   262,144 points in the order a mapping iteration gives them (rays of 512
+   sorted samples) and at random, and at the edge cases of the warp-level work
+   (one index for every lane, runs across warps and blocks, ragged counts, the
+   unit cube's faces); at 2,097,152 points the table gradient's int64 sums also
+   equal under a permutation of the points and under 2- and 4-way splits; the
+   scale S and each sum's readings (magnitude, largest |contribution|, largest
+   |entry sum|) printed as headroom; timed at both orders and counts beside the
+   plain version and the bound. Phases 11, 14 and 18 print the readings of the
+   hash tables' and the OGM grid's sums over their hash SLAM runs.
 11. SLAM at the reference's configuration: the same sequence and checks at
    cfg/synthetic/box_room.yaml (hash sigma field through the hash kernels, OGM
    sampler), with the hash kernels' launches, the backward's split between its
@@ -143,18 +148,25 @@ nothing of JAX. Phases, each of which raises on failure:
    (d) ``plot_poses``, ``depth_to_warp`` / ``vis_flow`` on (c)'s frames, and
    ``run_loner --num_repeats 2 --trial_workers 2 --gpu_ids 0`` as a child
    process, both trials rc 0, each trial's wall time printed.
-21. Mesh (``system.mesh_devices``, ``parallel/mesh.py``): the forward of three
-   W=8 windows (the flagship's 4096 LiDAR rays, its 4608 LiDAR and sky rays, the
-   camera configuration's 1024 camera rays) in one batch against 2 and 4
-   batches of its rays, op by op (``forward_batch_witness``: the ray build, the
-   proposal MLP's products, the row sum, the cumsum, the inverse CDF, the sigma
-   field, the compositing, the JS score; for camera rays the intensity head and
-   the colours), in bf16 and f32, no ray of an op the port runs differing in any
-   bit; the flagship's W=8 phase (3 iterations) with two gloo ranks, four and
-   [2, 2] sharing the card, eagerly (each rank runs the Fourier pair on its
-   share), and on four ranks the sky window's too, against the same phase
-   without a mesh (MESH_GATE; the CPU tests' tolerances printed as met or
-   missed, and held in f32), with a planted fault MESH_GATE must refuse; then a
+21. Mesh (``system.mesh_devices``, ``parallel/mesh.py``): the forward and the
+   backward of four W=8 windows (the flagship's 4096 LiDAR rays, its 4608 LiDAR
+   and sky rays, the camera configuration's 1024 camera rays, the reference's
+   4096 rays through its hash field and OGM sampler) in one batch against 2 and
+   4 batches of its rays, op by op (``forward_batch_witness``: the ray build,
+   the proposal MLP's products, the row sum, the cumsum, the inverse CDF or the
+   OGM sampler, the sigma field, the compositing, the JS score; for camera rays
+   the intensity head and the colours; then the per-sample cotangents at sigma
+   (and the colours), the transmittance's reversed cumsum, per-point dpos and,
+   for the hash field, the cotangent at the encoder's output), in bf16 and f32,
+   no ray of an op the port runs differing in any bit; the flagship's W=8 phase
+   (3 iterations) with two gloo ranks, four and [2, 2] sharing the card, eagerly
+   (each rank runs the Fourier pair on its share), and on four ranks the sky
+   window's too, against the same phase without a mesh (MESH_GATE; the CPU
+   tests' tolerances printed as met or missed, and held in f32), with a planted
+   fault MESH_GATE must refuse; the reference's W=8 on the same meshes:
+   iteration 1's hash-table and OGM-grid int64 sums equal to one card's to the
+   bit, 3 iterations printed beside MESH_GATE (held to it where they meet it; on
+   two ranks with the planted fault too); then a
    one-rank NCCL mesh through the graphs, its collectives captured, equal to the
    bit to the graphs without a mesh, and the Optimizer on it through its
    teardown. Prints cards, ranks and backend. With four cards,
@@ -177,6 +189,11 @@ nothing of JAX. Phases, each of which raises on failure:
    noise 0.15 m and dropout 0.3 (the phase's one cut), each scored against the
    static GT map; every figure finite, printed beside the JAX package's TPU
    record of the whole drive.
+23. Repeat (beside phase 19's bag, on a copy of phase 9's sequence): two
+   single-threaded runs of ``python -m loner_tpu_torch.run_loner`` on its first
+   60 scans for the reference configuration and two for the flagship, all four
+   at once: each configuration's final poses, trajectory files and checkpoint
+   tensors equal to the bit between its two runs.
 
 Each phase prints its seconds.
 
@@ -243,11 +260,12 @@ WORLD_CUBE = {"scale_factor": 12.0, "shift": [0.0, 0.0, 0.0]}
 
 # Hash-grid encode, kernel against plain version on the card. Both take the same
 # rounded f32 operations in the same order (no FMA contraction), so the features
-# and the position gradient must agree to the bit. The table gradient is summed by
-# float atomics, combined first over the lanes of a warp that share an entry, in an
-# order that changes from run to run (up to ~10^4 terms an entry on the coarse
-# levels at 2.1 M points): relative L2 1e-5.
-HASH_DTABLE_REL_L2 = 1e-5
+# and the position gradient must agree to the bit. The table gradient is a
+# fixed-point sum (ops/fixed_point.py): each f32 term rounded to int64 the same way
+# in both, summed in int64, so it must agree to the bit too, and equal itself
+# under a permutation of the points and when they are split into HASH_SPLITS parts
+# whose int64 sums are added.
+HASH_SPLITS = (2, 4)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): bf16
 # tensor cores, f32 outside the tensor cores, and HBM3. bound_ms is the larger of
@@ -783,18 +801,25 @@ def hash_cost(n: int, cfg) -> dict:
             "bwd_no_dpos": (57 * nl, 12 * n + 4 * cfg.output_dim * n + table)}
 
 
-def check_hash_case(name: str, table, pos, dout, cfg, dtype) -> tuple:
+def check_hash_case(name: str, table, pos, dout, cfg, dtype, orders: bool = False) -> tuple:
     """The hash kernels against their plain version on one input: features equal
-    to the bit, and the same in a second call; the backward's dpos equal to the
-    bit and its table gradient within HASH_DTABLE_REL_L2, with dpos and without
-    it (the frozen-pose variant, which returns None for dpos). Returns the largest
-    |kernel - plain| of the features and of the gradients."""
+    to the bit, and the same in a second call; the backward's dpos and table
+    gradient equal to the bit, with dpos and without it (the frozen-pose variant,
+    which returns None for dpos). With ``orders``, the table gradient's int64
+    sums also equal under a seeded permutation of the points and when the points
+    are split into each of HASH_SPLITS contiguous parts whose int64 sums are
+    added. Returns the largest |kernel - plain| of the features and of the
+    gradients (0 where equal) and the sum's readings (ops/fixed_point.py:
+    magnitude, largest |contribution|, largest |entry sum|)."""
+    from loner_tpu_torch.ops import fixed_point
     from loner_tpu_torch.ops import hash_grid as hg
 
     out_k = hg.hash_encode_fwd_cuda(table, pos, cfg, dtype)
     again = hg.hash_encode_fwd_cuda(table, pos, cfg, dtype)
     out_p = hg.hash_encode_fwd_plain(table, pos, cfg, dtype)
-    dtab_k, dpos_k = hg.hash_encode_bwd_cuda(table, pos, dout, cfg, dtype)
+    whole = hg.table_sum(table)
+    _, dpos_k = hg.hash_encode_bwd_cuda(table, pos, dout, cfg, dtype, sink=whole)
+    dtab_k = whole.to_float()
     dtab_n, dpos_n = hg.hash_encode_bwd_cuda(table, pos, dout, cfg, dtype, need_dpos=False)
     dtab_p, dpos_p = hg.hash_encode_bwd_plain(table, pos, dout, cfg, dtype)
     torch.cuda.synchronize()
@@ -803,19 +828,67 @@ def check_hash_case(name: str, table, pos, dout, cfg, dtype) -> tuple:
         if not torch.isfinite(t).all():
             raise RuntimeError(f"hash kernel: non-finite {label} on {name}, {dtype}")
     fwd_err = float((out_k - out_p).abs().max())
-    rel_t, rel_n = rel_l2(dtab_k, dtab_p), rel_l2(dtab_n, dtab_p)
     bwd_err = max(float((dtab_k - dtab_p).abs().max()), float((dtab_n - dtab_p).abs().max()),
                   float((dpos_k - dpos_p).abs().max()))
+    equal = {"dtable": torch.equal(dtab_k, dtab_p), "without dpos": torch.equal(dtab_n, dtab_p)}
+    if orders:
+        perm = torch.randperm(pos.shape[0], generator=torch.Generator(device=pos.device)
+                              .manual_seed(29), device=pos.device)
+        permuted = hg.table_sum(table)
+        hg.hash_encode_bwd_cuda(table, pos[perm].contiguous(), dout[perm].contiguous(), cfg,
+                                dtype, need_dpos=False, sink=permuted)
+        equal["permuted"] = torch.equal(permuted.acc, whole.acc)
+        for parts in HASH_SPLITS:
+            total = torch.zeros_like(whole.acc)
+            for rows in torch.arange(pos.shape[0], device=pos.device).chunk(parts):
+                part = hg.table_sum(table)
+                hg.hash_encode_bwd_cuda(table, pos[rows].contiguous(), dout[rows].contiguous(),
+                                        cfg, dtype, sink=part)
+                total += part.acc
+            equal[f"{parts} parts"] = torch.equal(total, whole.acc)
+    readings = [float(v) for v in whole.mag] + [float(dtab_k.abs().max())]
     ok = (torch.equal(out_k, out_p) and torch.equal(again, out_k) and torch.equal(dpos_k, dpos_p)
-          and dpos_n is None and rel_t <= HASH_DTABLE_REL_L2 and rel_n <= HASH_DTABLE_REL_L2)
+          and dpos_n is None and all(equal.values()))
     print(f"kernel hash_encode {name}, {pos.shape[0]} points, {str(dtype)[6:]}: features "
           f"{int((out_k != out_p).sum())} of {out_k.numel()} differ (max {fwd_err:.3e}), second "
           f"call equal {torch.equal(again, out_k)}; dpos {int((dpos_k != dpos_p).sum())} of "
-          f"{dpos_k.numel()} differ; dtable rel L2 {rel_t:.3e}, without dpos {rel_n:.3e} "
-          f"(tolerance {HASH_DTABLE_REL_L2})", flush=True)
+          f"{dpos_k.numel()} differ; dtable {int((dtab_k != dtab_p).sum())} of {dtab_k.numel()} "
+          f"differ, without dpos {int((dtab_n != dtab_p).sum())}; equal bits "
+          + ", ".join(f"{k} {v}" for k, v in equal.items())
+          + f"; magnitude {readings[0]:.6e}, largest |contribution| {readings[1]:.6e}, largest "
+          f"|entry sum| {readings[2]:.6e}", flush=True)
     if not ok:
         raise RuntimeError(f"hash kernels disagree with their plain version on {name}, {dtype}")
-    return fwd_err, bwd_err
+    fixed_point.check(pos.device)  # no sum passed its limit
+    return fwd_err, bwd_err, readings
+
+
+def print_readings(label: str, readings: dict) -> None:
+    """``fixed_point.recording``'s readings of a run, one line a scale."""
+    from loner_tpu_torch.ops import fixed_point
+
+    names = {fixed_point.HASH_BITS: "hash tables", fixed_point.OGM_BITS: "OGM grid"}
+    for bits, r in sorted(readings.items()):
+        print(describe_fixed_point(f"{names.get(bits, bits)}, {label}", r, bits), flush=True)
+
+
+def describe_fixed_point(label: str, readings, bits: int) -> str:
+    """The scale and a sum's readings ([magnitude, largest |contribution|, largest
+    |entry sum|]) as headroom: bits below the guard's limit and below 2^63."""
+    import math
+
+    from loner_tpu_torch.ops import fixed_point
+
+    mag, contrib, entry = readings
+
+    def below(x, top):
+        return f"{top - math.log2(x * 2.0 ** bits):.2f}" if x > 0 else "inf"
+
+    return (f"fixed point {label}: S = {bits}; magnitude {mag:.6e} "
+            f"({below(mag, fixed_point.LIMIT_BITS)} bits below the guard's "
+            f"2^{fixed_point.LIMIT_BITS}), largest |contribution| "
+            f"{contrib:.6e} ({below(contrib, 63)} bits below 2^63), largest |entry sum| "
+            f"{entry:.6e} ({below(entry, 63)} bits below 2^63)")
 
 
 def check_hash_kernels(dev) -> list:
@@ -831,25 +904,30 @@ def check_hash_kernels(dev) -> list:
     from loner_tpu_torch.models.hash_encoding import HashEncodingConfig
     from loner_tpu_torch.ops import hash_grid as hg
 
+    from loner_tpu_torch.ops import fixed_point
+
     cfg, bf = HashEncodingConfig(), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(21)
     table = torch.rand((cfg.total_table_size, 2), generator=gen, device=dev) * 2e-2 - 1e-2
     worst = {"fwd": 0.0, "bwd": 0.0}
     times = {}
 
-    def check(name, points, scale):
+    def check(name, points, scale, orders=False):
         pos = torch.from_numpy(points).to(dev)
         dout = torch.randn((pos.shape[0], cfg.output_dim), generator=gen, device=dev) * scale
         for dtype in (bf, torch.float32):
-            errs = check_hash_case(name, table, pos, dout, cfg, dtype)
+            errs = check_hash_case(name, table, pos, dout, cfg, dtype, orders)
             worst["fwd"], worst["bwd"] = max(worst["fwd"], errs[0]), max(worst["bwd"], errs[1])
+            print(describe_fixed_point(f"hash table, {name}, {pos.shape[0]} points", errs[2],
+                                       fixed_point.HASH_BITS), flush=True)
         return pos, dout
 
     for name, points in hash_edge_points().items():
         check(name, points, 1.0)
     for order in ("ray", "random"):
         for n in HASH_POINTS:
-            pos, dout = check(f"{order} order", hash_points(n, order), n ** -0.5)
+            pos, dout = check(f"{order} order", hash_points(n, order), n ** -0.5,
+                              orders=n == HASH_POINTS[0])
             t = {"fwd": cuda_ms(lambda: hg.hash_encode_fwd_cuda(table, pos, cfg, bf)),
                  "bwd": cuda_ms(lambda: hg.hash_encode_bwd_cuda(table, pos, dout, cfg, bf)),
                  "bwd_no_dpos": cuda_ms(lambda: hg.hash_encode_bwd_cuda(table, pos, dout, cfg, bf,
@@ -1135,12 +1213,13 @@ def courtyard_slam_settings(log_prefix: str) -> dict:
 
 
 def write_slam_dataset(root: str, num_scans: int = SLAM_SCANS, scene=None,
-                       camera: bool = False) -> dict:
+                       camera: bool = False, gt_map: bool = True) -> dict:
     """The box-room sequence (``num_scans`` scans on a 270-degree arc; the room
     of ``scene``, default the closed one) through the port's ScanStreamWriter,
-    and its GT map (``build_gt_map``, the reference of phases 13-15); both
-    configurations' SLAM runs share them. With ``camera``: one virtual-camera
-    image a scan at the scan's start time, and no GT map."""
+    and its GT map (``build_gt_map``, the reference of phases 13-15; not with
+    ``gt_map`` False); both configurations' SLAM runs share them. With
+    ``camera``: one virtual-camera image a scan at the scan's start time, and no
+    GT map."""
     from loner_tpu_torch.analysis.create_lidar_map import build_gt_map
     from loner_tpu_torch.datasets.synthetic import (
         VirtualCamera, VirtualLidar, generate_sequence, write_sequence,
@@ -1154,7 +1233,7 @@ def write_slam_dataset(root: str, num_scans: int = SLAM_SCANS, scene=None,
                    camera=VirtualCamera() if camera else None)
     written = time.perf_counter() - t0
     t0 = time.perf_counter()
-    gt_map = None if camera else build_gt_map(root)
+    gt_map = None if camera or not gt_map else build_gt_map(root)
     print(f"SLAM dataset: {num_scans} scans of {SLAM_LIDAR[0] * SLAM_LIDAR[1]} rays"
           + (", one 96 x 64 camera image a scan" if camera else "")
           + f", {ts[-1] - ts[0] + 0.1:.1f} s of sequence, written in {written:.2f} s"
@@ -2088,7 +2167,8 @@ def check_intensity_hash(dev) -> dict:
         pos = torch.from_numpy(hash_points(n, "ray")).to(dev)
         dout = torch.randn((n, cfg.output_dim), generator=gen, device=dev) * n ** -0.5
         for dtype in dtypes:
-            fwd_err, bwd_err = check_hash_case(f"intensity {label}", table, pos, dout, cfg, dtype)
+            fwd_err, bwd_err, _ = check_hash_case(f"intensity {label}", table, pos, dout, cfg,
+                                                  dtype, orders=n == HASH_CAMERA_POINTS)
             t = {"fwd": cuda_ms(lambda: hg.hash_encode_fwd_cuda(table, pos, cfg, dtype)),
                  "bwd_no_dpos": cuda_ms(lambda: hg.hash_encode_bwd_cuda(table, pos, dout, cfg, dtype,
                                                                         need_dpos=False)),
@@ -2173,6 +2253,7 @@ def run_camera(dev, field_cfg) -> dict:
     from loner_tpu_torch.common.settings import Settings
     from loner_tpu_torch.mapping.optimizer import OptimizerConfig
     from loner_tpu_torch.models.field import FieldConfig
+    from loner_tpu_torch.ops import fixed_point
 
     check_mma_selftest(dev)
     print_ptxas("fourier_mlp_f32", prefix="phase 18: ptxas")
@@ -2201,9 +2282,11 @@ def run_camera(dev, field_cfg) -> dict:
                 ("camera hash", small, ("fourier_mlp_fwd_f32", "fourier_mlp_bwd_f32",
                                         "hash_encode_fwd", "hash_encode_bwd"),
                  "fourier_mlp_fwd_f32", False)):
-            run = run_slam(dev, label, settings, seq, os.path.join(data_dir, label.split()[1]),
-                           train, ("composite", field_kernel), "pallas",
-                           ate_max=ATE_MAX if gated else None)
+            with fixed_point.recording() as readings:
+                run = run_slam(dev, label, settings, seq, os.path.join(data_dir, label.split()[1]),
+                               train, ("composite", field_kernel), "pallas",
+                               ate_max=ATE_MAX if gated else None)
+            print_readings(f"SLAM {label}", readings)
             opt_cfg = OptimizerConfig.from_settings(
                 Settings(settings).mapper.optimizer, Settings(settings).mapper.optimizer.model_config)
             k = max(int(opt_cfg.steps_per_dispatch), 1)
@@ -2695,8 +2778,9 @@ MESH_DEATH_SECONDS = 180  # the stage's child process limit
 MESH_LEFT_BYTES = 64 << 20  # card memory the stage may leave (allocation granularity)
 WITNESS_PARTS = (2, 4)  # the window's rays in 2 and in 4 batches: a rank's share on [2], [4]
 # The witness's windows at W=8: the flagship's 4096 LiDAR rays, its 4608 LiDAR
-# and sky rays (SKY_RAYS a slot), the camera configuration's 1024 camera rays.
-WITNESS_WINDOWS = ("lidar", "sky", "camera")
+# and sky rays (SKY_RAYS a slot), the camera configuration's 1024 camera rays, the
+# reference's 4096 LiDAR rays (hash field in f32, OGM sampler: read once, as run).
+WITNESS_WINDOWS = ("lidar", "sky", "camera", "reference")
 
 
 def mesh_configs(config: str, f32: bool = False, plain: bool = False):
@@ -2720,12 +2804,15 @@ def mesh_configs(config: str, f32: bool = False, plain: bool = False):
 
 
 def _leave_out_gradients(mesh) -> None:
-    """The planted fault: this rank's gradients are zeroed before the flat
-    all-reduce (the 3-float count reductions and the loss record pass)."""
+    """The planted fault: this rank's gradients are zeroed before the flat f32
+    all-reduce (the 3-float count reductions and the loss record pass) and its
+    fixed-point sums (the hash tables' and the OGM grid's) before the int64 one."""
     reduce = mesh.all_reduce_
 
     def all_reduce_(t):
-        if t.numel() > 3:
+        if t.dtype == torch.int64:
+            t.zero_()
+        elif t.numel() > 3:
             t[:-3].zero_()
         return reduce(t)
 
@@ -2733,11 +2820,14 @@ def _leave_out_gradients(mesh) -> None:
 
 
 def mesh_phase(mesh, config: str, graphs: bool, timed: int = 0, dev=None, f32: bool = False,
-               fault: bool = False, plain: bool = False) -> dict:
+               fault: bool = False, plain: bool = False, iters: int = MESH_ITERS) -> dict:
     """The W=8 phase of ``config`` (``mesh_configs``) on this rank (``mesh``
-    None: on ``dev`` alone): MESH_ITERS iterations from one seed, their outputs
-    as numpy; ``fault``: with the last rank's gradients left out; ``plain``:
-    through the sigma field's plain version. With
+    None: on ``dev`` alone): ``iters`` iterations from one seed, their outputs
+    as numpy, and the last iteration's fixed-point sums (``fixed``: the hash
+    table's and, in an OGM step, the grid's int64 sums, all-reduced under a mesh;
+    ``fixed_sizes``: the table's and the grid's lengths); ``fault``: with the
+    last rank's gradients left out; ``plain``: through the sigma field's plain
+    version. With
     ``timed``, ms an iteration through the program over ``timed`` more, the
     device ms of MESH_TRACED more under torch.profiler (rank 0) with the share of
     NCCL's kernels, and the flat gradient all-reduce alone (its size, eager,
@@ -2760,12 +2850,15 @@ def mesh_phase(mesh, config: str, graphs: bool, timed: int = 0, dev=None, f32: b
         before = phase_outputs((state.field_params, state.occ_grid, twists, torch.zeros(0),
                                 torch.zeros(0)))
         out = phase_outputs(run(state.field_params, state.occ_grid, *args, 0, gen,
-                                num_iterations=MESH_ITERS))
+                                num_iterations=iters))
     finally:
         if mesh is not None:
             vars(mesh).pop("all_reduce_", None)
     res = {"outputs": {k: v.detach().cpu().numpy() for k, v in out.items()},
-           "before": {k: v.detach().cpu().numpy() for k, v in before.items()}}
+           "before": {k: v.detach().cpu().numpy() for k, v in before.items()},
+           "fixed": run.fixed.cpu().numpy(),
+           "fixed_sizes": [sum(acc.acc.numel() for acc in run.table_sums),
+                           0 if run.grid_sum is None else run.grid_sum.acc.numel()]}
     if timed:
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -2881,8 +2974,8 @@ def gate_failures(label: str, diffs: dict, fault: Optional[dict] = None) -> list
 
 
 def order_witness(dev, f32: bool = False, order: Optional[list] = None,
-                  ray_seed: Optional[int] = None) -> dict:
-    """One card, no mesh: the flagship's W=8 phase eagerly from one set of draws,
+                  ray_seed: Optional[int] = None, config: str = "flagship") -> dict:
+    """One card, no mesh: ``config``'s W=8 phase eagerly from one set of draws,
     then again with the window's slots in ``order`` (default reversed; buffers,
     twists and every draw's slot or ray rows) and, with ``ray_seed``, each
     slot's LiDAR rays shuffled (their ``ray_u`` columns and draw rows): the same
@@ -2896,7 +2989,7 @@ def order_witness(dev, f32: bool = False, order: Optional[list] = None,
     from loner_tpu_torch.mapping.rays import WindowBuffers
     from loner_tpu_torch.parallel.mesh import SLOT_DRAWS
 
-    cfg, field_cfg = mesh_configs("flagship", f32)
+    cfg, field_cfg = mesh_configs(config, f32)
     buffers, twists = synthetic_window(dev, WINDOW)
     gen = torch.Generator(device=dev).manual_seed(1)
     draws = [draw_step(gen, cfg, WINDOW, dev) for _ in range(MESH_ITERS)]
@@ -2954,13 +3047,15 @@ def _rows_differ(a: torch.Tensor, b: torch.Tensor, rays: int) -> tuple:
 
 def witness_configs(window: str, f32: bool):
     """The configurations of ``forward_batch_witness``'s windows: the flagship
-    (``lidar``), the flagship with SKY_RAYS sky rays a slot (``sky``) and
-    cfg/synthetic/box_room_tpu_camera_r5.yaml (``camera``); ``f32``: the field
-    in f32."""
+    (``lidar``), the flagship with SKY_RAYS sky rays a slot (``sky``),
+    cfg/synthetic/box_room_tpu_camera_r5.yaml (``camera``) and the reference
+    (``reference``: hash sigma field, OGM sampler); ``f32``: the field in f32."""
     from dataclasses import replace
 
     from loner_tpu_torch.analysis.profile_iteration import configs
 
+    if window == "reference":
+        return mesh_configs("reference", f32)
     if window != "camera":
         return mesh_configs("sky" if window == "sky" else "flagship", f32)
     cfg, field_cfg = configs("camera")
@@ -2999,21 +3094,31 @@ def forward_batch_witness(dev, parts: int = 4, f32: bool = False, window: str = 
         Optimizer, _camera_rays, draw_step, sky_rays_per_slot,
     )
     from loner_tpu_torch.mapping.rays import WindowBuffers, sample_and_build_rays
-    from loner_tpu_torch.models.field import _round, encode_fourier, query_field, query_intensity
+    from loner_tpu_torch.mapping.optimizer import training_field_cfg
+    from loner_tpu_torch.models.field import (
+        _round, _RowBlockedProduct, encode_fourier, field_mlp, mlp_apply, query_field,
+        query_intensity,
+    )
     from loner_tpu_torch.models.proposal import RAY_BLOCK, _OneColumnProduct, proposal_logits
+    from loner_tpu_torch.ops.hash_grid import hash_encode
     from loner_tpu_torch.models.rendering import (
-        ProposalRaySampler, _inverse_cdf, _PositiveCumprod, raw2outputs,
+        OccGridRaySampler, ProposalRaySampler, _inverse_cdf, _PositiveCumprod, raw2outputs,
     )
     from loner_tpu_torch.models.sh_encoding import sh_encode
 
     cfg, field_cfg = witness_configs(window, f32)
+    field_cfg = training_field_cfg(cfg, field_cfg)  # the hash encode's training dtype
     buffers, twists = synthetic_window(dev, WINDOW, SKY_DIRS if window == "sky" else 0)
     params = Optimizer(cfg, field_cfg, 12.0, np.zeros(3), [], dev).state
-    camera = window == "camera"
+    camera, reference = window == "camera", window == "reference"
     d = draw_step(torch.Generator(device=dev).manual_seed(1), cfg, WINDOW, dev, camera=camera)
     scale, shift = torch.tensor(12.0, device=dev), torch.zeros(3, device=dev)
     prop, n = params.occ_grid, cfg.n_samples_per_ray
     sampler = ProposalRaySampler(n_ctrl=cfg.prop_n_ctrl or None)
+    if reference:  # the OGM grid at logits in [0.5, 4] (a fresh grid is all 0)
+        prop = torch.rand(prop.shape, generator=torch.Generator(device=dev).manual_seed(2),
+                          device=dev) * 3.5 + 0.5
+        sampler = OccGridRaySampler()
     ops = []
     with torch.no_grad():
         if camera:
@@ -3047,35 +3152,40 @@ def forward_batch_witness(dev, parts: int = 4, f32: bool = False, window: str = 
 
         op("camera rays (sample_and_build_camera_rays)" if camera else
            "rays (sample_and_build_rays)", lambda *a: rays_of(*a)[0], *slot_inputs)
-        # The proposal sampler (models/rendering.py::ProposalRaySampler.get_samples).
         near, far = rays[:, 9:10], rays[:, 10:11]
-        n_ctrl = cfg.prop_n_ctrl or n // 2
-        steps = torch.linspace(0.0, 1.0, n_ctrl, dtype=rays.dtype, device=dev)
-        z_ctrl = near * (1.0 - steps) + far * steps
-        pts = rays[:, None, 0:3] + rays[:, None, 3:6] * z_ctrl[..., None]
-        flat = pts.reshape(-1, 3)
-        proj = op("bmat projection", lambda x: x @ prop["bmat"], flat)
-        h = torch.cat([torch.sin(proj), torch.cos(proj), flat], dim=-1)
-        last = sum(1 for key in prop if key.startswith("w")) - 1
-        for i in range(last):
-            h = torch.relu(op(f"proposal product {i}", lambda x, w=prop[f"w{i}"]: x @ w, h))
-        w_last = prop[f"w{last}"]
-        op(f"proposal product {last}, one column", lambda x: x @ w_last, h, port=False)
-        op(f"proposal product {last}, in blocks of RAY_BLOCK rays", lambda x: _OneColumnProduct.apply(
-            x, w_last, RAY_BLOCK * n_ctrl), h)
-        logits = op("proposal_logits", lambda x: proposal_logits(prop, x), pts)
-        probs = 2.0 * (torch.clamp(torch.sigmoid(logits), 0.5, 1.0) - 0.5)
-        occ_w = 0.5 * (probs[:, :-1] + probs[:, 1:]) + 1e-5
-        total = op("row sum", lambda x: x.sum(dim=-1, keepdim=True), occ_w)
-        w = 0.5 / (n_ctrl - 1) + 0.5 * (occ_w / total)
-        cdf = op("cumsum", lambda x: torch.cumsum(x, dim=-1), w)
-        cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=-1)
-        q = torch.arange(n, dtype=rays.dtype, device=dev)
-        u = torch.minimum((q[None, :] + jitter) / n, cdf[:, -1:])
-        op("_inverse_cdf", lambda c, z, uu, lo, hi: _inverse_cdf(c, z, uu, edges=(lo, hi, steps)),
-           cdf, z_ctrl, u, near, far)
-        z = op("sampler (get_samples)",
-               lambda r, j: sampler.get_samples(r, n, cfg.perturb, prop, j), rays, jitter)
+        if not reference:
+            # The proposal sampler (models/rendering.py::ProposalRaySampler.get_samples).
+            n_ctrl = cfg.prop_n_ctrl or n // 2
+            steps = torch.linspace(0.0, 1.0, n_ctrl, dtype=rays.dtype, device=dev)
+            z_ctrl = near * (1.0 - steps) + far * steps
+            pts = rays[:, None, 0:3] + rays[:, None, 3:6] * z_ctrl[..., None]
+            flat = pts.reshape(-1, 3)
+            proj = op("bmat projection", lambda x: x @ prop["bmat"], flat)
+            h = torch.cat([torch.sin(proj), torch.cos(proj), flat], dim=-1)
+            last = sum(1 for key in prop if key.startswith("w")) - 1
+            for i in range(last):
+                h = torch.relu(op(f"proposal product {i}", lambda x, w=prop[f"w{i}"]: x @ w, h))
+            w_last = prop[f"w{last}"]
+            op(f"proposal product {last}, one column", lambda x: x @ w_last, h, port=False)
+            op(f"proposal product {last}, in blocks of RAY_BLOCK rays",
+               lambda x: _OneColumnProduct.apply(x, w_last, RAY_BLOCK * n_ctrl), h)
+            logits = op("proposal_logits", lambda x: proposal_logits(prop, x), pts)
+            probs = 2.0 * (torch.clamp(torch.sigmoid(logits), 0.5, 1.0) - 0.5)
+            occ_w = 0.5 * (probs[:, :-1] + probs[:, 1:]) + 1e-5
+            total = op("row sum", lambda x: x.sum(dim=-1, keepdim=True), occ_w)
+            w = 0.5 / (n_ctrl - 1) + 0.5 * (occ_w / total)
+            cdf = op("cumsum", lambda x: torch.cumsum(x, dim=-1), w)
+            cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=-1)
+            q = torch.arange(n, dtype=rays.dtype, device=dev)
+            u = torch.minimum((q[None, :] + jitter) / n, cdf[:, -1:])
+            op("_inverse_cdf",
+               lambda c, z, uu, lo, hi: _inverse_cdf(c, z, uu, edges=(lo, hi, steps)),
+               cdf, z_ctrl, u, near, far)
+            z = op("sampler (get_samples)",
+                   lambda r, j: sampler.get_samples(r, n, cfg.perturb, prop, j), rays, jitter)
+        else:
+            z = op("OGM sampler (get_samples)", lambda r, j, u: sampler.get_samples(
+                r, n, cfg.perturb, prop, j, u), rays, jitter, pdf_u)
         # The field, the compositing and the loss terms on the sampler's depths.
         points = (rays[:, None, 0:3] + rays[:, None, 3:6] * z[..., None]).reshape(-1, 3)
         raw = op("sigma field (query_field)",
@@ -3155,6 +3265,66 @@ def forward_batch_witness(dev, parts: int = 4, f32: bool = False, window: str = 
                     sampler, prop, cfg.loss, scale, n, cfg.perturb, cfg.raw_noise_std, 0.0, 0.0,
                     jitter=rows_of(jitter), noise=rows_of(d.noise), pdf_u=rows_of(pdf_u))
                 return aux["js_score"], aux["z_m"]
+
+        # The backward, op by op, from seeded upstream cotangents, each given the
+        # one-batch run's inputs: the per-sample cotangent at sigma (raw2outputs'
+        # backward from the depth or colours and the weights), the transmittance's
+        # (its reversed cumsum in blocks of SCAN_ROWS rays; as one cumsum, port
+        # False), then the field's backward from that cotangent: per-point dpos and,
+        # for the hash field, the cotangent at the encoder's output.
+        up = torch.Generator(device=dev).manual_seed(7)
+        u_out = torch.randn((b, field_cfg.num_colors if camera else 1), generator=up, device=dev)
+        u_w = torch.randn((b, n), generator=up, device=dev)
+
+        def vjp(fn, x, cotangents):
+            with torch.enable_grad():
+                leaf = x.detach().requires_grad_(True)
+                total = sum((o * c).sum() for o, c in zip(fn(leaf), cotangents))
+                return torch.autograd.grad(total, leaf)[0]
+
+        if camera:
+            d_raw = op("backward: cotangent at the colours and sigma (raw2outputs)",
+                       lambda r, zz, dd, ff, uo, uw: vjp(
+                           lambda x: (lambda o: (o["rgb"], o["weights"]))(raw2outputs(
+                               x.reshape(zz.shape[0], n, -1), zz, dd, softplus=softplus, far=ff,
+                               sigma_only=False, num_colors=field_cfg.num_colors)),
+                           r, [uo, uw]), raw_c, z, rays[:, 3:6], far, u_out, u_w)
+            d_sigma = d_raw[:, -1:]
+        else:
+            d_sigma = op("backward: cotangent at sigma (raw2outputs)",
+                         lambda r, zz, dd, nn, ff, uo, uw: vjp(lambda x: (lambda o: (
+                             o["depth"], o["weights"]))(raw2outputs(
+                                 x.reshape(zz.shape[0], n, 1), zz, dd, noise=nn,
+                                 raw_noise_std=cfg.raw_noise_std, softplus=softplus, far=ff)),
+                             r, [uo[:, 0], uw]), raw, z, rays[:, 3:6], d.noise, far, u_out, u_w)
+        u_t = torch.randn(scan_in.shape, generator=up, device=dev)
+        t_out = _PositiveCumprod.apply(scan_in)
+        op("backward: transmittance, one reversed cumsum",
+           lambda x, o, g: (o * g).flip(-1).cumsum(-1).flip(-1).div(x), scan_in, t_out, u_t,
+           port=False)
+        op("backward: transmittance in blocks of SCAN_ROWS rays",
+           lambda x, g: vjp(lambda a: (_PositiveCumprod.apply(a),), x, [g]), scan_in, u_t)
+        op("backward: dpos (query_field)", lambda x, g: vjp(lambda a: (query_field(
+            params.field_params, a, None, field_cfg, sigma_only=True),), x, [g]), points, d_sigma)
+        if reference:
+            sig = params.field_params["sigma"]
+            feats = hash_encode(sig["table"], (points + 1.0) * 0.5, field_cfg.pos_encoding_sigma,
+                                field_cfg.hash_encode_dtype)
+            head = ((lambda f: mlp_apply(sig["mlp"], f)) if field_cfg.compute_dtype == torch.float32
+                    else (lambda f: field_mlp(sig["mlp"], f, field_cfg)))
+            op("backward: cotangent at the encoder's output (the sigma MLP)",
+               lambda f, g: vjp(lambda a: (head(a),), f, [g]), feats, d_sigma)
+            # The MLP's first input-gradient product (64 -> 32 columns), from a seeded
+            # cotangent at its output: as one product, and in blocks of MLP_GRAD_ROWS.
+            w0 = sig["mlp"]["w0"]
+            u_h = torch.randn((feats.shape[0], w0.shape[1]), generator=up, device=dev)
+            op("backward: sigma MLP input-gradient product, one call",
+               lambda g: g @ w0.t(), u_h, port=False)
+            op("backward: sigma MLP input-gradient product in blocks of MLP_GRAD_ROWS rows",
+               lambda f, g: vjp(lambda a: (_RowBlockedProduct.apply(a, w0),), f, [g]), feats, u_h)
+        if camera:
+            op("backward: dpos (query_intensity)", lambda x, v, g: vjp(lambda a: (query_intensity(
+                params.field_params, a, v, field_cfg),), x, [g]), points, view, d_raw[:, :-1])
 
         k = b // parts
         whole = forward(slice(None))
@@ -3251,36 +3421,142 @@ def mesh_optimizer_run(dev, spec, ckpt) -> dict:
     return {"outputs": out, "before": before, "late": late}
 
 
+def reference_on_mesh(name: str, results: list, ones: dict) -> tuple:
+    """The reference's jobs of ``mesh_on_one_card`` (REFERENCE_JOBS, then
+    REFERENCE_FAULT where it ran) against one card: iteration 1's fixed-point
+    sums (the hash table's and the OGM grid's) equal to the bit; the 3-iteration
+    phase printed beside MESH_GATE, and held to it where the sound readings meet
+    it (then a planted fault that ran must be refused). Returns (readings,
+    failures)."""
+    first, sound = results[:2]
+    want = ones["reference 1"]
+    n_table = want["fixed_sizes"][0]
+    equal = {"table": bool(np.array_equal(first["fixed"][:n_table], want["fixed"][:n_table])),
+             "grid": bool(np.array_equal(first["fixed"][n_table:], want["fixed"][n_table:]))}
+    diffs = mesh_diffs(sound["outputs"], ones["reference"]["outputs"], ones["reference"]["before"])
+    planted = None if len(results) < 3 else mesh_diffs(
+        results[2]["outputs"], ones["reference"]["outputs"], ones["reference"]["before"])
+    print(f"mesh: {name} on one card, eager; reference W={WINDOW} (hash+OGM): iteration 1's "
+          f"int64 sums against one card's: table ({n_table}) equal bits {equal['table']}, OGM "
+          f"grid ({want['fixed_sizes'][1]}) equal bits {equal['grid']}; {MESH_ITERS} iterations: "
+          f"{describe_diffs(diffs)}"
+          + ("" if planted is None else f"; with the planted fault: {describe_diffs(planted)}")
+          + f"; launches {first['counts']}", flush=True)
+    failures = [f"{name} reference: iteration 1's {k} sums differ from one card's"
+                for k, ok in equal.items() if not ok]
+    # Where the sound readings meet MESH_GATE the reference joins the gate, and its
+    # planted fault must be refused; beyond it they are printed only.
+    if all(d["gate"] for d in diffs.values()):
+        failures += gate_failures(f"{name} reference", diffs, planted)
+    else:
+        print(f"mesh: {name} reference after {MESH_ITERS} iterations: beyond MESH_GATE in "
+              f"{[k for k, d in diffs.items() if not d['gate']]}, printed only", flush=True)
+    if min(first["counts"]["hash_encode_fwd"], first["counts"]["hash_encode_bwd"]) < 1:
+        failures.append(f"{name} reference: launches {first['counts']}")
+    return {"iteration 1 equal": equal, "diffs": diffs, "fault": planted}, failures
+
+
+def reference_drift(dev) -> dict:
+    """Where the reference's W=8 phase on a mesh leaves one card's, iteration by
+    iteration (not part of ``main``; a call of its own: ``python3 -c "import torch,
+    chip_smoke as c; from loner_tpu_torch.ops.build import build_all; build_all();
+    c.reference_drift(torch.device('cuda', 0))"``).
+    Gloo meshes [2], [4] and [2, 2] sharing ``dev`` run 1, 2 and MESH_ITERS
+    iterations: each run's last iteration's table sums against one card's bits,
+    and its outputs (losses, twists, parameters) against one card's
+    (``mesh_diffs``). Then the sound spread on one card: the same phase with the
+    window's slots reversed, with each slot's rays shuffled, and both
+    (``order_witness``). Prints one JSON line a reading; returns them."""
+    from loner_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+
+    dev = torch.device(dev.type, torch.cuda.current_device() if dev.index is None else dev.index)
+    iters = (1, 2, MESH_ITERS)
+    ones = {i: mesh_phase(None, "reference", False, dev=dev, iters=i) for i in iters}
+    n_table = ones[1]["fixed_sizes"][0]
+    out = {}
+    for name, spec in (("[2]", make_mesh(2, devices=[dev] * 2)),
+                       ("[4]", make_mesh(4, devices=[dev] * 4)),
+                       ("[2, 2]", make_mesh_2d(2, 2, devices=[dev] * 4))):
+        results = run_mesh_jobs(spec, [{"config": "reference", "graphs": False, "iters": i}
+                                       for i in iters])
+        for i, res in zip(iters, results):
+            diffs = mesh_diffs(res["outputs"], ones[i]["outputs"], ones[i]["before"])
+            got, want = res["fixed"][:n_table], ones[i]["fixed"][:n_table]
+            differ = got != want
+            reading = {
+                "mesh": name, "iterations": i,
+                "last_table_sums_equal": bool(not differ.any()),
+                "table_entries_differing": int(differ.sum()),
+                "table_sums_rel_l2": _rel_l2((got - want).astype(np.float64),
+                                             want.astype(np.float64)),
+                "outputs_equal": sorted(k for k, d in diffs.items() if d["equal"]),
+                "outputs_differ": {k: {"max_abs": d["max_abs"], "rel_l2": d["rel_l2"],
+                                       "gate": d["gate"]}
+                                   for k, d in diffs.items() if not d["equal"]}}
+            out[f"{name} {i}"] = reading
+            print("reference drift: " + json.dumps(reading), flush=True)
+    for label, kwargs in (("slots reversed", {}), ("rays shuffled", {"order": list(range(WINDOW)),
+                                                                     "ray_seed": 3}),
+                          ("slots reversed, rays shuffled", {"ray_seed": 3})):
+        diffs = order_witness(dev, config="reference", **kwargs)
+        reading = {"one card": label, "iterations": MESH_ITERS,
+                   "outputs_equal": sorted(k for k, d in diffs.items() if d["equal"]),
+                   "outputs_differ": {k: {"max_abs": d["max_abs"], "rel_l2": d["rel_l2"],
+                                          "gate": d["gate"]}
+                                      for k, d in diffs.items() if not d["equal"]}}
+        out[label] = reading
+        print("reference drift: " + json.dumps(reading), flush=True)
+    return out
+
+
+# The reference's jobs on each gloo mesh of one card: one iteration (its OGM step),
+# then MESH_ITERS; on two ranks also MESH_ITERS with the planted fault.
+REFERENCE_JOBS = [{"config": "reference", "graphs": False, "iters": 1},
+                  {"config": "reference", "graphs": False}]
+REFERENCE_FAULT = {"config": "reference", "graphs": False, "fault": True}
+
+
 def mesh_on_one_card(dev, specs) -> tuple:
     """Gloo meshes of ``specs`` whose ranks all share ``dev``: the flagship's W=8
     phase eagerly on each, in bf16 held to MESH_GATE, in f32 to MESH_TOL, and
-    with the planted fault, which the gate must refuse; on four ranks also the
-    sky window's phase (``mesh_configs("sky")``: the window's LiDAR and sky rays
-    over the ranks) in bf16 and with the planted fault. Returns ({"readings",
-    "launches"}, failures)."""
+    with the planted fault, which the gate must refuse; the reference's
+    (``reference_on_mesh``: iteration 1's table and grid sums equal to one card's
+    bits, MESH_ITERS iterations beside MESH_GATE, on two ranks with the planted
+    fault too); on
+    four ranks also the sky window's phase (``mesh_configs("sky")``: the window's
+    LiDAR and sky rays over the ranks) in bf16 and with the planted fault.
+    Returns ({"readings", "launches"}, failures)."""
     readings, launches, failures = {}, {}, []
     jobs = [{"config": "flagship", "graphs": False},
             {"config": "flagship", "graphs": False, "f32": True},
             {"config": "flagship", "graphs": False, "fault": True}]
     sky_jobs = [{"config": "sky", "graphs": False}, {"config": "sky", "graphs": False, "fault": True}]
     ones = {"bf16": mesh_phase(None, dev=dev, **jobs[0]), "f32": mesh_phase(None, dev=dev, **jobs[1]),
-            "sky": mesh_phase(None, dev=dev, **sky_jobs[0])}
+            "sky": mesh_phase(None, dev=dev, **sky_jobs[0]),
+            "reference 1": mesh_phase(None, dev=dev, **REFERENCE_JOBS[0]),
+            "reference": mesh_phase(None, dev=dev, **REFERENCE_JOBS[1])}
     for spec in specs:
         name = f"gloo {spec.size} ranks" + (f" {list(spec.shape)}" if spec.two_axes else "")
         t0 = time.perf_counter()
         with_sky = spec.size == 4
-        results = run_mesh_jobs(spec, jobs + (sky_jobs if with_sky else []))
+        ref_jobs = REFERENCE_JOBS + ([REFERENCE_FAULT] if spec.size == 2 else [])
+        results = run_mesh_jobs(spec, jobs + ref_jobs + (sky_jobs if with_sky else []))
         labelled = [("flagship bf16", "bf16"), ("flagship f32", "f32"),
                     ("flagship bf16, planted fault", "bf16"), ("sky bf16", "sky"),
                     ("sky bf16, planted fault", "sky")]
+        ref_results = results[len(jobs):len(jobs) + len(ref_jobs)]
+        results = results[:len(jobs)] + results[len(jobs) + len(ref_jobs):]
         for (label, one), res in zip(labelled, results):
             diffs = mesh_diffs(res["outputs"], ones[one]["outputs"], ones[one]["before"])
             readings[f"{name} {label}"] = diffs
             print(f"mesh: cards {torch.cuda.device_count()}, {name} on one card, eager; "
                   f"W={WINDOW} {label}, {MESH_ITERS} iterations; against one card: "
                   f"{describe_diffs(diffs)}; launches {res['counts']}", flush=True)
-        print(f"mesh: {name}: {len(results)} jobs in {time.perf_counter() - t0:.3f} s with the "
-              "spawn", flush=True)
+        readings[f"{name} reference"], more = reference_on_mesh(name, ref_results, ones)
+        failures += more
+        launches[f"mesh {name}, one card, reference"] = ref_results[0]["counts"]
+        print(f"mesh: {name}: {len(results) + len(ref_results)} jobs in "
+              f"{time.perf_counter() - t0:.3f} s with the spawn", flush=True)
         for window in ("flagship", "sky") if with_sky else ("flagship",):
             failures += gate_failures(f"{name} {window} bf16", readings[f"{name} {window} bf16"],
                                       readings[f"{name} {window} bf16, planted fault"])
@@ -3299,14 +3575,16 @@ def mesh_on_one_card(dev, specs) -> tuple:
 
 
 def run_mesh(dev) -> dict:
-    """Phase 21 on one card: (a) the forward of each of WITNESS_WINDOWS in one
-    batch against WITNESS_PARTS batches, op by op (``forward_batch_witness``), in
-    bf16 and f32: no ray of an op the port runs, and none of the whole forward's
-    outputs, may differ in any bit; then two gloo ranks, four and [2, 2] sharing
-    the card run the flagship's W=8 phase eagerly (each rank's Fourier pair on
-    its share of the window), and four ranks the sky window's: in bf16 held to
-    MESH_GATE, in f32 to MESH_TOL, and with the planted fault, which the gate
-    must refuse (``mesh_on_one_card``); (b) the
+    """Phase 21 on one card: (a) the forward and the backward of each of
+    WITNESS_WINDOWS in one batch against WITNESS_PARTS batches, op by op
+    (``forward_batch_witness``), in bf16 and f32 (the reference as it runs): no
+    ray of an op the port runs, and none of the whole forward's outputs, may
+    differ in any bit; then two gloo ranks, four and [2, 2] sharing the card run
+    the flagship's W=8 phase eagerly (each rank's Fourier pair on its share of the
+    window), and four ranks the sky window's: in bf16 held to MESH_GATE, in f32 to
+    MESH_TOL, and with the planted fault, which the gate must refuse; and the
+    reference's, iteration 1's table and grid sums equal to one card's bits
+    (``mesh_on_one_card``); (b) the
     slot-reversed witness on one card;
     (c) a one-rank NCCL mesh through the graphs, its collectives captured, equal
     to the bit to the graphs without a mesh; (d) the Optimizer on that one-rank
@@ -3326,7 +3604,7 @@ def run_mesh(dev) -> dict:
 
     for window in WITNESS_WINDOWS:
         for parts in WITNESS_PARTS:
-            for f32_witness in (False, True):
+            for f32_witness in (False,) if window == "reference" else (False, True):
                 t0 = time.perf_counter()
                 res = forward_batch_witness(dev, parts, f32_witness, window)
                 label = f"{window} forward in {parts} batches, {'f32' if f32_witness else 'bf16'}"
@@ -3823,6 +4101,110 @@ def run_mesh_cards(dev, slam_scans: int = SLAM_SCANS,
     return record
 
 
+# Phase 23: two single-threaded runs of run_loner on the first REPEAT_SECONDS of
+# phase 9's sequence (its first 60 scans), for the reference and the flagship
+# configurations, all four child processes at once on the card, beside phase 19's
+# bag: final poses, trajectories and checkpoint tensors equal to the bit
+# between a configuration's two runs (the hash tables' and the OGM grid's
+# gradients are fixed-point sums).
+REPEAT_SECONDS = 5.95  # scans are 0.1 s apart: the 60 with start time - first's <= 5.95
+REPEAT_CHILD_SECONDS = 420
+
+
+def _tree_arrays(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_arrays(v, prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tree_arrays(v, prefix + (str(i),))
+    elif isinstance(tree, (torch.Tensor, np.ndarray, float, int)):
+        yield "/".join(prefix), np.asarray(tree)
+
+
+def start_repeat(dev, root: str) -> dict:
+    """Phase 23's dataset (phase 9's sequence, without its GT map) in ``root`` and
+    its four ``run_loner`` children, started; ``finish_repeat`` joins them."""
+    import threading
+
+    from loner_tpu_torch.common.json_yaml import write_json_yaml
+
+    sequence = write_slam_dataset(os.path.join(root, "dataset"), gt_map=False)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")]))
+    runs, threads = {}, []
+    for config, settings_of in (("reference", box_room_settings),
+                                ("flagship", flagship_slam_settings)):
+        for i in (0, 1):
+            out = os.path.join(root, f"repeat_{config}_{i}")
+            os.makedirs(out, exist_ok=True)
+            settings = settings_of(os.path.join(out, "outputs"))
+            settings["system"]["single_threaded"] = True
+            write_json_yaml(os.path.join(out, "config.yaml"), settings)
+            args = [sys.executable, "-m", "loner_tpu_torch.run_loner", sequence["dataset"],
+                    os.path.join(out, "config.yaml"), "--experiment_name",
+                    f"repeat_{config}_{i}", "--duration", str(REPEAT_SECONDS), "--device",
+                    str(dev)]
+
+            def one(key=(config, i), args=args, out=out):
+                runs[key] = run_child(args, REPEAT_CHILD_SECONDS, cwd=out, env=env)
+
+            threads.append(threading.Thread(target=one))
+            threads[-1].start()
+    return {"sequence": sequence, "runs": runs, "threads": threads, "t0": time.perf_counter()}
+
+
+def finish_repeat(started: dict) -> dict:
+    """Phase 23 (see REPEAT_SECONDS), after ``start_repeat``: returns, by
+    configuration, the runs' walls, keyframes and RTF, and each compared file or
+    tensor's equality; raises if a run failed or any of them differ."""
+    from loner_tpu_torch.mapping.mapper import load_checkpoint
+
+    for t in started["threads"]:
+        t.join()
+    runs, sequence = started["runs"], started["sequence"]
+    print(f"repeat: the four runs ended {time.perf_counter() - started['t0']:.1f} s after they "
+          "started", flush=True)
+    failures, res = [], {}
+    for config in ("reference", "flagship"):
+        logs = []
+        for i in (0, 1):
+            run = runs[(config, i)]
+            done = [line for _, line in run["lines"] if line.startswith("Finished. Logs in ")]
+            if run["rc"] != 0 or not done:
+                raise RuntimeError(f"repeat {config} run {i}: rc {run['rc']}; last lines:\n"
+                                   + "\n".join(line for _, line in run["lines"][-30:]))
+            logs.append(done[-1].split("Finished. Logs in ", 1)[1])
+        equal = {}
+        for name in sorted(os.listdir(os.path.join(logs[0], "trajectory"))):
+            a, b = (np.loadtxt(os.path.join(d, "trajectory", name), ndmin=2) for d in logs)
+            equal[f"trajectory/{name}"] = a.shape == b.shape and bool(np.array_equal(a, b))
+        tensors = [dict(_tree_arrays(load_checkpoint(os.path.join(d, "checkpoints", "final.tar"))))
+                   for d in logs]
+        if tensors[0].keys() != tensors[1].keys():
+            failures.append(f"{config}: the checkpoints hold other tensors")
+        differ = [k for k in tensors[0] if k in tensors[1] and not (
+            tensors[0][k].shape == tensors[1][k].shape
+            and np.array_equal(tensors[0][k], tensors[1][k], equal_nan=True))]
+        equal["final.tar tensors"] = not differ
+        numbers = [slam_log_numbers(d, sequence["ts"][sequence["ts"] - sequence["ts"][0]
+                                                       <= REPEAT_SECONDS]) for d in logs]
+        res[config] = {"equal": equal, "tensors": len(tensors[0]), "differ": differ[:10],
+                       "walls_s": [runs[(config, i)]["s"] for i in (0, 1)],
+                       "keyframes": [n["keyframes"] for n in numbers],
+                       "rtf": [n["rtf"] for n in numbers]}
+        print(f"repeat {config}: two single-threaded run_loner runs of {REPEAT_SECONDS} s "
+              f"({numbers[0]['keyframes']} / {numbers[1]['keyframes']} keyframes, walls "
+              + ", ".join(f"{w:.1f}" for w in res[config]["walls_s"]) + " s, RTF "
+              + ", ".join(f"{r:.4f}" for r in res[config]["rtf"]) + f"); {len(tensors[0])} "
+              f"checkpoint tensors, {len(differ)} differ {differ[:10]}; equal bits "
+              + ", ".join(f"{k} {v}" for k, v in equal.items()), flush=True)
+        if not all(equal.values()):
+            failures.append(f"{config}: {[k for k, v in equal.items() if not v]} differ")
+    if failures:
+        raise RuntimeError("repeat: " + "; ".join(failures))
+    return res
+
+
 # Phase 22 (a): the field options no config in cfg/ sets, whose paths are plain
 # PyTorch (models/field.py): each on the card against the same code on the CPU,
 # at the widths and the tolerances of the CPU tests that hold them to the JAX
@@ -4000,6 +4382,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from loner_tpu_torch.ops import composite as cp
     from loner_tpu_torch.ops import fourier_mlp as fm
+    from loner_tpu_torch.ops import fixed_point
     from loner_tpu_torch.ops import hash_grid as hg
     from loner_tpu_torch.ops.build import build_all
 
@@ -4049,10 +4432,12 @@ def main() -> int:
             k["launches"] = {**slam["map_launches"], **slam["launches"]}[k["name"]]
         phase_done("9 + 13 (flagship SLAM, map quality)")
         hash_kernels = check_hash_kernels(dev)
-        reference = run_slam(dev, "hash+OGM", box_room_settings(""), sequence,
-                             os.path.join(data_dir, "reference"),
-                             ("hash_encode_fwd", "hash_encode_bwd"), ("hash_encode_fwd",), "xla",
-                             measure_test_chunk=True)
+        with fixed_point.recording() as readings:
+            reference = run_slam(dev, "hash+OGM", box_room_settings(""), sequence,
+                                 os.path.join(data_dir, "reference"),
+                                 ("hash_encode_fwd", "hash_encode_bwd"), ("hash_encode_fwd",),
+                                 "xla", measure_test_chunk=True)
+        print_readings(f"SLAM hash+OGM, {SLAM_SCANS} scans", readings)
         reference["eval_launches"] = check_map_quality(
             dev, "hash+OGM", reference["log_dir"], sequence, "hash_encode_fwd", "xla",
             mesh=True)["launches"]
@@ -4090,10 +4475,12 @@ def main() -> int:
         slam_drive["eval_launches"] = check_map_quality(
             dev, "flagship drive", slam_drive["log_dir"], drive, "fourier_mlp_fwd", "pallas",
             gate_l1=True)["launches"]
-        reference_drive = run_slam(dev, "hash+OGM drive", box_room_settings(""), drive,
-                                   os.path.join(data_dir, "reference"),
-                                   ("hash_encode_fwd", "hash_encode_bwd"), ("hash_encode_fwd",),
-                                   "xla")
+        with fixed_point.recording() as readings:
+            reference_drive = run_slam(dev, "hash+OGM drive", box_room_settings(""), drive,
+                                       os.path.join(data_dir, "reference"),
+                                       ("hash_encode_fwd", "hash_encode_bwd"),
+                                       ("hash_encode_fwd",), "xla")
+        print_readings(f"SLAM hash+OGM drive, {DRIVE_SCANS} scans", readings)
         reference_drive["eval_launches"] = check_map_quality(
             dev, "hash+OGM drive", reference_drive["log_dir"], drive, "hash_encode_fwd", "xla",
             gate_l1=True)["launches"]
@@ -4110,8 +4497,13 @@ def main() -> int:
     phase_done("17 (courtyard)")
     camera = run_camera(dev, field_cfg)
     phase_done("18 (camera)")
-    drill = run_drill(dev, slam)
-    phase_done("19 (real-data drill)")
+    # Phase 23's four SLAM children run beside the drill's bag, which one host core
+    # writes and converts (the repeat checks bits, not time).
+    with tempfile.TemporaryDirectory(prefix="loner_tpu_torch_repeat_") as repeat_dir:
+        started = start_repeat(dev, repeat_dir)
+        drill = run_drill(dev, slam)
+        finish_repeat(started)
+    phase_done("19 + 23 (real-data drill; the two-run repeat beside its bag)")
     breadth = run_breadth(dev, cfg, field_cfg, field, prop)
     phase_done("20 (run breadth)")
     mesh = run_mesh(dev)

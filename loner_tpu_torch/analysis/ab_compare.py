@@ -1,7 +1,7 @@
 """A/B of two checkouts of this repository on one CUDA card, in turns.
 
-    python3 -m loner_tpu_torch.analysis.ab_compare --other <dir> [--iteration] [--smoke]
-        [--out <dir>]
+    python3 -m loner_tpu_torch.analysis.ab_compare --other <dir> [--iteration] [--slam]
+        [--slam-profile] [--no-kernels] [--smoke] [--out <dir>]
 
 ``<dir>`` is another checkout (for example a ``git archive`` of the parent commit
 unpacked into a directory that ``.gitignore`` lists). Each measurement runs in its
@@ -21,12 +21,21 @@ other, so drift on the card shows as a difference between the two runs of a side
   in the order a mapping iteration gives them (``hash_points``: rays of 512
   sorted samples) and at random points, by back-to-back calls (``kernel_ms``);
   the backward also without dpos where the side has that variant (else its full
-  backward stands in). One JSON line per run.
+  backward stands in). The OGM step's grid gradient (``occ_grid_grad``) at a W=8
+  iteration's 2,097,152 points on the 100^3 grid. One JSON line per run.
 * ``--iteration``: ``profile_iteration.profile`` of this checkout, run against
   each side's package, at the reference and the flagship configurations: the W=8
   iteration and the W=1 bootstrap's (frozen poses); at the sky and the camera
   configurations the W=8 iteration; each through the eager loop and, on a side
   that has them, through CUDA graphs (k replays a dispatch).
+* ``--slam``: each side's ``chip_smoke.run_slam`` of the reference
+  configuration (cfg/synthetic/box_room.yaml) and of the flagship
+  (box_room_tpu_rt_r4.yaml), threaded, on one 150-scan box-room sequence that
+  this checkout writes once: RTF, ms a mapping iteration, tracking latency, ATE.
+* ``--slam-profile``: each side's reference SLAM on that sequence threaded,
+  single-threaded, and single-threaded with its W=8 keyframes under
+  torch.profiler (``time_slam_profile``): seconds a keyframe, device ms an
+  iteration by kernel. ``--no-kernels`` skips the kernel turns.
 * ``--smoke``: each side's ``chip_smoke.py``, whole; the logs go to ``--out``.
 
 Needs a CUDA card; prints the card's name and power limit first.
@@ -250,6 +259,116 @@ def time_hash() -> dict:
     return out
 
 
+def time_ogm() -> dict:
+    """Runs inside a side's process: its ``occ_grid_grad`` at the first of
+    ``SIZES`` points on the 100^3 grid."""
+    import torch
+
+    from loner_tpu_torch.models.occupancy_grid import occ_grid_grad
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    grid = torch.randn((100, 100, 100), generator=gen, device=dev)
+    pts = torch.rand((SIZES[0], 3), generator=gen, device=dev) * 2.0 - 1.0
+    g = torch.randn((SIZES[0],), generator=gen, device=dev) * 1e-3
+    return {f"ogm_grad_{SIZES[0]}_ms": kernel_ms(lambda: occ_grid_grad(grid, pts, g))}
+
+
+def time_slam(sequence_path: str, out_dir: str) -> dict:
+    """Runs inside a side's process: its ``chip_smoke.run_slam`` of the reference
+    and the flagship on the pickled sequence, threaded."""
+    import pickle
+
+    import torch
+
+    import chip_smoke
+    from loner_tpu_torch.ops.build import build_all
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build_all()
+    with open(sequence_path, "rb") as f:
+        sequence = pickle.load(f)
+    dev = torch.device("cuda", 0)
+    runs = {"reference": (chip_smoke.box_room_settings(""), ("hash_encode_fwd", "hash_encode_bwd"),
+                          ("hash_encode_fwd",), "xla"),
+            "flagship": (chip_smoke.flagship_slam_settings(""),
+                         ("fourier_mlp_fwd", "fourier_mlp_bwd"), ("composite", "fourier_mlp_fwd"),
+                         "pallas")}
+    out = {}
+    for name, (settings, train, mapped, compositor) in runs.items():
+        res = chip_smoke.run_slam(dev, name, settings, sequence, os.path.join(out_dir, name),
+                                  train, mapped, compositor)
+        out[name] = {k: res[k] for k in ("rtf", "win_ms", "boot_ms", "track_p50_ms",
+                                         "track_p95_ms", "runtime_s", "ate", "iterations")}
+    return out
+
+
+def time_slam_profile(sequence_path: str, out_dir: str) -> dict:
+    """Runs inside a side's process: the reference's SLAM (cfg/synthetic/box_room.yaml)
+    on the pickled sequence, threaded, single-threaded, and single-threaded with
+    each keyframe after the first (the W=8 windows) under torch.profiler: each run's
+    (iterations, seconds) a keyframe (``timing.csv``) and, for the profiled
+    keyframes, the device ms an iteration in all and of the ``top`` kernels."""
+    import pickle
+    import time
+
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from loner_tpu_torch import run_loner
+    from loner_tpu_torch.analysis.profile_iteration import device_events
+    from loner_tpu_torch.mapping.optimizer import Optimizer
+    from loner_tpu_torch.ops.build import build_all
+
+    top = 8
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build_all()
+    with open(sequence_path, "rb") as f:
+        sequence = pickle.load(f)
+    dev = torch.device("cuda", 0)
+    profiled = []
+    original = Optimizer.iterate_optimizer
+
+    def iterate_profiled(self, window, *args, **kwargs):
+        if len(window) == 1:  # the W=1 bootstrap
+            return original(self, window, *args, **kwargs)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            loss = original(self, window, *args, **kwargs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_name: dict = {}
+        for e in device_events(prof):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+        profiled.append((wall, by_name))
+        return loss
+
+    out = {}
+    for run, single, hook in (("threaded", False, False), ("single", True, False),
+                              ("single profiled", True, True)):
+        settings = chip_smoke.box_room_settings(os.path.join(out_dir, run.replace(" ", "_")))
+        settings["system"]["single_threaded"] = single
+        Optimizer.iterate_optimizer = iterate_profiled if hook else original
+        try:
+            log_dir = run_loner.run_trial(settings, sequence["dataset"], device=dev,
+                                          experiment_name=run.replace(" ", "_"))
+        finally:
+            Optimizer.iterate_optimizer = original
+        timing = np.loadtxt(os.path.join(log_dir, "timing.csv"), delimiter=",", ndmin=2)
+        out[run] = [[int(n), round(float(t), 4)] for n, t in timing]
+    its = [int(n) for n, _ in out["single profiled"][1:]]
+    out["profiled keyframes"] = [
+        {"wall_s": wall, "iterations": n,
+         "device_ms_an_iteration": sum(by_name.values()) / n,
+         "top_ms_an_iteration": {k: v / n for k, v in sorted(
+             by_name.items(), key=lambda kv: -kv[1])[:top]}}
+        for (wall, by_name), n in zip(profiled, its)]
+    return out
+
+
 def time_iteration() -> dict:
     """Runs inside a side's process: this checkout's profile_iteration.profile on
     the side's package, both configurations, W=8 and the W=1 bootstrap, through
@@ -322,6 +441,7 @@ def time_kernels() -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     out.update(time_composite())
     out.update(time_hash())
+    out.update(time_ogm())
     return out
 
 
@@ -343,6 +463,12 @@ def main() -> int:
     parser.add_argument("--iteration", action="store_true",
                         help="also profile the W=8 and W=1 iterations on each side, eager "
                         "and through graphs")
+    parser.add_argument("--slam", action="store_true",
+                        help="also run each side's reference and flagship SLAM on 150 scans")
+    parser.add_argument("--slam-profile", action="store_true",
+                        help="also run each side's reference SLAM threaded, single-threaded "
+                        "and single-threaded with its W=8 keyframes profiled")
+    parser.add_argument("--no-kernels", action="store_true", help="skip the kernel turns")
     parser.add_argument("--smoke", action="store_true", help="also run each side's chip_smoke.py")
     parser.add_argument("--out", default="outputs/ab_compare", help="directory for the smoke logs")
     args = parser.parse_args()
@@ -357,7 +483,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     script = os.path.abspath(__file__)
     turns = [("other", other), ("this", here), ("this", here), ("other", other)]
-    for i, (name, root) in enumerate(turns):
+    for i, (name, root) in enumerate([] if args.no_kernels else turns):
         code = (f"import sys; sys.path.insert(0, {root!r}); import json, runpy; "
                 f"m = runpy.run_path({script!r}); print(json.dumps(m['time_kernels']()))")
         line = _side(root, ["-c", code]).strip().splitlines()[-1]
@@ -368,6 +494,29 @@ def main() -> int:
                     f"m = runpy.run_path({script!r}); print(json.dumps(m['time_iteration']()))")
             line = _side(root, ["-c", code]).strip().splitlines()[-1]
             print(json.dumps({"turn": i, "side": name, "iteration": json.loads(line)}), flush=True)
+    slam = [(key, fn) for key, fn, on in (("slam", "time_slam", args.slam),
+                                          ("slam_profile", "time_slam_profile", args.slam_profile))
+            if on]
+    if slam:
+        import pickle
+        import tempfile
+
+        sys.path.insert(0, here)
+        import chip_smoke
+
+        with tempfile.TemporaryDirectory(prefix="ab_compare_slam_") as tmp:
+            path = os.path.join(tmp, "sequence.pkl")
+            with open(path, "wb") as f:
+                pickle.dump(chip_smoke.write_slam_dataset(os.path.join(tmp, "dataset")), f)
+            for key, fn in slam:
+                for i, (name, root) in enumerate(turns):
+                    out = os.path.join(tmp, f"{key}_turn_{i}")
+                    code = (f"import sys; sys.path.insert(0, {root!r}); import json, runpy; "
+                            f"m = runpy.run_path({script!r}); "
+                            f"print(json.dumps(m[{fn!r}]({path!r}, {out!r})))")
+                    line = _side(root, ["-c", code]).strip().splitlines()[-1]
+                    print(json.dumps({"turn": i, "side": name, key: json.loads(line)}),
+                          flush=True)
     if args.smoke:
         os.makedirs(args.out, exist_ok=True)
         for i, (name, root) in enumerate(turns):

@@ -16,42 +16,61 @@
 //   out[l] = sum_k w_k table[idx_k]                        (f32 mode)
 //   out[l] = bf16(sum_k bf16(bf16(table) bf16(w_k)))       (bf16 mode, f32 sum)
 // Backward, for the upstream gradient g (N, 2L):
-//   dtable[idx_k] += w_k g_l           (f32 atomics: the order changes per run)
+//   dtable[idx_k] += w_k g_l in fixed point: the f32 product scaled by 2^S (exact) and
+//     rounded half to even to int64 (__float2ll_rn), summed in int64 (two's complement:
+//     no order), converted to f32 once by the wrapper (loner_tpu_torch/ops/fixed_point.py)
 //   dpos = clip_w * sum_l R_l dfrac_l, dfrac_x = sum_{iy,iz} (s[1,iy,iz] - s[0,iy,iz])
 //     wy[iy] wz[iz] with s_k = <table[idx_k], g_l> (bf16-rounded table in bf16 mode),
 //     clip_w 1 inside (0, 1), 1/2 at exactly 0 or 1, 0 outside.
 // Every product and sum is a rounded intrinsic (no FMA contraction) in the order of
 // the plain version (loner_tpu_torch/ops/hash_grid.py), so the forward and dpos match
-// it to the bit; the table gradient matches it up to the order of the float additions.
+// it to the bit; the table gradient's integer sums match it to the bit too, and are
+// the same under any permutation of the points and when the points are split into
+// parts whose int64 sums are added (a mesh's ranks).
+//
+// S = 40 (fixed_point.HASH_BITS), from readings on an H100 (chip_smoke.py phases 10,
+// 11 and 18; PERF.md section 6): the reference's 150-scan SLAM run summed at most
+// 13.0 of |w_k g| into one call's sums (14.3 bits below the guard's 2^58), its largest
+// contribution was 8.6e-4 and its largest entry sum 2.2e-2 (28.5 bits below 2^63).
+// The kernel adds every |w_k g| into mag[0] (an f32 sum a block, one atomic a block)
+// and keeps the largest in mag[1]; the wrapper flags a sum whose magnitude passes
+// 2^(58 - S), so no partial sum of any order or of up to 16 added parts wraps.
 //
 // What bounds it on this card: neither HBM bytes nor operations. Each point reads 12
 // bytes and writes 128 (forward), or reads 140 and writes 12 (backward); the table is
 // 29.7 MB at the reference's 16 levels x 2^18 and stays in the 50 MB L2. What counts
-// is L2 traffic: 8 gathers of 8 bytes per (point, level), and in the backward as many
-// float atomics, which serialise at one L2 slice when many lanes add to one entry. In
-// a mapping iteration the points come ray by ray, each ray's samples sorted along it,
-// so on the coarse levels (up to ~7) neighbouring samples share cells.
+// is L2 traffic: 8 gathers of 8 bytes per (point, level), and in the backward up to 16
+// 8-byte integer reductions (Hopper has no vector form of the integer atomic), which
+// serialise at one L2 slice when many lanes add to one entry. In a mapping iteration
+// the points come ray by ray, each ray's samples sorted along it, so on the coarse
+// levels (up to ~7) neighbouring samples share cells.
 //
-// Design: level-major blocks of kPoints consecutive points x all levels; a warp task
-// is 32 consecutive points of one level, so a ray's samples that share a cell gather
-// it, and add to it, in one instruction. Points and the upstream gradient are read
-// into shared memory once a block; the forward's outputs are staged there and written
-// back as whole rows. The two x-neighbour corners of a cell are adjacent entries on a
-// dense level and, when the cell's x is even, on a hashed one; when they form one
-// aligned 16-byte pair the forward loads them with one float4 and the backward adds
-// to them with one float4 atomic. The backward sums each x-pair's terms over every run
-// of lanes that add to the same entries (a segmented shuffle scan, a fixed tree order)
-// and only the run's last lane issues the atomics. Without dpos (frozen poses: a null
-// dpos) it neither re-gathers the corners nor forms their dot products; with dpos each
-// lane writes R_l dfrac to shared memory and, after the block's barrier, one thread a
-// point sums the levels in order, so dpos keeps the plain version's bits.
-// Levers tried and dropped (PERF.md section 6; ab_compare.py on an H100 at 700 W, ms
-// of the backward at 2,097,152 ray-ordered points with dpos / without, against 2.734 /
-// 1.361 for this design in the same calls): __match_any_sync with a lane-ordered
-// leader sum, 2.748 / 1.714; no aggregation (the level-major split alone), 5.569 /
-// 3.135; float2 atomics only, 3.061 / 1.724; 128-point blocks, 2.732 / 1.367 and 3-6%
-// slower at the bootstrap's 262,144 points; 8 blocks an SM (32 registers, spills),
-// 4.440 / 1.781. The forward without the float4 pair loads: 0.762 ms against 0.742.
+// Design: level-major blocks of kPoints consecutive points x all levels (the backward:
+// x the levels of one launch); a warp task is 32 consecutive points of one level, so a
+// ray's samples that share a cell gather it, and add to it, in one instruction. Points
+// and the upstream gradient are read into shared memory once a block; the forward's
+// outputs are staged there and written back as whole rows. The two x-neighbour corners
+// of a cell are adjacent entries on a dense level and, when the cell's x is even, on a
+// hashed one; when they form one aligned 16-byte pair the forward loads them with one
+// float4. The backward converts each term to int64, sums each x-pair's terms over every
+// run of lanes that add to the same entries (a segmented shuffle scan) and only the
+// run's last lane adds; lanes add in pairs, one entry's two features an instruction
+// (see scatter). The int64 sums of all 16 levels are 59 MB, more than the L2: the
+// wrapper launches the levels in groups whose slice is at most ops/hash_grid.py::
+// BWD_GROUP_BYTES (24 MB), and dpos carries its running level sum across the groups in
+// the plain version's order. Without dpos (frozen poses: a null dpos) the backward
+// neither re-gathers the corners nor forms their dot products; with dpos each lane
+// writes R_l dfrac to shared memory and, after the block's barrier, one thread a point
+// sums the group's levels in order, so dpos keeps the plain version's bits.
+// Levers (PERF.md section 6; an H100 at 700 W, ms of the backward at 2,097,152 bf16
+// points, ray order with dpos / without, random with dpos): the f32-atomic design this
+// replaced, 2.905 / 1.503, 6.768 (not exact); this kernel with all levels in one
+// launch, 4.928 / 3.206, 10.529; in level groups of 32 / 24 / 16 / 8 MB, 4.015 / 2.572,
+// 6.355; 3.279 / 2.749, 5.173; 3.244 / 2.757, 5.154; 3.868 / 3.181, 5.426
+// (analysis/hash_breakdown.py). Each lane adding its own four values, in place of the
+// lane pairs, was slower at every budget. Earlier, for the f32 design: __match_any_sync
+// with a lane-ordered leader sum, no aggregation, float2 atomics only, 128-point blocks
+// and 8 blocks an SM were all slower; the forward without the float4 pair loads too.
 // Level 0 of the table gradient in shared memory was not tried.
 //
 // Plain C interface (no PyTorch headers); built by loner_tpu_torch/ops/build.py and
@@ -153,25 +172,24 @@ __device__ __forceinline__ void gather(const float2* __restrict__ table, bool pa
   }
 }
 
-// Rows [i0, i0 + nb) of an (n, L) float2 array, src = its row i0, into shared memory
-// as s[l * kStride + p] (and back): 16-byte accesses when L is even and the rows are
-// 16-byte aligned, 8-byte ones otherwise. The padded stride keeps both sides free of
-// bank conflicts.
-__device__ __forceinline__ void stage_in(const float2* __restrict__ src, int nb, int L, bool vec,
-                                         float2* s) {
+// Rows [i0, i0 + nb) of an (n, L) float2 array, src = its row i0, columns [l0, l0 + lg),
+// into shared memory as s[(l - l0) * kStride + p]: 16-byte accesses when L, l0 and lg
+// are even and the rows are 16-byte aligned, 8-byte ones otherwise. The padded stride
+// keeps both sides free of bank conflicts.
+__device__ __forceinline__ void stage_in(const float2* __restrict__ src, int nb, int L, int l0,
+                                         int lg, bool vec, float2* s) {
   if (vec) {
-    const int half = L >> 1;
-    const float4* src4 = reinterpret_cast<const float4*>(src);
+    const int half = lg >> 1;
     for (int q = threadIdx.x; q < nb * half; q += kThreads) {
       const int p = q / half, j = q - p * half;
-      const float4 v = __ldg(src4 + q);
+      const float4 v = __ldg(reinterpret_cast<const float4*>(src + p * L + l0) + j);
       s[2 * j * kStride + p] = make_float2(v.x, v.y);
       s[(2 * j + 1) * kStride + p] = make_float2(v.z, v.w);
     }
   } else {
-    for (int q = threadIdx.x; q < nb * L; q += kThreads) {
-      const int p = q / L, l = q - p * L;
-      s[l * kStride + p] = __ldg(src + q);
+    for (int q = threadIdx.x; q < nb * lg; q += kThreads) {
+      const int p = q / lg, l = q - p * lg;
+      s[l * kStride + p] = __ldg(src + p * L + l0 + l);
     }
   }
 }
@@ -242,20 +260,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   stage_out(out + i0 * L, nb, L, vec, s_out);
 }
 
-__device__ __forceinline__ void atomic_add2(float2* dst, float x, float y) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
-  atomicAdd(dst, make_float2(x, y));  // one 8-byte reduction (sm_90)
-#else
-  atomicAdd(&dst->x, x);
-  atomicAdd(&dst->y, y);
-#endif
-}
-
 // Sum v over each run of equal keys on consecutive lanes (the samples of one ray that
-// share a cell), in a fixed tree order; true on the run's last lane, which holds the
-// sum. Every lane of the warp takes part.
+// share a cell), in int64 (two's complement, so the order does not matter); true on
+// the run's last lane, which holds the sum. Every lane of the warp takes part.
 template <int V>
-__device__ __forceinline__ bool run_sum(unsigned long long key, float (&v)[V], int lane) {
+__device__ __forceinline__ bool run_sum(unsigned long long key, unsigned long long (&v)[V],
+                                        int lane) {
   const unsigned long long prev = __shfl_up_sync(kFull, key, 1);
   const unsigned heads = __ballot_sync(kFull, lane == 0 || prev != key);
   if (heads == kFull) return true;  // no two neighbours share an entry
@@ -263,71 +273,133 @@ __device__ __forceinline__ bool run_sum(unsigned long long key, float (&v)[V], i
   const int span =
       static_cast<int>(__reduce_max_sync(kFull, static_cast<unsigned>(lane - start)));
   for (int d = 1; d <= span; d <<= 1) {
-    float u[V];
+    unsigned long long u[V];
 #pragma unroll
     for (int j = 0; j < V; ++j) u[j] = __shfl_up_sync(kFull, v[j], d);
     if (lane - d >= start) {
 #pragma unroll
-      for (int j = 0; j < V; ++j) v[j] = __fadd_rn(u[j], v[j]);
+      for (int j = 0; j < V; ++j) v[j] += u[j];
     }
   }
   return lane == 31 || ((heads >> (lane + 1)) & 1u);
 }
 
-// The table gradient of one (point, level): w_k g added to entry idx_k, first summed
-// over each run of lanes that add to the same entries. The two x-corners of (iy, iz)
-// go together: one float4 atomic when they are one aligned 16-byte pair, else two
-// float2 atomics.
-__device__ __forceinline__ void scatter(const Corners& c, float2 g, bool valid, bool paired,
-                                        int lane, float2* __restrict__ dtable) {
+// w g in fixed point: the f32 product scaled by 2^S (exact) and rounded half to even
+// to int64, the plain version's torch.round; held as unsigned for wrapping adds.
+__device__ __forceinline__ unsigned long long to_fixed(float c, float scale) {
+  return static_cast<unsigned long long>(__float2ll_rn(__fmul_rn(c, scale)));
+}
+
+// The table gradient of one (point, level): w_k g added to entry idx_k in int64
+// fixed point, first summed over each run of lanes that add to the same entries (the
+// run's last lane holds the sum). The reductions go out in lane pairs: lanes 2m and
+// 2m + 1 add one entry's two features (16 contiguous bytes) in one instruction, the
+// even lane feature 0 and the odd lane feature 1, first for the even lane's x-corner
+// pair of entries, then for the odd lane's; each lane hands its partner the feature
+// the partner adds for it. The L2 then takes half as many sectors an instruction as
+// with each lane adding its own four values. |w_k g| goes into the lane's magnitude
+// sum and maximum (the guard of ops/fixed_point.py).
+__device__ __forceinline__ void scatter(const Corners& c, float2 g, bool valid, float scale,
+                                        int lane, unsigned long long* __restrict__ dacc,
+                                        float& mag_sum, float& mag_max) {
+  const bool odd = lane & 1;
+  const size_t feature = odd ? 1 : 0;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const unsigned a = c.idx[k], b = c.idx[k + 4];
     const unsigned long long key =
         valid ? (static_cast<unsigned long long>(b) << 32 | a) : kNoEntry;
-    float v[4] = {__fmul_rn(c.w[k], g.x), __fmul_rn(c.w[k], g.y), __fmul_rn(c.w[k + 4], g.x),
-                  __fmul_rn(c.w[k + 4], g.y)};
-    if (!run_sum<4>(key, v, lane) || !valid) continue;
-    if (paired && one_pair(a, b)) {
-      const float4 q = (a & 1u) ? make_float4(v[2], v[3], v[0], v[1])
-                                : make_float4(v[0], v[1], v[2], v[3]);
-      atomicAdd(reinterpret_cast<float4*>(dtable) + (a >> 1), q);  // one 16-byte reduction
-    } else {
-      atomic_add2(dtable + a, v[0], v[1]);
-      atomic_add2(dtable + b, v[2], v[3]);
+    const float f[4] = {__fmul_rn(c.w[k], g.x), __fmul_rn(c.w[k], g.y),
+                        __fmul_rn(c.w[k + 4], g.x), __fmul_rn(c.w[k + 4], g.y)};
+    unsigned long long v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[j] = to_fixed(f[j], scale);
+      mag_sum += fabsf(f[j]);
+      mag_max = fmaxf(mag_max, fabsf(f[j]));
+    }
+    const bool lead = run_sum<4>(key, v, lane) && valid;
+    const bool partner_leads = __shfl_xor_sync(kFull, lead ? 1 : 0, 1) != 0;
+    const unsigned pa = __shfl_xor_sync(kFull, a, 1), pb = __shfl_xor_sync(kFull, b, 1);
+    // Mine: this lane's feature of its own entries; theirs: its feature of the partner's.
+    const unsigned long long theirs_a = __shfl_xor_sync(kFull, odd ? v[0] : v[1], 1);
+    const unsigned long long theirs_b = __shfl_xor_sync(kFull, odd ? v[2] : v[3], 1);
+    const unsigned long long mine_a = odd ? v[1] : v[0], mine_b = odd ? v[3] : v[2];
+    // First the even lane's entries, then the odd lane's.
+    if (odd ? partner_leads : lead) {
+      atomicAdd(dacc + 2 * static_cast<size_t>(odd ? pa : a) + feature, odd ? theirs_a : mine_a);
+      atomicAdd(dacc + 2 * static_cast<size_t>(odd ? pb : b) + feature, odd ? theirs_b : mine_b);
+    }
+    if (odd ? lead : partner_leads) {
+      atomicAdd(dacc + 2 * static_cast<size_t>(odd ? a : pa) + feature, odd ? mine_a : theirs_a);
+      atomicAdd(dacc + 2 * static_cast<size_t>(odd ? b : pb) + feature, odd ? mine_b : theirs_b);
     }
   }
 }
 
-// Level-major as the forward. A warp task adds its 32 points' table gradient for one
-// level, each entry once per run of lanes that share it. With kDpos it also re-gathers
-// the corners, writes R_l dfrac of each (point, level) to shared memory, and after
-// the block's barrier one thread a point sums the levels in order and writes dpos.
+// The block's magnitude sum and maximum into mag[0] (an f32 atomic add) and mag[1]
+// (an integer max on the bits of a non-negative float). Every thread takes part.
+__device__ __forceinline__ void add_magnitude(float mag_sum, float mag_max, float* mag) {
+  __shared__ float s_mag[2][kWarps];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    mag_sum += __shfl_xor_sync(kFull, mag_sum, o);
+    mag_max = fmaxf(mag_max, __shfl_xor_sync(kFull, mag_max, o));
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) {
+    s_mag[0][warp] = mag_sum;
+    s_mag[1][warp] = mag_max;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float a = 0.0f, b = 0.0f;
+    for (int w = 0; w < kWarps; ++w) {
+      a += s_mag[0][w];
+      b = fmaxf(b, s_mag[1][w]);
+    }
+    atomicAdd(mag, a);
+    atomicMax(reinterpret_cast<int*>(mag + 1), __float_as_int(b));
+  }
+}
+
+// Level-major as the forward, over the levels [l0, l0 + lg) of one launch (a group
+// whose slice of the int64 sums stays in L2). A warp task adds its 32 points' table
+// gradient for one level to the int64 sums, each entry once per run of lanes that
+// share it. With kDpos it also re-gathers the corners (with the forward's pair loads
+// where `paired`; without dpos nothing is gathered), writes R_l dfrac of each
+// (point, level) to shared memory, and after the block's barrier one thread a point
+// adds the group's levels in order to the running sum dpos holds (from 0 in the first
+// group) and, in the last group, applies the clip's weight: the plain version's
+// sequential sum over the levels, split across launches.
 template <bool kBf16, bool kDpos>
 __global__ void __launch_bounds__(kThreads, 1)
     hash_bwd_kernel(const float* __restrict__ pos, const float2* __restrict__ table,
-                    const float2* __restrict__ dout, long long n, Levels lv, bool paired,
-                    bool vec, float2* __restrict__ dtable, float* __restrict__ dpos) {
+                    const float2* __restrict__ dout, long long n, Levels lv, int l0, int lg,
+                    bool first, bool last, bool paired, bool vec, float scale,
+                    unsigned long long* __restrict__ dacc, float* __restrict__ mag,
+                    float* __restrict__ dpos) {
   extern __shared__ float4 smem[];
   const int L = lv.n_levels;
-  float* s_pos = reinterpret_cast<float*>(smem);               // [kPoints][3], as given
-  float2* s_g = reinterpret_cast<float2*>(s_pos + 3 * kPoints);  // [L][kStride]
-  float* s_df = reinterpret_cast<float*>(s_g + L * kStride);     // [L][kPoints][3]
+  float* s_pos = reinterpret_cast<float*>(smem);                 // [kPoints][3], as given
+  float2* s_g = reinterpret_cast<float2*>(s_pos + 3 * kPoints);  // [lg][kStride]
+  float* s_df = reinterpret_cast<float*>(s_g + lg * kStride);    // [lg][kPoints][3]
   const long long i0 = static_cast<long long>(blockIdx.x) * kPoints;
   const int nb = static_cast<int>(min(static_cast<long long>(kPoints), n - i0));
   for (int t = threadIdx.x; t < 3 * nb; t += kThreads) s_pos[t] = __ldg(pos + 3 * i0 + t);
-  stage_in(dout + i0 * L, nb, L, vec, s_g);
+  stage_in(dout + i0 * L, nb, L, l0, lg, vec, s_g);
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int task = warp; task < kChunks * L; task += kWarps) {
+  float mag_sum = 0.0f, mag_max = 0.0f;
+  for (int task = warp; task < kChunks * lg; task += kWarps) {
     // Lanes past the last point stay in the warp for its collectives, on point 0's
     // corners with a key no entry has, and add nothing.
-    const int l = task / kChunks, p = (task % kChunks) * 32 + lane;
+    const int j = task / kChunks, l = l0 + j, p = (task % kChunks) * 32 + lane;
     const bool valid = p < nb;
     const int q = valid ? p : 0;
     const float x[3] = {clip01(s_pos[3 * q]), clip01(s_pos[3 * q + 1]),
                         clip01(s_pos[3 * q + 2])};
-    const float2 g = valid ? s_g[l * kStride + p] : make_float2(0.0f, 0.0f);
+    const float2 g = valid ? s_g[j * kStride + p] : make_float2(0.0f, 0.0f);
     Corners c;
     corners(x, lv, l, c);
     if (kDpos && valid) {
@@ -357,24 +429,28 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
       const float rf = static_cast<float>(lv.res[l]);
-      float* d = s_df + (l * kPoints + p) * 3;
+      float* d = s_df + (j * kPoints + p) * 3;
 #pragma unroll
       for (int a = 0; a < 3; ++a) d[a] = __fmul_rn(df[a], rf);
     }
-    scatter(c, g, valid, paired, lane, dtable);
+    scatter(c, g, valid, scale, lane, dacc, mag_sum, mag_max);
   }
+  add_magnitude(mag_sum, mag_max, mag);  // its barrier also orders s_df for the dpos sum
   if (!kDpos) return;
-  __syncthreads();
   for (int p = threadIdx.x; p < nb; p += kThreads) {
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      float d = 0.0f;
-      for (int l = 0; l < L; ++l) d = __fadd_rn(d, s_df[(l * kPoints + p) * 3 + a]);
-      const float xa = s_pos[3 * p + a];
-      const float cw = (xa > 0.0f && xa < 1.0f)     ? 1.0f
-                       : (xa == 0.0f || xa == 1.0f) ? 0.5f
-                                                    : 0.0f;
-      dpos[3 * (i0 + p) + a] = __fmul_rn(d, cw);
+      float* out = dpos + 3 * (i0 + p) + a;
+      float d = first ? 0.0f : *out;
+      for (int j = 0; j < lg; ++j) d = __fadd_rn(d, s_df[(j * kPoints + p) * 3 + a]);
+      if (last) {
+        const float xa = s_pos[3 * p + a];
+        const float cw = (xa > 0.0f && xa < 1.0f)     ? 1.0f
+                         : (xa == 0.0f || xa == 1.0f) ? 0.5f
+                                                      : 0.0f;
+        d = __fmul_rn(d, cw);
+      }
+      *out = d;
     }
   }
 }
@@ -433,33 +509,40 @@ extern "C" int lt_hash_fwd(const float* pos, const float* table, long long n, in
               : launch(hash_fwd_kernel<false>, n, smem, s, pos, t, n, lv, paired, vec, o);
 }
 
-// dtable (T, 2) f32, zeroed by the caller; dpos (n, 3) f32, or null when the position
-// gradient is not needed (frozen poses): then the kernel neither re-gathers the
-// corners nor forms their dot products.
+// The levels [l0, l0 + lg) of the backward (a group; the wrapper launches the groups
+// in order). dacc (T, 2) int64: the table gradient's fixed-point sums at scale (2^S),
+// added to (the caller zeroes them or keeps adding); mag (2,) f32: the sum of every
+// |w_k g| added to, and the largest (max'ed); dpos (n, 3) f32: the running sum over the
+// levels, begun in the first group and weighted by the clip in the last; or null when
+// the position gradient is not needed (frozen poses): then the kernel neither
+// re-gathers the corners nor forms their dot products.
 extern "C" int lt_hash_bwd(const float* pos, const float* table, const float* dout, long long n,
                            int n_levels, unsigned hash_mask, const unsigned* res,
-                           const unsigned* offset, const unsigned* dense, int bf16,
-                           float* dtable, float* dpos, void* stream) {
+                           const unsigned* offset, const unsigned* dense, int bf16, int l0,
+                           int lg, int first, int last, float scale, long long* dacc, float* mag,
+                           float* dpos, void* stream) {
   Levels lv;
-  if (n < 1 || !make_levels(n_levels, hash_mask, res, offset, dense, &lv)) {
+  if (n < 1 || !make_levels(n_levels, hash_mask, res, offset, dense, &lv) || l0 < 0 || lg < 1 ||
+      l0 + lg > n_levels) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float2* t = reinterpret_cast<const float2*>(table);
   const float2* g = reinterpret_cast<const float2*>(dout);
-  float2* dt = reinterpret_cast<float2*>(dtable);
+  unsigned long long* dt = reinterpret_cast<unsigned long long*>(dacc);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool paired = aligned16(table) && aligned16(dtable);
-  const bool vec = n_levels % 2 == 0 && aligned16(dout);
-  size_t smem = staged_bytes(n_levels);
+  const bool paired = aligned16(table);
+  const bool vec = n_levels % 2 == 0 && l0 % 2 == 0 && lg % 2 == 0 && aligned16(dout);
+  const bool f = first != 0, z = last != 0;
+  size_t smem = staged_bytes(lg);
   if (dpos == nullptr) {
-    return bf16 ? launch(hash_bwd_kernel<true, false>, n, smem, s, pos, t, g, n, lv, paired, vec,
-                         dt, dpos)
-                : launch(hash_bwd_kernel<false, false>, n, smem, s, pos, t, g, n, lv, paired,
-                         vec, dt, dpos);
+    return bf16 ? launch(hash_bwd_kernel<true, false>, n, smem, s, pos, t, g, n, lv, l0, lg, f, z,
+                         paired, vec, scale, dt, mag, dpos)
+                : launch(hash_bwd_kernel<false, false>, n, smem, s, pos, t, g, n, lv, l0, lg, f,
+                         z, paired, vec, scale, dt, mag, dpos);
   }
-  smem += static_cast<size_t>(n_levels) * kPoints * 3 * sizeof(float);
-  return bf16 ? launch(hash_bwd_kernel<true, true>, n, smem, s, pos, t, g, n, lv, paired, vec,
-                       dt, dpos)
-              : launch(hash_bwd_kernel<false, true>, n, smem, s, pos, t, g, n, lv, paired, vec,
-                       dt, dpos);
+  smem += static_cast<size_t>(lg) * kPoints * 3 * sizeof(float);
+  return bf16 ? launch(hash_bwd_kernel<true, true>, n, smem, s, pos, t, g, n, lv, l0, lg, f, z,
+                       paired, vec, scale, dt, mag, dpos)
+              : launch(hash_bwd_kernel<false, true>, n, smem, s, pos, t, g, n, lv, l0, lg, f, z,
+                       paired, vec, scale, dt, mag, dpos);
 }

@@ -45,6 +45,7 @@ from loner_tpu_torch.models.proposal import (
 from loner_tpu_torch.models.rendering import (
     OccGridRaySampler, ProposalRaySampler, UniformRaySampler,
 )
+from loner_tpu_torch.ops import fixed_point
 
 ENCODE_DTYPES = {"vjp_bf16": torch.bfloat16, "vjp_f32": torch.float32, "xla": torch.float32}
 
@@ -826,11 +827,13 @@ class Optimizer:
 
     def _run_window(self, full: WindowBuffers, effective: List[PhaseSettings],
                     twists: np.ndarray, masks: List[np.ndarray],
-                    images: Optional[List[Optional[np.ndarray]]], extras_log=None):
+                    images: Optional[List[Optional[np.ndarray]]], extras_log=None,
+                    check_overflow: bool = True):
         """The phases of one window, from its buffers, twists, pose masks and
         camera images (None: no camera phase): every rank of a mesh runs this
         on the same arguments. Returns the twists and the per-phase loss,
-        depth_eps and camera-loss records, on the device."""
+        depth_eps and camera-loss records, on the device. ``check_overflow``
+        False: the phases leave the fixed-point overflow flag to the caller."""
         from loner_tpu_torch.runtime.profiling import optimizer_trace
 
         w = full.dirs.shape[0]
@@ -859,6 +862,7 @@ class Optimizer:
                     self._world_shift, self.state.global_step, self._generator,
                     num_iterations=eff.num_iterations,
                     camera=camera if self._uses_camera(eff) else None, extras_log=extras_log,
+                    check_overflow=check_overflow,
                 )
                 self.state.global_step += eff.num_iterations
                 all_losses.append(losses)
@@ -934,10 +938,18 @@ class Optimizer:
                 max_js_score=self._cfg.loss.max_js_score, store_ray=self._store_ray,
                 draw_samples=self._draw_samples, draw_rays_eps=self._draw_rays_eps)
         twists, all_losses, all_eps, cam_losses = self._run_window(
-            full, effective, twists, masks, images, extras_log)
+            full, effective, twists, masks, images, extras_log, check_overflow=False)
 
-        # One copy to the host for the poses and the phase's loss logs.
-        host = torch.cat([twists.reshape(-1)] + all_losses + all_eps + cam_losses).cpu().numpy()
+        # One copy to the host for the poses, the phase's loss logs and the
+        # fixed-point sums' overflow flag (last), which a sync of its own at each
+        # phase's end would make wait for the tracker's work queued meanwhile.
+        overflow = fixed_point.flag(self._device)
+        host = torch.cat([twists.reshape(-1)] + all_losses + all_eps + cam_losses
+                         + [overflow.to(twists.dtype).view(1)]).cpu().numpy()
+        if host[-1]:
+            overflow.zero_()
+            raise OverflowError(fixed_point.OVERFLOW)
+        host = host[:-1]
         twists_np = host[: w * 6].reshape(w, 6)
         n_log = sum(int(x.numel()) for x in all_losses)
         self.last_losses = host[w * 6 : w * 6 + n_log]

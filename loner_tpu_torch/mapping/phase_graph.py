@@ -59,7 +59,9 @@ from loner_tpu_torch.common.cuda_graphs import CountedGraph
 from loner_tpu_torch.mapping import optimizer as _opt
 from loner_tpu_torch.mapping.rays import CameraWindowBuffers, WindowBuffers
 from loner_tpu_torch.models.losses import get_logits_grad
-from loner_tpu_torch.models.occupancy_grid import occ_grid_grad
+from loner_tpu_torch.models.occupancy_grid import grid_sum, scatter_occ_grad
+from loner_tpu_torch.ops import fixed_point
+from loner_tpu_torch.ops.fixed_point import HASH_BITS, FixedPointSum
 
 HISTORY = 256  # per-iteration records kept on the device between two reads
 WARMUP_ITERS = 2  # eager iterations of each variant before its capture
@@ -110,12 +112,18 @@ class PhaseProgram:
     and ``camera``: camera geometry exists, and the static camera buffers
     (shared like ``window``).
 
+    The hash tables' gradients and the OGM grid's are fixed-point sums
+    (``ops/fixed_point.py``) in one int64 buffer, converted to f32 after the
+    backward (and the grid's scatter); a phase reads the overflow flag at its end.
+
     ``mesh``: a running mesh (``parallel/mesh.py::Mesh``): the program computes
     this rank's part of each iteration (``WindowShard``) and all-reduces the
-    window's counts and, in one flat buffer, the gradients and the loss record
-    before the gradient masks and the Adam step. It takes the whole window's
-    buffers and shards them, unless ``window`` is given (then already this
-    rank's shard). Every rank must run the same programs in the same order."""
+    window's counts, the int64 buffer (the tables' and, in an OGM step, the grid's
+    sums: the same bits as one device's) and, in one flat f32 buffer, the other
+    gradients and the loss record, before the gradient masks and the Adam step.
+    It takes the whole window's buffers and shards them, unless ``window`` is
+    given (then already this rank's shard). Every rank must run the same programs
+    in the same order."""
 
     def __init__(self, cfg, field_cfg, phase, window_size: int, device: torch.device,
                  graphs: bool, extras_mode: str = "none",
@@ -148,6 +156,10 @@ class PhaseProgram:
         self._shard = None
         if mesh is not None:
             from loner_tpu_torch.parallel.mesh import WindowShard
+
+            if mesh.spec.size > fixed_point.MAX_PARTS:
+                raise ValueError(f"a mesh of {mesh.spec.size} ranks: the int64 gradient sums "
+                                 f"take at most {fixed_point.MAX_PARTS}")
 
             self._shard = WindowShard(mesh, window_size, cfg.n_lidar_samples,
                                       _opt.sky_rays_per_slot(cfg),
@@ -224,6 +236,24 @@ class PhaseProgram:
         self.gstep = torch.zeros((), dtype=torch.float32, device=dev)  # global step
         self.slot = torch.zeros((), dtype=torch.int64, device=dev)
         self.history = torch.zeros((3, max(HISTORY, self.k)), dtype=torch.float32, device=dev)
+        # The fixed-point sums: the trained hash tables', then the OGM grid's, as
+        # views of one int64 buffer; an iteration without the OGM step all-reduces
+        # the tables' prefix.
+        self._tables = [t for t in (self.sigma.get("table"), self.intensity.get("table"))
+                        if t is not None]
+        sizes = [t.numel() for t in self._tables] + ([self.occ.numel()] if self._use_occ else [])
+        self.fixed = torch.zeros((sum(sizes),), dtype=torch.int64, device=dev)
+        views = self.fixed.split(sizes) if sizes else []
+        self.table_sums = [FixedPointSum(t.shape, HASH_BITS, dev, out=v)
+                           for t, v in zip(self._tables, views)]
+        self.grid_sum = grid_sum(self.occ, out=views[-1]) if self._use_occ else None
+        # The loss reads each trained table with its sum beside it: the encode's
+        # backward adds the table's gradient there.
+        sums = iter(self.table_sums)
+        self._loss_sigma, self._loss_intensity = (
+            {**head, "table_sum": next(sums)} if "table" in head else head
+            for head in (self.sigma, self.intensity))
+        self._n_table_fixed = sum(t.numel() for t in self._tables)
         self.draws = None  # the draw graph's static tensors, made at capture
         self._built = True
 
@@ -280,18 +310,24 @@ class PhaseProgram:
         cfg = self.cfg
         for p in self.params:
             p.grad = None
+        self.fixed.zero_()
+        sums = self.table_sums + ([self.grid_sum] if occ_step else [])
+        for acc in sums:
+            acc.mag.zero_()
         # Frozen poses build the rays from detached twists, so nothing below
         # the rays (the hash encode's dpos among it) is differentiated for them.
-        # A phase with a frozen intensity head reads none.
+        # A phase with a frozen intensity head reads none. The tables' gradients
+        # go to their fixed-point sums.
         total, aux = _opt.iteration_loss(
-            cfg, self.field_cfg, self.sigma, self.occ,
-            self.tw if self._optimize_poses else self.tw.detach(), self.intensity, self._window,
-            self.scale, self.shift, d, self.it, self.gstep,
+            cfg, self.field_cfg, self._loss_sigma, self.occ,
+            self.tw if self._optimize_poses else self.tw.detach(), self._loss_intensity,
+            self._window, self.scale, self.shift, d, self.it, self.gstep,
             camera=self._camera if self.use_camera else None, shard=self._shard)
         total.backward()
         # Freezing is a gradient mask: every parameter gets a gradient (zero
         # where frozen), so Adam's moments move as the JAX package's do.
-        for p in self.params:
+        floats = [p for p in self.params if not any(p is t for t in self._tables)]
+        for p in floats:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         # The mapping loss is recorded, not the total with the proposal and
@@ -301,19 +337,24 @@ class PhaseProgram:
                               cam.detach() if cam is not None else torch.zeros_like(aux["loss"])])
         # The OGM step's gradient, at the forward's sample points (the JAX
         # package steps the grid after Adam, from the same values).
-        grid_grad = None
         if occ_step:
             logits_grad = get_logits_grad(aux["z_m"].detach(), aux["depths_gt_m"][:, None].detach())
-            grid_grad = occ_grid_grad(self.occ, aux["points"], logits_grad * aux["valid"][:, None])
+            scatter_occ_grad(self.occ, aux["points"], logits_grad * aux["valid"][:, None],
+                             self.grid_sum)
         if self._shard is not None:
-            # The window's gradients, the grid's in an OGM step, and the record:
-            # one all-reduce of this rank's shares.
-            grads = [p.grad for p in self.params] + ([grid_grad] if occ_step else [])
-            flat = torch.cat([g.reshape(-1) for g in grads] + [record])
+            # This rank's shares: the float gradients and the record in one f32
+            # all-reduce, the fixed-point sums in one int64 all-reduce.
+            flat = torch.cat([g.grad.reshape(-1) for g in floats] + [record])
             self._shard.mesh.all_reduce_(flat)
-            for g, v in zip(grads, flat.split([g.numel() for g in grads] + [3])):
-                g.copy_(v.view_as(g))
+            for g, v in zip(floats, flat.split([g.numel() for g in floats] + [3])):
+                g.grad.copy_(v.view_as(g.grad))
             record = flat[-3:]
+            if sums:
+                self._shard.mesh.all_reduce_(
+                    self.fixed if occ_step else self.fixed[:self._n_table_fixed])
+        for t, acc in zip(self._tables, self.table_sums):
+            t.grad = acc.to_float()
+        grid_grad = self.grid_sum.to_float() if occ_step else None
         self.tw.grad.mul_(self.mask[:, None])
         if not self._optimize_sigma:
             for p in self.sigma_params:
@@ -405,7 +446,12 @@ class PhaseProgram:
                  world_shift: torch.Tensor, global_step0: int,
                  generator: Optional[torch.Generator], num_iterations: Optional[int] = None,
                  draws: Optional[Sequence] = None,
-                 camera: Optional[CameraWindowBuffers] = None, extras_log=None):
+                 camera: Optional[CameraWindowBuffers] = None, extras_log=None,
+                 check_overflow: bool = True):
+        """One phase; at its end the fixed-point sums' overflow flag is read (a
+        host synchronisation) unless ``check_overflow`` is False: then the caller
+        reads ``fixed_point.flag`` itself, as the ``Optimizer`` does in its one
+        copy of a keyframe's results to the host."""
         n_iters = self._phase_iterations if num_iterations is None else num_iterations
         if draws is None and generator is None:
             raise ValueError("run_phase needs a generator or the draws")
@@ -488,6 +534,8 @@ class PhaseProgram:
             mesh.wait()  # rank 0 watches its followers while the phase's collectives run
         records.append(self.history[:, :filled])
         log = torch.cat(records, dim=1)
+        if check_overflow and (self._tables or self._use_occ):
+            fixed_point.check(self.device)  # a sum past its limit raises here
 
         new_sigma = {"mlp": {k: v.detach().clone() for k, v in self.sigma["mlp"].items()}}
         if "table" in self.sigma:

@@ -258,13 +258,63 @@ def init_field_params(generator: torch.Generator, cfg: FieldConfig,
     return {"sigma": sigma, "intensity": intensity}
 
 
+def in_row_blocks(fn, x: torch.Tensor, rows: int, width: int, pad: float = 0.0) -> torch.Tensor:
+    """``fn(block, out)`` on blocks of ``rows`` rows of ``x``, each writing the
+    block's rows of an (N, ``width``) result into ``out``; the last block padded
+    with ``pad``. Every call takes one shape, so a CUDA kernel that the library
+    picks by the row count, and with it each row's bits, do not depend on N."""
+    n = x.shape[0]
+    out = x.new_empty((n, width))
+    full = n - n % rows
+    for i in range(0, full, rows):
+        fn(x[i:i + rows], out[i:i + rows])
+    if full < n:
+        tail = x.new_full((rows,) + tuple(x.shape[1:]), pad)
+        tail[:n - full] = x[full:]
+        out[full:] = fn(tail, x.new_empty((rows, width)))[:n - full]
+    return out
+
+
+# Rows a call of the f32 MLP's input-gradient products (``mlp_apply``'s backward).
+# On a CUDA tensor cuBLAS picks the kernel of ``g @ w.T`` by the row count, and with
+# it the order of each row's sum: a point's cotangent at the hash features had other
+# bits in a mesh rank's 1,048,576 points than in the window's 2,097,152. The blocks
+# are one shape a call, the last padded with zeros.
+MLP_GRAD_ROWS = 65536
+
+
+class _RowBlockedProduct(torch.autograd.Function):
+    """``x @ w``, with its input gradient ``g @ w.T`` in blocks of MLP_GRAD_ROWS
+    rows and its weight gradient ``x.T @ g`` as one product."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            wt = w.t()
+            gx = in_row_blocks(lambda b, o: torch.matmul(b, wt, out=o), g, MLP_GRAD_ROWS,
+                               w.shape[0])
+        if ctx.needs_input_grad[1]:
+            gw = x.t() @ g
+        return gx, gw
+
+
 def mlp_apply(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """ReLU MLP in f32, biases where the params have them (the JAX package's
-    ``_apply_mlp`` at ``compute_dtype`` float32)."""
+    ``_apply_mlp`` at ``compute_dtype`` float32). A point's gradient has the same
+    bits whatever else its batch holds: each input-gradient product that sums
+    terms (more than one output column) runs in blocks of MLP_GRAD_ROWS rows."""
     n = sum(1 for k in params if k.startswith("w"))
     h = x
     for i in range(n):
-        h = h @ params[f"w{i}"]
+        w = params[f"w{i}"]
+        h = _RowBlockedProduct.apply(h, w) if w.shape[1] > 1 else h @ w
         if f"b{i}" in params:
             h = h + params[f"b{i}"]
         if i < n - 1:
@@ -273,13 +323,16 @@ def mlp_apply(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
 
 
 def query_sigma(params: Dict[str, Any], pos: torch.Tensor, cfg: FieldConfig) -> torch.Tensor:
-    """Density head. pos: (N, 3) in [-1, 1]. Returns (N, 1) raw sigma (f32)."""
+    """Density head. pos: (N, 3) in [-1, 1]. Returns (N, 1) raw sigma (f32). A
+    hash head's ``table_sum`` beside its ``table`` (a ``FixedPointSum``, here and
+    in ``query_intensity``) takes the table's gradient in fixed point."""
     if cfg.sigma_kernel not in ("fused", "plain"):
         raise ValueError(f"sigma_kernel must be 'fused' or 'plain', got {cfg.sigma_kernel!r}")
     pos01 = (pos + 1.0) * 0.5
     if cfg.encoding_sigma != "fourier":
         feats = hash_encode(params["sigma"]["table"], pos01, cfg.pos_encoding_sigma,
-                            cfg.hash_encode_dtype, plain=cfg.sigma_kernel == "plain")
+                            cfg.hash_encode_dtype, plain=cfg.sigma_kernel == "plain",
+                            sink=params["sigma"].get("table_sum"))
         if cfg.compute_dtype == torch.float32:  # both of the JAX package's MLP backwards
             return mlp_apply(params["sigma"]["mlp"], feats)
         return field_mlp(params["sigma"]["mlp"], feats, cfg)
@@ -461,7 +514,8 @@ def query_intensity(params: Dict[str, Any], pos: torch.Tensor, dirs: torch.Tenso
     else:
         dtype = cfg.hash_encode_dtype if cfg.encoding_sigma != "fourier" else torch.float32
         h_x = hash_encode(params["intensity"]["table"], pos01, cfg.pos_encoding_intensity,
-                          dtype, plain=cfg.sigma_kernel == "plain")
+                          dtype, plain=cfg.sigma_kernel == "plain",
+                          sink=params["intensity"].get("table_sum"))
     if cfg.enable_view_dependence:
         h_d = sh_encode((dirs + 1.0) * 0.5, cfg.sh_degree)
         h_x = torch.cat([h_x, h_d], dim=-1)

@@ -77,8 +77,9 @@ def init_hash_table(generator: torch.Generator, cfg: HashEncodingConfig,
 # Corner indices (N, L, 8) int64 into the concatenated table and trilinear weights
 # (N, L, 8) f32, corner 4 ix + 2 iy + iz: the plain version's geometry.
 hash_corner_indices = hash_grid.corner_indices
-# (table, pos01, cfg, dtype=float32, plain=False) -> (N, L F) f32 features:
-# gathered and trilinearly summed in ``dtype`` (float32, the JAX package's
-# ``hash_encode``; bfloat16, its ``hash_encode_vjp`` in bf16); f32 table gradient,
+# (table, pos01, cfg, dtype=float32, plain=False, sink=None) -> (N, L F) f32
+# features: gathered and trilinearly summed in ``dtype`` (float32, the JAX
+# package's ``hash_encode``; bfloat16, its ``hash_encode_vjp`` in bf16); the table
+# gradient a fixed-point sum converted to f32 (or added to ``sink``), the
 # closed-form position gradient.
 hash_encode = hash_grid.hash_encode

@@ -12,7 +12,7 @@ from typing import Any, Dict
 
 import torch
 
-from loner_tpu_torch.models.field import FourierConfig, fourier_bmat
+from loner_tpu_torch.models.field import FourierConfig, fourier_bmat, in_row_blocks
 
 
 @dataclass(frozen=True)
@@ -69,16 +69,7 @@ class _OneColumnProduct(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, w, rows):
         ctx.save_for_backward(h, w)
-        n = h.shape[0]
-        out = h.new_empty((n, 1))
-        full = n - n % rows
-        for i in range(0, full, rows):
-            torch.matmul(h[i:i + rows], w, out=out[i:i + rows])
-        if full < n:
-            tail = h.new_zeros((rows, h.shape[1]))
-            tail[:n - full] = h[full:]
-            out[full:] = (tail @ w)[:n - full]
-        return out
+        return in_row_blocks(lambda b, o: torch.matmul(b, w, out=o), h, rows, 1)
 
     @staticmethod
     def backward(ctx, g):

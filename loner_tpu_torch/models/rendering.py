@@ -15,6 +15,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F_nn
 
+from loner_tpu_torch.models.field import in_row_blocks
+
 
 def pack_rays(origins, dirs, near, far, viewdirs=None) -> torch.Tensor:
     """Assemble (N, 11) rays. viewdirs default to -dirs (lidar convention)."""
@@ -85,40 +87,37 @@ def stratified_z_vals(near: torch.Tensor, far: torch.Tensor, n_samples: int,
     return z
 
 
-# Rows (rays) a call of the transmittance's cumprod. On a CUDA tensor PyTorch's
+# Rows (rays) a call of the transmittance's scans. On a CUDA tensor PyTorch's
 # scan along the last axis picks how many threads share a row by the row count,
-# and with it the order of each row's products: a ray's weights would round
+# and with it the order of each row's products or sums: a ray's weights would round
 # differently in a window's 1024 camera rays and in a mesh rank's 256 (with 513
-# samples a row, 16 threads above 512 rows, 32 at 257-512). The forward runs on
-# blocks of this many rows, the last padded with ones, one shape a call.
+# samples a row, 16 threads above 512 rows, 32 at 257-512). The forward's cumprod
+# and the backward's reversed cumsum run on blocks of this many rows, the last
+# padded (ones, zeros), one shape a call.
 SCAN_ROWS = 1024
 
 
 class _PositiveCumprod(torch.autograd.Function):
     """``torch.cumprod`` along the last axis of strictly positive values (N, S),
     SCAN_ROWS rows a call, with the gradient PyTorch's own backward takes when no
-    value is zero, ``reversed_cumsum(out * grad) / x``. PyTorch's backward first
-    checks the input for zeros with ``.item()``: a host synchronisation, which a
-    CUDA graph cannot capture and which stalls an eager loop once an iteration."""
+    value is zero, ``reversed_cumsum(out * grad) / x``, its cumsum SCAN_ROWS rows a
+    call too. PyTorch's backward first checks the input for zeros with
+    ``.item()``: a host synchronisation, which a CUDA graph cannot capture and
+    which stalls an eager loop once an iteration."""
 
     @staticmethod
     def forward(ctx, x):
-        n = x.shape[0]
-        out = torch.empty_like(x)
-        full = n - n % SCAN_ROWS
-        for i in range(0, full, SCAN_ROWS):
-            torch.cumprod(x[i:i + SCAN_ROWS], dim=-1, out=out[i:i + SCAN_ROWS])
-        if full < n:
-            tail = x.new_ones((SCAN_ROWS,) + tuple(x.shape[1:]))
-            tail[:n - full] = x[full:]
-            out[full:] = torch.cumprod(tail, dim=-1)[:n - full]
+        out = in_row_blocks(lambda b, o: torch.cumprod(b, dim=-1, out=o), x, SCAN_ROWS,
+                            x.shape[1], 1.0)
         ctx.save_for_backward(x, out)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         x, out = ctx.saved_tensors
-        return (out * grad).flip(-1).cumsum(-1).flip(-1).div(x)
+        rev = in_row_blocks(lambda b, o: torch.cumsum(b, dim=-1, out=o), (out * grad).flip(-1),
+                            SCAN_ROWS, x.shape[1])
+        return rev.flip(-1).div(x)
 
 
 def raw2outputs(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,

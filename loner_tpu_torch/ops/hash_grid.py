@@ -9,12 +9,17 @@ at the same places:
 
   forward   out[:, l] = sum_k w_k table[idx_k]                      (f32)
             out[:, l] = bf16(sum_k bf16(bf16(table[idx_k]) bf16(w_k)))  (bf16, f32 sum)
-  backward  dtable[idx_k] += w_k g_l (f32, ``index_add_``); dpos by the closed form
+  backward  dtable[idx_k] += w_k g_l in fixed point (``ops/fixed_point.py``: each
+            f32 product w_k g_l rounded to int64 at 2^HASH_BITS, summed in int64 by
+            ``index_add_``, converted to f32 once); dpos by the closed form
             through the trilinear weights, with half weight at an exact 0 or 1.
 
 Sums run in a fixed order (the 8 corners, the 2 x 2 terms of a frac gradient,
 the levels), the kernel's order, so the plain version is the kernel's reference
-to the bit on the forward and dpos. Torch has no full uint32 arithmetic: the
+to the bit on the forward and dpos; the table gradient's integer sums have no
+order, so it is the kernel's to the bit too, and the same under any permutation
+of the points and when the points are split into parts whose int64 sums are
+added (a mesh rank's share). Torch has no full uint32 arithmetic: the
 hash is taken in int64, and only its low ``log2_hashmap_size`` bits survive the
 mask, so the uint32 wrap of the prime products does not matter.
 
@@ -24,12 +29,18 @@ kernel then neither re-gathers the corners nor forms their dot products.
 
 On the card neither kernel is bound by HBM bytes or operations: the 29.7 MB
 table of the reference's grid stays in L2, and what counts is L2 gathers and,
-in the backward, float atomics that serialise where many lanes add to one entry,
+in the backward, int64 atomics that serialise where many lanes add to one entry,
 as the sorted samples of a ray do on the coarse levels. The kernels take blocks
 of consecutive points x all levels, a warp = 32 points of one level; the
-backward sums its atomics' terms over each run of lanes that share entries and
-adds a pair of x-neighbour entries with one 16-byte atomic where it can
-(``csrc/hash_grid.cu`` has the design and the levers tried; PERF.md the times).
+backward sums its atomics' integer terms over each run of lanes that share
+entries, adds in lane pairs (one entry's two features an instruction) and is
+launched in groups of levels whose int64 sums fit the L2 (``BWD_GROUP_BYTES``;
+``csrc/hash_grid.cu`` has the design and the levers tried; PERF.md the times).
+
+``sink``: a caller that sums the table gradient of several calls, or of several
+mesh ranks, before converting it (``mapping/phase_graph.py``) passes a
+``FixedPointSum`` to ``hash_encode``; the backward then adds into its int64 sums
+and gives the table no f32 gradient.
 """
 from __future__ import annotations
 
@@ -39,15 +50,22 @@ from typing import Optional, Tuple
 
 import torch
 
+from loner_tpu_torch.ops.fixed_point import HASH_BITS, FixedPointSum
+
 PRIMES = (1, 2654435761, 805459861)
 MAX_LEVELS = 32  # csrc/hash_grid.cu::kMaxLevels
 INDEX_LIMIT = 2 ** 31  # points x levels x 8 corners, and table entries x features
+# The backward launches its levels in groups whose slice of the int64 sums is at most
+# this many bytes (whole pairs of levels; a level larger than the budget alone), so
+# that a group's atomics stay in the card's L2 (PERF.md section 6 has the sweep).
+BWD_GROUP_BYTES = 24 << 20
 
 
 class LaunchCounts:
     """Kernel launches made by the wrappers of this module. ``bwd_launches``
-    counts every backward launch; ``bwd_no_dpos_launches`` those of them that
-    skipped the position gradient."""
+    counts every backward launch, one a level group (``level_groups``), so a
+    call at the reference's grid makes several; ``bwd_no_dpos_launches`` those of
+    them that skipped the position gradient."""
 
     def __init__(self) -> None:
         self.reset()
@@ -126,16 +144,24 @@ def hash_encode_fwd_plain(table: torch.Tensor, pos01: torch.Tensor, cfg,
     return out.reshape(n, cfg.output_dim)
 
 
+def table_sum(table: torch.Tensor) -> FixedPointSum:
+    """A zeroed fixed-point sum for ``table``'s gradient."""
+    return FixedPointSum(table.shape, HASH_BITS, table.device)
+
+
 def hash_encode_bwd_plain(table: torch.Tensor, pos01: torch.Tensor, dout: torch.Tensor, cfg,
-                          dtype: torch.dtype, need_dpos: bool = True
-                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                          dtype: torch.dtype, need_dpos: bool = True,
+                          sink: Optional[FixedPointSum] = None
+                          ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Plain version of the backward kernel: (dtable (T, F) f32, dpos (N, 3) f32),
-    dpos None when ``need_dpos`` is False (then its half is not computed)."""
+    dpos None when ``need_dpos`` is False (then its half is not computed). With
+    ``sink`` the table gradient is added to its int64 sums and dtable is None."""
     n, n_levels, f_dim = pos01.shape[0], cfg.n_levels, cfg.n_features_per_level
     idx, w = corner_indices(pos01, cfg)
     g = dout.reshape(n, n_levels, 1, f_dim).to(torch.float32)
-    dtable = torch.zeros(table.shape, dtype=torch.float32, device=table.device)
-    dtable.index_add_(0, idx.reshape(-1), (w[..., None] * g).reshape(-1, f_dim))
+    acc = table_sum(table) if sink is None else sink
+    acc.add_(idx.reshape(-1), (w[..., None] * g).reshape(-1, f_dim))
+    dtable = acc.to_float() if sink is None else None
     if not need_dpos:
         return dtable, None
 
@@ -177,16 +203,21 @@ def hash_encode_bwd_plain(table: torch.Tensor, pos01: torch.Tensor, dout: torch.
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    """The built kernels, with their C signatures declared (pointers and the
-    stream as void*, so ctypes does not cut them to 32 bits)."""
+    """The built kernels."""
     from loner_tpu_torch.ops.build import load_library
 
-    lib = load_library("hash_grid")
+    return bind(load_library("hash_grid"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of csrc/hash_grid.cu) with its C signatures declared
+    (pointers and the stream as void*, so ctypes does not cut them to 32 bits)."""
     p, i, ll, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
     up = ctypes.POINTER(ctypes.c_uint)
     lib.lt_hash_fwd.argtypes = [p, p, ll, i, u, up, up, up, i, p, p]
     lib.lt_hash_fwd.restype = ctypes.c_int
-    lib.lt_hash_bwd.argtypes = [p, p, p, ll, i, u, up, up, up, i, p, p, p]
+    lib.lt_hash_bwd.argtypes = [p, p, p, ll, i, u, up, up, up, i, i, i, i, i, ctypes.c_float,
+                                p, p, p, p]
     lib.lt_hash_bwd.restype = ctypes.c_int
     return lib
 
@@ -243,6 +274,22 @@ def _check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} failed with CUDA error {rc}")
 
 
+def level_groups(cfg, budget: int) -> list:
+    """(first level, levels) of each launch of the backward: consecutive levels,
+    in pairs, while the group's int64 sums (16 bytes an entry) fit ``budget``."""
+    sizes = [16 * int(t) for t in cfg.level_table_sizes()]
+    step = 2 if cfg.n_levels % 2 == 0 else 1
+    groups, start, used = [], 0, 0
+    for l0 in range(0, cfg.n_levels, step):
+        b = sum(sizes[l0:l0 + step])
+        if l0 > start and used + b > budget:
+            groups.append((start, l0 - start))
+            start, used = l0, 0
+        used += b
+    groups.append((start, cfg.n_levels - start))
+    return groups
+
+
 def hash_encode_fwd_cuda(table: torch.Tensor, pos01: torch.Tensor, cfg,
                          dtype: torch.dtype) -> torch.Tensor:
     n = _check_operands(table, pos01, cfg, dtype)
@@ -259,29 +306,39 @@ def hash_encode_fwd_cuda(table: torch.Tensor, pos01: torch.Tensor, cfg,
 
 
 def hash_encode_bwd_cuda(table: torch.Tensor, pos01: torch.Tensor, dout: torch.Tensor, cfg,
-                         dtype: torch.dtype, need_dpos: bool = True
-                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                         dtype: torch.dtype, need_dpos: bool = True,
+                         sink: Optional[FixedPointSum] = None,
+                         group_bytes: int = BWD_GROUP_BYTES
+                         ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """(dtable, dpos); dpos None, and neither re-gathered nor formed on the card,
-    when ``need_dpos`` is False."""
+    when ``need_dpos`` is False; dtable None with ``sink`` (the kernel adds into
+    its int64 sums). One launch a level group of at most ``group_bytes`` of sums."""
     n = _check_operands(table, pos01, cfg, dtype)
     if dout.shape != (n, cfg.output_dim) or dout.dtype != torch.float32 or (
             dout.device != pos01.device or not dout.is_contiguous() or dout.data_ptr() % 8):
         raise ValueError(f"dout must be ({n}, {cfg.output_dim}) float32, contiguous, on "
                          f"{pos01.device}; got {tuple(dout.shape)} {dout.dtype}")
-    dtable = torch.zeros(table.shape, dtype=torch.float32, device=table.device)
+    acc = table_sum(table) if sink is None else sink
+    if acc.acc.shape != table.shape or acc.acc.device != table.device or (
+            acc.bits != HASH_BITS or not acc.acc.is_contiguous()):
+        raise ValueError(f"the table gradient's sum must be a contiguous {tuple(table.shape)} "
+                         f"int64 sum at 2^{HASH_BITS} on {table.device}")
     dpos = torch.empty((n, 3), dtype=torch.float32, device=pos01.device) if need_dpos else None
-    if n == 0:
-        return dtable, dpos
-    with torch.cuda.device(pos01.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _check(_lib().lt_hash_bwd(_ptr(pos01), _ptr(table), _ptr(dout), n, *_levels(cfg),
-                                  int(dtype == torch.bfloat16), _ptr(dtable),
-                                  _ptr(dpos) if need_dpos else ctypes.c_void_p(None),
-                                  ctypes.c_void_p(stream)), "lt_hash_bwd")
-    counts.bwd_launches += 1
-    if not need_dpos:
-        counts.bwd_no_dpos_launches += 1
-    return dtable, dpos
+    if n > 0:
+        groups = level_groups(cfg, group_bytes)
+        with torch.cuda.device(pos01.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            for i, (l0, lg) in enumerate(groups):
+                _check(_lib().lt_hash_bwd(_ptr(pos01), _ptr(table), _ptr(dout), n, *_levels(cfg),
+                                          int(dtype == torch.bfloat16), l0, lg, int(i == 0),
+                                          int(i == len(groups) - 1), float(2.0 ** acc.bits),
+                                          _ptr(acc.acc), _ptr(acc.mag),
+                                          _ptr(dpos) if need_dpos else ctypes.c_void_p(None),
+                                          ctypes.c_void_p(stream)), "lt_hash_bwd")
+                counts.bwd_launches += 1
+                if not need_dpos:
+                    counts.bwd_no_dpos_launches += 1
+    return (acc.to_float() if sink is None else None), dpos
 
 
 # ---------------------------------------------------------------------------
@@ -304,27 +361,32 @@ class HashEncodeFunction(torch.autograd.Function):
     two passes)."""
 
     @staticmethod
-    def forward(ctx, table, pos01, cfg, dtype, plain):
+    def forward(ctx, table, pos01, cfg, dtype, plain, sink):
         fwd, _ = _select(pos01, plain)
         ctx.save_for_backward(table, pos01)
-        ctx.meta = (cfg, dtype, plain)
+        ctx.meta = (cfg, dtype, plain, sink)
         return fwd(table, pos01, cfg, dtype)
 
     @staticmethod
     def backward(ctx, dout):
-        cfg, dtype, plain = ctx.meta
+        cfg, dtype, plain, sink = ctx.meta
         table, pos01 = ctx.saved_tensors
         _, bwd = _select(pos01, plain)
-        # Points that need no gradient (frozen poses) skip the dpos half.
+        # Points that need no gradient (frozen poses) skip the dpos half; a table
+        # that needs none adds nothing to the sink.
         dtable, dpos = bwd(table, pos01, dout.to(torch.float32).contiguous(), cfg, dtype,
-                           need_dpos=ctx.needs_input_grad[1])
-        return dtable, dpos, None, None, None
+                           need_dpos=ctx.needs_input_grad[1],
+                           sink=sink if ctx.needs_input_grad[0] else None)
+        return dtable, dpos, None, None, None, None
 
 
 def hash_encode(table: torch.Tensor, pos01: torch.Tensor, cfg,
-                dtype: torch.dtype = torch.float32, plain: bool = False) -> torch.Tensor:
+                dtype: torch.dtype = torch.float32, plain: bool = False,
+                sink: Optional[FixedPointSum] = None) -> torch.Tensor:
     """Encode (N, 3) points in [0, 1] into (N, L F) f32 features with the
     concatenated (T, F) table; differentiable in both. ``dtype`` is the compute
-    dtype of the gather and the trilinear sum (float32 or bfloat16)."""
-    return HashEncodeFunction.apply(table, pos01, cfg, dtype, plain)
+    dtype of the gather and the trilinear sum (float32 or bfloat16). With
+    ``sink`` (a ``table_sum``) the backward adds the table's gradient to it and
+    gives the table none."""
+    return HashEncodeFunction.apply(table, pos01, cfg, dtype, plain, sink)
 

@@ -11,6 +11,14 @@ ranks' sums differ from one device's by more than the order of summation
   concatenation over B/2 and B/4 batches, the last batch shorter (a ragged
   tail).
 - The proposal MLP's logits at every point count from 2 to 70 against one batch.
+- The backward, per ray: the compositing's cotangent at each sample's sigma, the
+  transmittance's (its reversed cumsum in blocks of ``SCAN_ROWS`` rays, over more
+  than two blocks), and the hash field's (box_room_tiny's grid, the f32 MLP)
+  cotangent at the encoder's output and dpos, each from seeded upstream
+  cotangents, equal to the bit in 2 and 4 batches.
+- Two gloo ranks, each adding its half of the points' hash-table and OGM-grid
+  gradients into fixed-point sums and all-reducing the int64 sums through
+  ``Mesh.all_reduce_``: the one-rank sums to the bit.
 - Four gloo ranks, ``[4]`` and ``[2, 2]``, each computing its share of a W=8
   window's first iteration (``iteration_loss`` with its ``WindowShard``), with
   LiDAR rays only and with N_SKY sky rays a slot too: the ranks' per-ray JS
@@ -37,7 +45,11 @@ from loner_tpu_torch.mapping import rays as trays
 from loner_tpu_torch.mapping.loss import LossConfig, compute_lidar_loss
 from loner_tpu_torch.models import field as tfield
 from loner_tpu_torch.models.proposal import ProposalConfig, init_proposal_params, proposal_logits
-from loner_tpu_torch.models.rendering import ProposalRaySampler, pack_rays
+from loner_tpu_torch.models import occupancy_grid as tog
+from loner_tpu_torch.models.rendering import (
+    SCAN_ROWS, ProposalRaySampler, _PositiveCumprod, pack_rays, raw2outputs,
+)
+from loner_tpu_torch.ops import hash_grid
 from loner_tpu_torch.parallel import mesh as tmesh
 from test_torch_multidevice import in_processes
 
@@ -204,3 +216,113 @@ def test_window_shares_are_whole_runs():
     for n_sky in (0, N_SKY):
         for n_kf, n_ray in ((4, 1), (2, 2)):
             assert (W // n_kf) * (N_LIDAR + n_sky) // n_ray % RUN == 0
+
+
+# -- the backward ---------------------------------------------------------------------
+def _hash_field():
+    fcfg = tfield.FieldConfig(
+        pos_encoding_sigma=tfield.HashEncodingConfig(n_levels=6, log2_hashmap_size=14,
+                                                     per_level_scale=1.5),
+        sigma_mlp=tfield.MLPConfig(64, 1, 1), compute_dtype=torch.float32)
+    return fcfg, tfield.init_field_params(torch.Generator().manual_seed(7), fcfg, CPU)
+
+
+def _grads(fn, inputs: list, wrt: list, upstream: list) -> dict:
+    """The gradients of sum(out_i * upstream_i) at the inputs named in ``wrt``."""
+    leaves = [t.clone().requires_grad_(i in wrt) for i, t in enumerate(inputs)]
+    outs = fn(*leaves)
+    total = sum((o * u).sum() for o, u in zip(outs, upstream))
+    got = torch.autograd.grad(total, [leaves[i] for i in wrt])
+    return {f"d{i}": g for i, g in zip(wrt, got)}
+
+
+@pytest.mark.parametrize("op", ["compositing", "transmittance", "hash_field"])
+def test_backward_per_ray_does_not_depend_on_the_batch(op):
+    rng = np.random.default_rng(14)
+    if op == "transmittance":
+        n = 2 * SCAN_ROWS + 3 * RUN
+        x = torch.tensor(rng.uniform(0.05, 1.0, (n, S + 1)), dtype=torch.float32)
+        up = torch.tensor(rng.normal(size=(n, S + 1)), dtype=torch.float32)
+        fn = lambda xx, uu: _grads(lambda a: (_PositiveCumprod.apply(a),), [xx], [0], [uu])  # noqa
+        _equal_in_batches(fn, n, x, up)
+        return
+    if op == "compositing":
+        raw = torch.tensor(rng.normal(size=(B, S, 1)), dtype=torch.float32)
+        z = torch.tensor(np.sort(rng.uniform(0.05, 0.85, (B, S)), axis=1), dtype=torch.float32)
+        d = torch.tensor(rng.normal(size=(B, 3)), dtype=torch.float32)
+        noise = torch.tensor(rng.normal(size=(B, S)), dtype=torch.float32)
+        far = torch.full((B, 1), 0.9)
+        ud = torch.tensor(rng.normal(size=B), dtype=torch.float32)
+        uw = torch.tensor(rng.normal(size=(B, S)), dtype=torch.float32)
+
+        def fn(r, zz, dd, nz, ff, u1, u2):
+            return _grads(lambda a: (lambda o: (o["depth"], o["weights"]))(raw2outputs(
+                a, zz, dd, noise=nz, raw_noise_std=1.0, softplus=True, far=ff)), [r], [0],
+                [u1, u2])
+
+        _equal_in_batches(fn, B, raw, z, d, noise, far, ud, uw)
+        return
+    fcfg, params = _hash_field()
+    n = 5 * B  # points: whole RUNs, ragged in 2 and 4 batches
+    pos = torch.tensor(rng.uniform(-1.0, 1.0, (n, 3)), dtype=torch.float32)
+    up = torch.tensor(rng.normal(size=(n, 1)), dtype=torch.float32)
+    cfg = fcfg.pos_encoding_sigma
+
+    def fn(pp, uu):
+        feats = hash_grid.hash_encode(params["sigma"]["table"], (pp + 1.0) * 0.5, cfg)
+        d_features = _grads(lambda f: (tfield.mlp_apply(params["sigma"]["mlp"], f),),
+                            [feats.detach()], [0], [uu])["d0"]
+        dpos = _grads(lambda x: (tfield.query_sigma(params, x, fcfg),), [pp], [0], [uu])["d0"]
+        return {"d_features": d_features, "dpos": dpos}
+
+    _equal_in_batches(fn, n, pos, up)
+
+
+# -- two gloo ranks: the fixed-point sums ----------------------------------------------
+def _fixed_case() -> dict:
+    rng = np.random.default_rng(15)
+    fcfg, params = _hash_field()
+    n = 4000
+    return {"table": params["sigma"]["table"], "cfg": fcfg.pos_encoding_sigma,
+            "pos": torch.tensor(rng.uniform(0.0, 1.0, (n, 3)), dtype=torch.float32),
+            "g": torch.tensor(rng.normal(size=(n, fcfg.pos_encoding_sigma.output_dim)),
+                              dtype=torch.float32),
+            "grid": torch.tensor(rng.normal(size=(10, 10, 10)), dtype=torch.float32),
+            "pts": torch.tensor(rng.uniform(-1.1, 1.1, (n, 3)), dtype=torch.float32),
+            "lg": torch.tensor(rng.normal(size=n) * 1e-2, dtype=torch.float32)}
+
+
+def _fixed_sums(case: dict, rows) -> tuple:
+    table = hash_grid.table_sum(case["table"])
+    hash_grid.hash_encode_bwd_plain(case["table"], case["pos"][rows], case["g"][rows],
+                                    case["cfg"], torch.bfloat16, need_dpos=False, sink=table)
+    grid = tog.grid_sum(case["grid"])
+    tog.scatter_occ_grad(case["grid"], case["pts"][rows], case["lg"][rows], grid)
+    return table, grid
+
+
+def _fixed_rank(rank: int, spec, port: int, case: dict) -> dict:
+    mesh = tmesh.join(spec, rank, port)
+    try:
+        rows = torch.arange(case["pos"].shape[0]).chunk(spec.size)[rank]
+        table, grid = _fixed_sums(case, rows)
+        flat = torch.cat([table.acc.reshape(-1), grid.acc.reshape(-1)])
+        mesh.all_reduce_(flat)
+        return {"flat": flat.numpy(), "table": table.to_float().numpy()}
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("buffer", ["table", "grid"])
+def test_two_ranks_int64_all_reduce_gives_one_ranks_gradient(buffer):
+    case = _fixed_case()
+    ranks = in_processes(2, _fixed_rank, (tmesh.make_mesh(2, CPU), tmesh.free_port(), case))
+    table, grid = _fixed_sums(case, torch.arange(case["pos"].shape[0]))
+    one = {"table": table.acc.reshape(-1).numpy(), "grid": grid.acc.reshape(-1).numpy()}
+    n_table = one["table"].size
+    for r in ranks:
+        got = r["flat"][:n_table] if buffer == "table" else r["flat"][n_table:]
+        np.testing.assert_array_equal(got, one[buffer])
+    assert np.abs(one[buffer]).max() > 0
+    # Each rank's own share alone is not the whole: the sum is what made it equal.
+    assert not np.array_equal(ranks[0]["table"].reshape(-1), table.to_float().numpy().reshape(-1))

@@ -222,10 +222,11 @@ def counting_hash_kernels(monkeypatch):
             thash_grid.counts.fwd_launches += 1
             return fwd(*args, **kwargs)
 
-        def bwd_counted(*args, need_dpos=True):
-            thash_grid.counts.bwd_launches += 1
-            thash_grid.counts.bwd_no_dpos_launches += int(not need_dpos)
-            return bwd(*args, need_dpos=need_dpos)
+        def bwd_counted(*args, need_dpos=True, **kwargs):
+            groups = len(thash_grid.level_groups(args[3], thash_grid.BWD_GROUP_BYTES))
+            thash_grid.counts.bwd_launches += groups
+            thash_grid.counts.bwd_no_dpos_launches += groups * int(not need_dpos)
+            return bwd(*args, need_dpos=need_dpos, **kwargs)
 
         return fwd_counted, bwd_counted
 
@@ -260,8 +261,10 @@ def test_steps_per_dispatch_keeps_the_numbers_and_counts_replays(k, graphs, froz
     got = outputs(program(*args, draws=draws))
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    # One forward and one backward a replay; frozen poses take the backward
-    # without dpos.
+    # One forward and one backward call a replay (a launch a level group: one at
+    # this grid); frozen poses take the backward without dpos.
+    groups = len(thash_grid.level_groups(fcfg.pos_encoding_sigma, thash_grid.BWD_GROUP_BYTES))
+    assert groups == 1
     assert (counting_hash_kernels.fwd_launches, counting_hash_kernels.bwd_launches,
             counting_hash_kernels.bwd_no_dpos_launches) == (ITERS, ITERS, ITERS if frozen else 0)
     # A second phase on the same program starts from its inputs and a fresh Adam.

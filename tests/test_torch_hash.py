@@ -16,6 +16,16 @@ Tolerances, each with its reason:
   cells per unit);
 - occupancy interpolation and update: 1e-5 (``grid_sample`` unnormalises the
   coordinates in another op order);
+- the fixed-point table and grid gradients (``ops/fixed_point.py``): equal to
+  the bit to themselves under a seeded permutation of the points and under
+  splits into 2 and 4 parts whose int64 sums are added; against JAX's sorted
+  segment sum (hash) and its vjp's scatter (grid) per entry within ``n_k
+  2^-(S+1)`` (each of the entry's n_k terms rounded to the scale) plus JAX's own
+  f32 summation, ``n_k 2^-24`` times the sum of the terms' magnitudes, plus the
+  conversion's half ulp;
+- two single-threaded SLAM runs of box_room_tiny.yaml (the reference's model,
+  hash sigma field and OGM sampler, cut to 12 scans): trajectories and every
+  checkpoint tensor equal to the bit;
 - OGM samples: 1e-5 of the ray's depth range, on a grid whose logits lie in
   [0.5, 4] along the rays. The sampler's pdf is the clipped probability plus a
   1e-5 floor: where a ray's probabilities sit near that floor, the f32 rounding
@@ -34,7 +44,7 @@ from loner_tpu.models import rendering as jrend
 from loner_tpu_torch.models import hash_encoding as th
 from loner_tpu_torch.models import occupancy_grid as tog
 from loner_tpu_torch.models import rendering as trend
-from loner_tpu_torch.ops import hash_grid
+from loner_tpu_torch.ops import fixed_point, hash_grid
 
 torch.set_num_threads(1)
 
@@ -129,9 +139,9 @@ def test_encode_of_points_without_gradient_skips_dpos(name, dtype, monkeypatch):
     asked = []
     plain_bwd = hash_grid.hash_encode_bwd_plain
 
-    def recording_bwd(*args, need_dpos=True):
+    def recording_bwd(*args, need_dpos=True, **kwargs):
         asked.append(need_dpos)
-        return plain_bwd(*args, need_dpos=need_dpos)
+        return plain_bwd(*args, need_dpos=need_dpos, **kwargs)
 
     monkeypatch.setattr(hash_grid, "hash_encode_bwd_plain", recording_bwd)
     grads = {}
@@ -231,3 +241,213 @@ def test_occ_grid_sampler_matches_jax(draws):
     np.testing.assert_allclose(z_t.numpy() / span, z_j / span, atol=1e-5)
     # The grid concentrates the importance half: its samples are not uniform.
     assert np.abs(np.diff(z_j, axis=1)).std() > 1e-3
+
+
+# -- fixed-point gradients ----------------------------------------------------------
+ORDERS = ["permuted", "2_parts", "4_parts"]
+
+
+def _in_orders(add, n: int, order: str, seed: int = 8) -> torch.Tensor:
+    """The int64 sums of ``add(rows, sink)`` over ``n`` points: permuted, or in
+    contiguous parts each into a sum of its own, the parts' sums added."""
+    if order == "permuted":
+        return add(torch.randperm(n, generator=torch.Generator().manual_seed(seed)))
+    parts = [add(rows) for rows in torch.arange(n).chunk(int(order[0]))]
+    return sum(parts[1:], parts[0])
+
+
+def _table_sum(table, pos, g, ct, dtype, rows=None) -> torch.Tensor:
+    rows = torch.arange(pos.shape[0]) if rows is None else rows
+    sink = hash_grid.table_sum(table)
+    hash_grid.hash_encode_bwd_plain(table, pos[rows], g[rows], ct, dtype, need_dpos=False,
+                                    sink=sink)
+    return sink.acc
+
+
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name", CONFIGS)
+def test_fixed_point_table_gradient_has_one_value_in_any_order(name, dtype, order):
+    ct = th.HashEncodingConfig(**CONFIGS[name])
+    pos, table, g = (torch.tensor(x) for x in _inputs(jh.HashEncodingConfig(**CONFIGS[name]), 9))
+    dt = getattr(torch, dtype)
+    whole = _table_sum(table, pos, g, ct, dt)
+    assert whole.abs().max() > 0
+    got = _in_orders(lambda rows: _table_sum(table, pos, g, ct, dt, rows), N_POINTS, order)
+    torch.testing.assert_close(got, whole, rtol=0, atol=0)
+    # The autograd path converts the same sums.
+    tt = table.clone().requires_grad_(True)
+    (th.hash_encode(tt, pos, ct, dt) * g).sum().backward()
+    torch.testing.assert_close(tt.grad, fixed_point.from_fixed(whole, fixed_point.HASH_BITS),
+                               rtol=0, atol=0)
+
+
+def _fixed_point_tolerance(terms: np.ndarray, index: np.ndarray, size: int, got: np.ndarray,
+                           bits: int) -> np.ndarray:
+    """Per entry: n_k 2^-(bits + 1) + n_k 2^-24 sum|term| + 2^-24 |got|."""
+    n_k = np.bincount(index, minlength=size).astype(np.float64)
+    mag = np.bincount(index, weights=np.abs(terms.astype(np.float64)), minlength=size)
+    return n_k * 2.0 ** -(bits + 1) + n_k * 2.0 ** -24 * mag + 2.0 ** -24 * np.abs(got)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name", CONFIGS)
+def test_fixed_point_table_gradient_matches_jax_segment_sum(name, dtype):
+    """Against ``hash_encode_vjp``'s sorted ``segment_sum``, with larger and
+    smaller gradients than the parity tests' (terms from 1e-9 to 1e2 of a unit)."""
+    cj, ct = jh.HashEncodingConfig(**CONFIGS[name]), th.HashEncodingConfig(**CONFIGS[name])
+    pos, table, g = _inputs(cj, seed=10)
+    g = (g * np.exp(np.random.default_rng(11).uniform(-20.0, 4.0, g.shape))).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+    dtable_j = np.asarray(jax.grad(lambda t: (jh.hash_encode_vjp(t, jnp.asarray(pos), cj, jdt, jdt)
+                                              * g).sum())(jnp.asarray(table)))
+    tt = torch.tensor(table, requires_grad=True)
+    (th.hash_encode(tt, torch.tensor(pos), ct, getattr(torch, dtype)) * torch.tensor(g)).sum(
+    ).backward()
+    got = tt.grad.numpy()
+    idx, w = hash_grid.corner_indices(torch.tensor(pos), ct)
+    terms = (w[..., None] * torch.tensor(g).reshape(N_POINTS, ct.n_levels, 1, 2)).numpy()
+    tol = _fixed_point_tolerance(terms.reshape(-1), np.repeat(idx.numpy().reshape(-1) * 2, 2)
+                                 + np.tile([0, 1], idx.numel()), table.size, got.reshape(-1),
+                                 fixed_point.HASH_BITS)
+    err = np.abs(got.reshape(-1).astype(np.float64) - dtable_j.reshape(-1))
+    assert (err <= tol).all(), float((err / tol).max())
+    assert np.abs(dtable_j).max() > 1e3 * 2.0 ** -fixed_point.HASH_BITS
+
+
+def _grid_inputs(seed: int = 12):
+    rng = np.random.default_rng(seed)
+    grid = rng.normal(size=(8, 8, 8)).astype(np.float32)
+    pts = rng.uniform(-1.2, 1.2, (3000, 3)).astype(np.float32)  # some outside the cube
+    g = (rng.normal(size=3000) * np.exp(rng.uniform(-20.0, 2.0, 3000))).astype(np.float32)
+    return torch.tensor(grid), torch.tensor(pts), torch.tensor(g)
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_fixed_point_grid_gradient_has_one_value_in_any_order(order):
+    grid, pts, g = _grid_inputs()
+
+    def add(rows=None):
+        rows = torch.arange(pts.shape[0]) if rows is None else rows
+        sink = tog.grid_sum(grid)
+        tog.scatter_occ_grad(grid, pts[rows], g[rows], sink)
+        return sink.acc
+
+    whole = add()
+    assert whole.abs().max() > 0
+    torch.testing.assert_close(_in_orders(add, pts.shape[0], order), whole, rtol=0, atol=0)
+    torch.testing.assert_close(tog.occ_grid_grad(grid, pts, g),
+                               fixed_point.from_fixed(whole, fixed_point.OGM_BITS),
+                               rtol=0, atol=0)
+
+
+def test_fixed_point_grid_gradient_matches_jax_vjp():
+    grid, pts, g = _grid_inputs(13)
+    _, vjp = jax.vjp(lambda x: jog.interpolate_occ_logits(x, jnp.asarray(pts.numpy())),
+                     jnp.asarray(grid.numpy()))
+    (want,) = vjp(jnp.asarray(g.numpy()))
+    want = np.asarray(want).reshape(-1)
+    got = tog.occ_grid_grad(grid, pts, g).numpy().reshape(-1)
+    # The terms: each point's 8 weighted corners inside the grid (recomputed in f64).
+    v = grid.shape[0]
+    coords = (pts.double().numpy() + 1.0) * 0.5 * v - 0.5
+    c0 = np.floor(coords).astype(np.int64)
+    frac = coords - c0
+    idx, terms = [], []
+    for corner in np.ndindex(2, 2, 2):
+        cell = c0 + np.array(corner[::-1])  # (iz, iy, ix) -> x, y, z offsets
+        w = np.prod(np.where(np.array(corner[::-1]) == 1, frac, 1.0 - frac), axis=1)
+        inside = ((cell >= 0) & (cell < v)).all(axis=1)
+        idx.append(((cell[:, 2] * v + cell[:, 1]) * v + cell[:, 0])[inside])
+        terms.append((g.double().numpy() * w)[inside])
+    tol = _fixed_point_tolerance(np.concatenate(terms), np.concatenate(idx), v ** 3, got,
+                                 fixed_point.OGM_BITS)
+    err = np.abs(got.astype(np.float64) - want)
+    assert (err <= tol + 4 * 2.0 ** -24 * np.abs(want)).all(), float((err / tol).max())
+    assert np.abs(want).max() > 0
+
+
+@pytest.mark.parametrize("kind", ["hash table", "OGM grid"])
+def test_a_contribution_past_the_limit_raises(kind):
+    if kind == "hash table":
+        ct = th.HashEncodingConfig(**CONFIGS["box_room_tiny"])
+        pos, table, g = (torch.tensor(x) for x in
+                         _inputs(jh.HashEncodingConfig(**CONFIGS["box_room_tiny"])))
+        bits = fixed_point.HASH_BITS
+        fine = (g / g.abs().sum() * fixed_point.limit(bits) * 0.5,)
+        past = (g * 0 + fixed_point.limit(bits),)
+
+        def run(gg):
+            return hash_grid.hash_encode_bwd_plain(table, pos, gg, ct, torch.float32)[0]
+    else:
+        grid, pts, g = _grid_inputs()
+        bits = fixed_point.OGM_BITS
+        fine = (g / g.abs().sum() * fixed_point.limit(bits) * 0.5,)
+        past = (g * 0 + fixed_point.limit(bits),)
+
+        def run(gg):
+            return tog.occ_grid_grad(grid, pts, gg)
+    assert torch.isfinite(run(*fine)).all()
+    with pytest.raises(OverflowError, match="passed its limit"):
+        run(*past)
+    with pytest.raises(OverflowError, match="passed its limit"):
+        run(torch.full_like(past[0], float("nan")))
+    fixed_point.check(torch.device("cpu"))  # the CPU raised at once: nothing left flagged
+
+
+# -- two runs ------------------------------------------------------------------------
+REPEAT_SCANS = 12
+
+
+@pytest.fixture(scope="module")
+def repeated_runs(tmp_path_factory):
+    """box_room_tiny.yaml single-threaded twice on one 12-scan dataset, cut as
+    tests/test_torch_slam.py cuts it."""
+    from loner_tpu_torch.datasets.scan_stream import ScanStreamWriter
+    from loner_tpu_torch.datasets.synthetic import VirtualLidar, generate_sequence
+    from loner_tpu_torch.run_loner import run_trial
+    from test_torch_slam import tiny_hash_settings
+
+    root = str(tmp_path_factory.mktemp("repeat_ds"))
+    scans, poses, ts, _, _ = generate_sequence(
+        num_scans=REPEAT_SCANS, lidar=VirtualLidar(num_channels=16, num_columns=64, max_range=30.0),
+        rate_hz=5.0)
+    writer = ScanStreamWriter(root)
+    for scan in scans:
+        writer.add_scan(scan)
+    writer.write_gt(poses, ts)
+    runs = []
+    for i in range(2):
+        settings = tiny_hash_settings(str(tmp_path_factory.mktemp(f"repeat_{i}")))
+        settings = settings.augment({"system": {"single_threaded": True}})
+        runs.append(run_trial(settings, root, experiment_name=f"repeat_{i}", device="cpu"))
+    return runs
+
+
+def _tensors(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tensors(v, prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tensors(v, prefix + (str(i),))
+    elif isinstance(tree, (torch.Tensor, np.ndarray)):
+        yield "/".join(prefix), np.asarray(tree)
+
+
+@pytest.mark.parametrize("artifact", ["estimated_trajectory", "tracking_only", "final.tar"])
+def test_two_single_threaded_runs_of_the_reference_model_repeat(repeated_runs, artifact):
+    from loner_tpu_torch.mapping.mapper import load_checkpoint
+
+    a, b = repeated_runs
+    if artifact == "final.tar":
+        ta = dict(_tensors(load_checkpoint(f"{a}/checkpoints/final.tar")))
+        tb = dict(_tensors(load_checkpoint(f"{b}/checkpoints/final.tar")))
+        assert ta.keys() == tb.keys() and any("table" in k for k in ta)
+        for k in ta:
+            np.testing.assert_array_equal(ta[k], tb[k], err_msg=k)
+    else:
+        ra = np.loadtxt(f"{a}/trajectory/{artifact}.txt")
+        rb = np.loadtxt(f"{b}/trajectory/{artifact}.txt")
+        assert ra.shape[0] >= 2
+        np.testing.assert_array_equal(ra, rb)

@@ -471,6 +471,22 @@ def test_frozen_rgb_keeps_intensity_bit_identical():
     assert opt.last_camera_losses is None
 
 
+def test_a_flagged_fixed_point_sum_raises_at_the_keyframes_host_copy():
+    """The Optimizer reads the fixed-point overflow flag in its one copy of a
+    keyframe's results (the phases do not sync for it): a set flag raises there
+    and is cleared, and the next keyframe runs."""
+    from loner_tpu_torch.ops import fixed_point
+
+    kfs, cube, _ = _keyframes(2, False)
+    opt = _small_optimizer(cube, False, None)
+    flag = fixed_point.flag(CPU)
+    flag.fill_(1)
+    with pytest.raises(OverflowError, match="passed its limit"):
+        opt.iterate_optimizer(kfs[:2])
+    assert int(flag) == 0
+    assert np.isfinite(opt.iterate_optimizer(kfs[:2]))
+
+
 def test_camera_samples_on_a_lidar_only_run_build_no_camera_branch():
     kfs, cube, _ = _keyframes(2, False)
     opt = _small_optimizer(cube, False, None)

@@ -304,9 +304,9 @@ def test_frozen_pose_phase_at_ogm_and_hash_matches_jax_without_dpos(encode_impl,
     asked = []
     plain_bwd = thash_grid.hash_encode_bwd_plain
 
-    def recording_bwd(*args, need_dpos=True):
+    def recording_bwd(*args, need_dpos=True, **kwargs):
         asked.append(need_dpos)
-        return plain_bwd(*args, need_dpos=need_dpos)
+        return plain_bwd(*args, need_dpos=need_dpos, **kwargs)
 
     monkeypatch.setattr(thash_grid, "hash_encode_bwd_plain", recording_bwd)
     twists, params_np, grid, out_j, out_t, lr_sigma = _ogm_hash_phases(encode_impl, True)
