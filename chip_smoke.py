@@ -1623,6 +1623,7 @@ def run_slam(dev, label: str, settings: dict, sequence: dict, out_dir: str, trai
     dataset, scene, gt_poses, ts = (sequence[k] for k in ("dataset", "scene", "poses", "ts"))
     icp = check_icp_card_against_cpu(dev, dataset) if check_icp else {}
     settings["system"]["log_dir_prefix"] = os.path.join(out_dir, "outputs")
+    late0 = late_captures()
     log_dir, loner, counts, wall, peak_gb = traced_trial(
         dev, settings, dataset, experiment_name=f"smoke_{label.replace(' ', '_')}")
     launches = {k: counts[k] for k in train_kernels}
@@ -1644,7 +1645,8 @@ def run_slam(dev, label: str, settings: dict, sequence: dict, out_dir: str, trai
     from loner_tpu_torch.common.cuda_graphs import pool_bytes
 
     opt = loner.mapper.optimizer
-    graphs = {"mapper_captures": opt.graph_captures, "mapper_late_captures": opt.late_captures,
+    graphs = {"mapper_captures": opt.graph_captures,
+              "mapper_late_captures": late_captures() - late0,
               "mapper_pool_gb": pool_bytes(opt.graph_pool) / 1e9,
               "icp_captures": loner.tracker.icp_graph.captures,
               "icp_pool_gb": pool_bytes(loner.tracker.icp_graph.pool()) / 1e9}
@@ -2037,6 +2039,7 @@ def run_resume(dev, sequence: dict, uninterrupted_ate: dict) -> dict:
         half_kfs = len(load_checkpoint(os.path.join(half, "checkpoints", "final.tar"))["poses"])
         half_its = int(np.loadtxt(os.path.join(half, "timing.csv"), delimiter=",",
                                   ndmin=2)[:, 0].sum())
+        late0 = late_captures()
         log_dir, loner, counts, wall, peak_gb = traced_trial(dev, copy.deepcopy(settings),
                                                              dataset, resume_from=half)
         final = load_checkpoint(os.path.join(log_dir, "checkpoints", "final.tar"))
@@ -2057,7 +2060,7 @@ def run_resume(dev, sequence: dict, uninterrupted_ate: dict) -> dict:
             os.path.join(log_dir, "trajectory", "groundtruth.txt"), delta_m=1.0)["ate"]["rmse"]
             for name in ("estimated_trajectory", "tracking_only")}
         opt = loner.mapper.optimizer
-        graphs = {"captures": opt.graph_captures, "late_captures": opt.late_captures,
+        graphs = {"captures": opt.graph_captures, "late_captures": late_captures() - late0,
                   "icp_captures": loner.tracker.icp_graph.captures}
     launches = {k: counts[k] for k in ("fourier_mlp_fwd", "fourier_mlp_bwd")}
     print(f"resume: interrupted after {RESUME_AT_S} s of data ({half_kfs} keyframes, {half_its} "
@@ -2626,17 +2629,19 @@ def run_breadth(dev, cfg, field_cfg, field, prop) -> dict:
         # (b) the debug SLAM run.
         sequence = write_slam_dataset(os.path.join(root, "dataset"), DEBUG_SCANS)
         settings = debug_slam_settings(os.path.join(root, "slam") + "/")
+        late0 = late_captures()
         log_dir, loner, counts, wall, _ = traced_trial(dev, settings, sequence["dataset"],
                                                         experiment_name="smoke_debug")
         opt = loner.mapper.optimizer
+        late = late_captures() - late0
         found = check_debug_dumps(log_dir)
         print(f"debug SLAM: {DEBUG_SCANS} scans, all six debug flags, run_trial {wall:.3f} s; "
               f"{found['frames']} tracked frames, {found['keyframes']} keyframes, "
               f"{found['files']} files of {found['bytes']} bytes; mapper captures "
-              f"{opt.graph_captures} at warm-up, {opt.late_captures} after it; launches "
+              f"{opt.graph_captures} at warm-up, {late} after it; launches "
               f"{counts}", flush=True)
-        if opt.late_captures or min(counts["fourier_mlp_fwd"], counts["fourier_mlp_bwd"]) == 0:
-            raise RuntimeError(f"debug SLAM: {opt.late_captures} late captures, launches {counts}")
+        if late or min(counts["fourier_mlp_fwd"], counts["fourier_mlp_bwd"]) == 0:
+            raise RuntimeError(f"debug SLAM: {late} late captures, launches {counts}")
         launches["debug SLAM"] = counts
 
         # (c) renders of phase 6's experiment.
@@ -3393,6 +3398,7 @@ def mesh_optimizer_run(dev, spec, ckpt) -> dict:
     from loner_tpu_torch.mapping.optimizer import Optimizer
 
     cfg, field_cfg = mesh_configs("flagship")
+    late0 = late_captures()
     opt = Optimizer(cfg, field_cfg, 12.0, np.zeros(3), MESH_OPT_SCHEDULE, dev, seed=5,
                     skip_pose_refinement=False, mesh=spec)
     out, before = {}, {}
@@ -3415,7 +3421,7 @@ def mesh_optimizer_run(dev, spec, ckpt) -> dict:
             if name not in ("losses", "depth_eps", "twists"):
                 out[name] = v.detach().cpu().numpy()
                 before[name] = state[name]
-        late = opt.late_captures
+        late = late_captures() - late0
     finally:
         opt.close()
     return {"outputs": out, "before": before, "late": late}
@@ -3801,15 +3807,26 @@ def nccl_comms(lines) -> dict:
     return comms
 
 
+def late_captures() -> int:
+    """The mapper's captures after warm-up so far in this process (the port's
+    counter ``captures.late``); a run's are the difference over it."""
+    from loner_tpu_torch.runtime import profiling
+
+    return profiling.counters()["captures.late"]
+
+
 def slam_log_numbers(log_dir: str, ts: np.ndarray) -> dict:
     """A SLAM run's numbers from its log directory: RTF, ms a mapping iteration
-    (the W=1 or bootstrap keyframe, the windows), tracking latency p50 / p95 and
-    the ATE RMSE of both trajectories."""
+    (the W=1 or bootstrap keyframe, the windows), tracking latency p50 / p95 (the
+    tracker's ``tracker.frame`` spans in ``spans.json``: one scan's update
+    without the throttle's wait) and the ATE RMSE of both trajectories."""
     from loner_tpu_torch.analysis.traj_metrics import evaluate_trajectory_files
+    from loner_tpu_torch.runtime.profiling import read_spans
 
     runtime = float(open(os.path.join(log_dir, "runtime.txt")).read().split()[1])
     timing = np.loadtxt(os.path.join(log_dir, "timing.csv"), delimiter=",", ndmin=2)
-    track = np.loadtxt(os.path.join(log_dir, "track_times.csv"), delimiter=",", ndmin=2)
+    track = np.array([[e["dur"] / 1e6, e["args"]["frames"]]
+                      for e in read_spans(os.path.join(log_dir, "spans.json"), "tracker.frame")])
     ate = {name: evaluate_trajectory_files(
         os.path.join(log_dir, "trajectory", f"{name}.txt"),
         os.path.join(log_dir, "trajectory", "groundtruth.txt"), delta_m=1.0)["ate"]["rmse"]

@@ -16,6 +16,9 @@ thread (a keyframe schedule's program met for the first time, a grown point
 pad) holds the lock, and the tracker holds it around each of its CUDA sections,
 so the tracker is idle while the mapper captures. The thread-local mode keeps
 that capture from failing on CUDA calls of threads that take no part in it.
+
+Every capture is the span ``graph.capture`` (``runtime/profiling.py``, always
+recorded) and adds one to the counter ``captures``.
 """
 from __future__ import annotations
 
@@ -71,9 +74,12 @@ class CountedGraph:
         """Capture ``fn()`` (on ``stream``, into ``pool``; ``generators``: the
         non-default generators it draws from, so each replay advances them).
         Returns what ``fn`` returned: tensors at the graph's static addresses."""
+        from loner_tpu_torch.runtime import profiling
+
         before = launch_counts()
-        with CAPTURE_LOCK:
+        with CAPTURE_LOCK, profiling.span("graph.capture", always=True):
             out = self._capture(fn, pool, stream, generators)
+        profiling.count("captures")
         after = launch_counts()
         self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         add_launch_counts(self.launches, -1)

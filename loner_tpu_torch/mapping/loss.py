@@ -109,7 +109,7 @@ def compute_lidar_loss(rays, depths_cube, valid, field_params, field_cfg, sample
                        jitter: Optional[torch.Tensor] = None,
                        noise: Optional[torch.Tensor] = None,
                        pdf_u: Optional[torch.Tensor] = None,
-                       window: Optional[Dict[str, Any]] = None
+                       window: Optional[Dict[str, Any]] = None, marks=None
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Render the batch and assemble the total loss. Returns (loss, aux).
     ``jitter`` and ``pdf_u`` are the sampler's draws, ``noise`` the sigma noise.
@@ -117,7 +117,8 @@ def compute_lidar_loss(rays, depths_cube, valid, field_params, field_cfg, sample
     captured iteration reads them from the device). ``window``: under a mesh,
     the window's counts (``parallel/mesh.py::WindowShard.window_counts``); every
     mean then divides by them, and ``loss`` and ``aux["depth_eps"]`` are this
-    rank's shares of the window's values."""
+    rank's shares of the window's values. ``marks``: the iteration's layer marks
+    (``models/rendering.py::render_rays``)."""
     far = rays[:, 10]
     depths_gt_m = depths_cube * world_scale  # meters
     opaque = opaque_rays(depths_cube, far, valid)
@@ -126,7 +127,7 @@ def compute_lidar_loss(rays, depths_cube, valid, field_params, field_cfg, sample
     result = render_rays(
         rays, field_params, field_cfg, sampler, n_samples=n_samples, perturb=perturb,
         raw_noise_std=raw_noise_std, occ_state=occ_state, jitter=jitter, noise=noise,
-        pdf_u=pdf_u,
+        pdf_u=pdf_u, marks=marks,
     )
     z_m = result["z_vals"] * world_scale  # (B, S) meters
     w_pred = result["weights"]

@@ -28,6 +28,7 @@ from loner_tpu_torch.convert import (  # noqa: F401  (tree_to_numpy: the public 
     proposal_params_to_jax,
     tree_to_numpy,
 )
+from loner_tpu_torch.runtime import profiling
 
 
 def save_checkpoint(path: str, ckpt: dict) -> None:
@@ -164,8 +165,10 @@ class Mapper:
         return self._optimizer.warm_up(n_points)
 
     def update(self) -> bool:
-        tic = time.time()
-        did_map_frame = False
+        """Take one frame from the tracker; map it if it is a keyframe. Spans
+        (``runtime/profiling.py``, always recorded): ``mapper.queue_wait`` (from
+        the tracker's emit to here) and ``mapper.keyframe`` (its optimisation
+        and checkpoint); each keyframe adds one to the counter ``keyframes``."""
         did_work = False
 
         if self._frame_slot.has_value():
@@ -174,6 +177,10 @@ class Mapper:
             if isinstance(new_frame, StopSignal):
                 self.processed_stop_signal = True
                 return True
+            emitted = getattr(new_frame, "_emitted_ns", None)
+            if emitted is not None:
+                profiling.record("mapper.queue_wait", emitted, time.perf_counter_ns(),
+                                 always=True, frame=new_frame._id)
 
             if self._settings.debug.get("use_groundtruth_poses", False):
                 # A shallow copy: the Frame is shared with the logger thread.
@@ -186,26 +193,25 @@ class Mapper:
                     self._keyframe_manager.get_last_mapped_time())
 
             if self._optimizer_enabled and accepted:
-                self._optimizer.iterate_optimizer(self._keyframe_manager.get_active_window())
-                pose_state = self._keyframe_manager.get_poses_state()
-                kf_idx = self._optimizer._keyframe_count - 1
-                path = f"{self._log_directory}/checkpoints/ckpt_{kf_idx}.tar"
-                if (kf_idx % 10 == 0 and self._log_level == "STANDARD") or (
-                        self._log_level == "VERBOSE"):
-                    save_checkpoint(path, self.build_ckpt())
-                else:
-                    save_checkpoint(path, {"global_step": self._optimizer.state.global_step,
-                                           "poses": pose_state})
+                profiling.count("keyframes")
+                with profiling.span("mapper.keyframe", always=True,
+                                    keyframe=self._optimizer._keyframe_count):
+                    self._optimizer.iterate_optimizer(
+                        self._keyframe_manager.get_active_window())
+                    pose_state = self._keyframe_manager.get_poses_state()
+                    kf_idx = self._optimizer._keyframe_count - 1
+                    path = f"{self._log_directory}/checkpoints/ckpt_{kf_idx}.tar"
+                    if (kf_idx % 10 == 0 and self._log_level == "STANDARD") or (
+                            self._log_level == "VERBOSE"):
+                        save_checkpoint(path, self.build_ckpt())
+                    else:
+                        save_checkpoint(path, {"global_step": self._optimizer.state.global_step,
+                                               "poses": pose_state})
                 self._keyframe_update_signal.emit(pose_state)
-                did_map_frame = True
         elif self._shared_state is not None:
             t = self._keyframe_manager.get_last_mapped_time()
             if t is not None:
                 self._shared_state.last_mapped_frame_time = t
-
-        if did_map_frame and self._settings.debug.get("log_times", False):
-            with open(f"{self._log_directory}/map_times.csv", "a+") as f:
-                f.write(f"{time.time() - tic}\n")
         return did_work
 
     def run(self, shared_state: SharedState) -> None:

@@ -46,6 +46,7 @@ from loner_tpu_torch.models.rendering import (
     OccGridRaySampler, ProposalRaySampler, UniformRaySampler,
 )
 from loner_tpu_torch.ops import fixed_point
+from loner_tpu_torch.runtime import profiling
 
 ENCODE_DTYPES = {"vjp_bf16": torch.bfloat16, "vjp_f32": torch.float32, "xla": torch.float32}
 
@@ -251,13 +252,23 @@ def run_dispatches(n_iters: int, k: int, depth: int, dispatch: Callable[[int, in
     k`` dispatches ``dispatch(i0, k)`` of k iterations from i0, then the rest as
     ``dispatch(i, 1)``. After each k-dispatch an event (``make_event()``) is
     recorded; before dispatch n is enqueued, the event of dispatch n - depth is
-    waited on (depth 0, or no events: never)."""
+    waited on (depth 0, or no events: never), in the span ``dispatch.wait``.
+
+    Counters: ``dispatches``, ``dispatch_waits`` and, while tracing (it takes
+    a query of the event), ``dispatch_waits_ready``: the waits whose dispatch
+    had ended when the host came to wait."""
     events: List[Any] = []
     i = 0
     if k > 1:
         while i + k <= n_iters:
             if depth and len(events) >= depth:
-                events[len(events) - depth].synchronize()
+                event = events[len(events) - depth]
+                profiling.count("dispatch_waits")
+                if profiling.tracing() and event.query():
+                    profiling.count("dispatch_waits_ready")
+                with profiling.span("dispatch.wait"):
+                    event.synchronize()
+            profiling.count("dispatches")
             dispatch(i, k)
             if make_event is not None:
                 event = make_event()
@@ -265,6 +276,7 @@ def run_dispatches(n_iters: int, k: int, depth: int, dispatch: Callable[[int, in
                 events.append(event)
             i += k
     while i < n_iters:
+        profiling.count("dispatches")
         dispatch(i, 1)
         i += 1
 
@@ -282,7 +294,7 @@ def iteration_loss(cfg: "OptimizerConfig", field_cfg: FieldConfig, sigma: Dict[s
                    occ_state, twists: torch.Tensor, intensity: Dict[str, Any],
                    buffers: WindowBuffers, world_scale, world_shift: torch.Tensor,
                    draws: StepDraws, it_idx: float = 0.0, global_step: float = 0.0,
-                   camera: Optional[CameraWindowBuffers] = None, shard=None
+                   camera: Optional[CameraWindowBuffers] = None, shard=None, marks=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One iteration's forward: rays, samples, field, compositing, the mapping
     loss, (PROPOSAL) the proposal's linear loss and, with ``camera`` buffers,
@@ -292,7 +304,11 @@ def iteration_loss(cfg: "OptimizerConfig", field_cfg: FieldConfig, sigma: Dict[s
 
     ``shard``: a mesh rank's part of the window (``parallel/mesh.py::
     WindowShard``); ``buffers`` then hold its shard, ``twists`` and ``draws`` the
-    whole window's, and every loss term is this rank's share of the window's."""
+    whole window's, and every loss term is this rank's share of the window's.
+
+    ``marks``: the iteration's layer marks (``runtime/profiling.py::
+    LayerMarks``): the sigma field's boundaries and the LiDAR loss's end,
+    where the proposal's and the camera's losses begin."""
     use_prop = cfg.samples_strategy == "PROPOSAL"
     if cfg.samples_strategy == "OGM":
         sampler = OccGridRaySampler()
@@ -321,8 +337,10 @@ def iteration_loss(cfg: "OptimizerConfig", field_cfg: FieldConfig, sigma: Dict[s
         rays, depths_cube, valid, {"sigma": sigma, "intensity": intensity}, field_cfg, sampler,
         occ_state, cfg.loss, world_scale, cfg.n_samples_per_ray, cfg.perturb,
         cfg.raw_noise_std, it_idx, global_step, jitter=draws.jitter, noise=draws.noise,
-        pdf_u=draws.pdf_u, window=window,
+        pdf_u=draws.pdf_u, window=window, marks=marks,
     )
+    if marks is not None:
+        loss = marks.boundary(loss, profiling.LOSSES, profiling.COMPOSITE_BWD)
     if use_prop:
         # Proposal training: the linear loss mean(stop_grad(logits_grad) *
         # logits) over a strided subset of the sample points, normalised by the
@@ -444,7 +462,8 @@ class Optimizer:
     one set of static window buffers, into which each keyframe's window is
     copied once. ``warm_up`` captures every program the schedule can reach; a
     program first met later (no warm-up, or a point pad grown by a larger scan)
-    is captured then, counted in ``late_captures`` and logged.
+    is captured then, counted (``profiling`` counter ``captures.late``) and
+    logged.
 
     ``camera_rays``: (camera-frame pixel directions (H W, 3), LiDAR-to-camera
     (4, 4)), the geometry of the camera branch, or None on a LiDAR-only run
@@ -521,7 +540,6 @@ class Optimizer:
         self._scan_pool = DeviceScanPool(self._device)
         self.graph_pool = (torch.cuda.graph_pool_handle() if self._device.type == "cuda"
                            else None)
-        self.late_captures = 0
         self._released_captures = 0  # captures of the programs ``close`` dropped
         self.last_losses: Optional[np.ndarray] = None
         self.last_depth_eps: Optional[np.ndarray] = None
@@ -853,9 +871,9 @@ class Optimizer:
             for n, eff in enumerate(effective):
                 runner = self._get_runner(eff, w, p, ps)
                 if runner.graphs and not runner.captured:
-                    self.late_captures += 1
+                    profiling.count("captures.late")
                     print(f"Mapper: capturing the {eff} program at W={w}, point pad {p} "
-                          f"(late capture {self.late_captures})", flush=True)
+                          f"(late capture {profiling.counters()['captures.late']})", flush=True)
                 (self.state.field_params, self.state.occ_grid, tw, losses, eps) = runner(
                     self.state.field_params, self.state.occ_grid, tw, buffers,
                     up[w * 6 + n * w : w * 6 + (n + 1) * w], self._world_scale,
@@ -944,8 +962,9 @@ class Optimizer:
         # fixed-point sums' overflow flag (last), which a sync of its own at each
         # phase's end would make wait for the tracker's work queued meanwhile.
         overflow = fixed_point.flag(self._device)
-        host = torch.cat([twists.reshape(-1)] + all_losses + all_eps + cam_losses
-                         + [overflow.to(twists.dtype).view(1)]).cpu().numpy()
+        with profiling.span("optimizer.copy_out", always=True, keyframe=self._keyframe_count):
+            host = torch.cat([twists.reshape(-1)] + all_losses + all_eps + cam_losses
+                             + [overflow.to(twists.dtype).view(1)]).cpu().numpy()
         if host[-1]:
             overflow.zero_()
             raise OverflowError(fixed_point.OVERFLOW)

@@ -62,6 +62,7 @@ from loner_tpu_torch.models.losses import get_logits_grad
 from loner_tpu_torch.models.occupancy_grid import grid_sum, scatter_occ_grad
 from loner_tpu_torch.ops import fixed_point
 from loner_tpu_torch.ops.fixed_point import HASH_BITS, FixedPointSum
+from loner_tpu_torch.runtime import profiling
 
 HISTORY = 256  # per-iteration records kept on the device between two reads
 WARMUP_ITERS = 2  # eager iterations of each variant before its capture
@@ -236,6 +237,7 @@ class PhaseProgram:
         self.gstep = torch.zeros((), dtype=torch.float32, device=dev)  # global step
         self.slot = torch.zeros((), dtype=torch.int64, device=dev)
         self.history = torch.zeros((3, max(HISTORY, self.k)), dtype=torch.float32, device=dev)
+        self.marks = profiling.LayerMarks(self.history.shape[1], self.slot)  # their layer marks
         # The fixed-point sums: the trained hash tables', then the OGM grid's, as
         # views of one int64 buffer; an iteration without the OGM step all-reduces
         # the tables' prefix.
@@ -306,14 +308,18 @@ class PhaseProgram:
     def _iteration(self, d, occ_step: bool) -> None:
         """Forward, backward, gradient masks, the Adam step, the OGM step when
         ``occ_step``, and the iteration's record; every result lands in the
-        static tensors, so the same code is the captured graph."""
+        static tensors, so the same code is the captured graph. The layer marks
+        (``profiling.MARKS``) go into the iteration's row of ``marks``."""
         cfg = self.cfg
+        marks = self.marks
+        marks.mark(profiling.ITERATION)
         for p in self.params:
             p.grad = None
         self.fixed.zero_()
         sums = self.table_sums + ([self.grid_sum] if occ_step else [])
         for acc in sums:
             acc.mag.zero_()
+        marks.mark(profiling.RAYS)
         # Frozen poses build the rays from detached twists, so nothing below
         # the rays (the hash encode's dpos among it) is differentiated for them.
         # A phase with a frozen intensity head reads none. The tables' gradients
@@ -322,8 +328,9 @@ class PhaseProgram:
             cfg, self.field_cfg, self._loss_sigma, self.occ,
             self.tw if self._optimize_poses else self.tw.detach(), self._loss_intensity,
             self._window, self.scale, self.shift, d, self.it, self.gstep,
-            camera=self._camera if self.use_camera else None, shard=self._shard)
+            camera=self._camera if self.use_camera else None, shard=self._shard, marks=marks)
         total.backward()
+        marks.after_backward()
         # Freezing is a gradient mask: every parameter gets a gradient (zero
         # where frozen), so Adam's moments move as the JAX package's do.
         floats = [p for p in self.params if not any(p is t for t in self._tables)]
@@ -374,6 +381,7 @@ class PhaseProgram:
                 if name not in self.extras:  # in a warm-up iteration, before any capture
                     self.extras[name] = torch.empty_like(value)
                 self.extras[name].copy_(value)
+        marks.mark(profiling.END, offset=-1)  # the slot has moved on
 
     # -- the debug record's copy-out --------------------------------------------
     def _host_set(self, index: int) -> Dict[str, torch.Tensor]:
@@ -431,14 +439,15 @@ class PhaseProgram:
         """Make the program ready before the first keyframe without drawing from
         ``generator``: with graphs, capture it; without, run one iteration on a
         scratch generator. Returns a tensor to wait on."""
-        if self.graphs:
-            if not self.captured:
-                self.capture(field_params, occ_state, twists, buffers, pose_mask, world_scale,
-                             world_shift, generator, camera)
-            return self.history[0, :1]
-        scratch = torch.Generator(device=self.device).manual_seed(17)
-        return self(field_params, occ_state, twists, buffers, pose_mask, world_scale,
-                    world_shift, 0, scratch, num_iterations=1, camera=camera)[3]
+        with profiling.span("warm_up", always=True, window=self.w):
+            if self.graphs:
+                if not self.captured:
+                    self.capture(field_params, occ_state, twists, buffers, pose_mask,
+                                 world_scale, world_shift, generator, camera)
+                return self.history[0, :1]
+            scratch = torch.Generator(device=self.device).manual_seed(17)
+            return self(field_params, occ_state, twists, buffers, pose_mask, world_scale,
+                        world_shift, 0, scratch, num_iterations=1, camera=camera)[3]
 
     # -- a phase -----------------------------------------------------------------
     def __call__(self, field_params: Dict[str, Any], occ_state, twists: torch.Tensor,
@@ -451,24 +460,43 @@ class PhaseProgram:
         """One phase; at its end the fixed-point sums' overflow flag is read (a
         host synchronisation) unless ``check_overflow`` is False: then the caller
         reads ``fixed_point.flag`` itself, as the ``Optimizer`` does in its one
-        copy of a keyframe's results to the host."""
+        copy of a keyframe's results to the host.
+
+        The phase is the span ``phase``, with the children ``phase.capture``,
+        ``phase.seat``, ``dispatch.enqueue`` (k replays), ``dispatch.wait``,
+        ``phase.collect``, ``mesh.wait``, ``phase.check_overflow``,
+        ``phase.read_marks`` (while tracing: the iterations' layer marks as
+        device spans) and ``phase.copy_out``."""
         n_iters = self._phase_iterations if num_iterations is None else num_iterations
         if draws is None and generator is None:
             raise ValueError("run_phase needs a generator or the draws")
         if draws is not None and len(draws) < n_iters:
             raise ValueError(f"{len(draws)} draws for {n_iters} iterations")
+        profiling.count("phases")
+        with profiling.span("phase", step0=int(global_step0), iterations=n_iters):
+            return self._phase(field_params, occ_state, twists, buffers, pose_mask, world_scale,
+                               world_shift, int(global_step0), generator, n_iters, draws,
+                               camera, extras_log, check_overflow)
+
+    def _phase(self, field_params, occ_state, twists, buffers, pose_mask, world_scale,
+               world_shift, step0: int, generator, n_iters: int, draws, camera, extras_log,
+               check_overflow: bool):
         if self.graphs and not self.captured:
-            self.capture(field_params, occ_state, twists, buffers, pose_mask, world_scale,
-                         world_shift, generator if draws is None else None, camera)
+            with profiling.span("phase.capture"):
+                self.capture(field_params, occ_state, twists, buffers, pose_mask, world_scale,
+                             world_shift, generator if draws is None else None, camera)
         elif not self._built:
             self._build(field_params, occ_state, twists, buffers, camera)
-        step0 = int(global_step0)
-        self._seat(field_params, occ_state, twists, buffers, pose_mask, world_scale,
-                   world_shift, step0, camera)
+        with profiling.span("phase.seat"):
+            self._seat(field_params, occ_state, twists, buffers, pose_mask, world_scale,
+                       world_shift, step0, camera)
         if self.graphs and draws is None and self._draw_generator is not generator:
-            self._capture_draws(generator)
+            with profiling.span("phase.capture"):
+                self._capture_draws(generator)
 
         records: List[torch.Tensor] = []
+        mark_rows: List[torch.Tensor] = []  # while tracing: the marks of records' iterations
+        tracing = profiling.tracing()
         filled = 0
         # The debug record: (host set, iterations, event) of each dispatch not yet
         # read, oldest first; the sets are taken in turn.
@@ -493,33 +521,38 @@ class PhaseProgram:
                 return
             if draws is None:
                 self._draw_graph.replay()
+                profiling.count("replays.draw")
             else:
                 for name in _opt.DRAW_FIELDS:
                     if getattr(self.draws, name) is not None:
                         getattr(self.draws, name).copy_(getattr(draws[i], name))
             self._steps[occ_step].replay()
+            profiling.count("replays.step_occ" if occ_step else "replays.step")
 
         def dispatch(i0: int, k: int) -> None:
             nonlocal filled, n_dispatched
             if filled + k > self.history.shape[1]:
                 records.append(self.history[:, :filled].clone())
+                if tracing:
+                    mark_rows.append(self.marks.ring[:filled].clone())
                 self.slot.zero_()
                 filled = 0
             index = n_dispatched % n_sets
             if record_extras and len(pending) == n_sets:
                 collect()  # the oldest dispatch holds this set
-            for j in range(k):
-                iterate(i0 + j)
+            with profiling.span("dispatch.enqueue", i0=i0, k=k):
+                for j in range(k):
+                    iterate(i0 + j)
+                    if record_extras:
+                        host = self._host_set(index)
+                        for name, value in self.extras.items():
+                            host[name][j].copy_(value, non_blocking=True)
                 if record_extras:
-                    host = self._host_set(index)
-                    for name, value in self.extras.items():
-                        host[name][j].copy_(value, non_blocking=True)
-            if record_extras:
-                event = None
-                if self._cuda:
-                    event = torch.cuda.Event()
-                    event.record()
-                pending.append((index, k, event))
+                    event = None
+                    if self._cuda:
+                        event = torch.cuda.Event()
+                        event.record()
+                    pending.append((index, k, event))
             n_dispatched += 1
             filled += k
 
@@ -528,15 +561,24 @@ class PhaseProgram:
         if self._cuda:
             make_event = mesh.event if mesh is not None else torch.cuda.Event
         _opt.run_dispatches(n_iters, self.k, self.depth, dispatch, make_event)
-        while pending:
-            collect()
+        with profiling.span("phase.collect"):
+            while pending:
+                collect()
         if mesh is not None:
             mesh.wait()  # rank 0 watches its followers while the phase's collectives run
         records.append(self.history[:, :filled])
         log = torch.cat(records, dim=1)
         if check_overflow and (self._tables or self._use_occ):
-            fixed_point.check(self.device)  # a sum past its limit raises here
+            with profiling.span("phase.check_overflow"):
+                fixed_point.check(self.device)  # a sum past its limit raises here
+        if tracing:
+            self.marks.add_spans(mark_rows + [self.marks.ring[:filled]])
 
+        with profiling.span("phase.copy_out"):
+            return self._copy_out(field_params, log)
+
+    def _copy_out(self, field_params, log: torch.Tensor):
+        """The phase's results: copies of the static state, and its records."""
         new_sigma = {"mlp": {k: v.detach().clone() for k, v in self.sigma["mlp"].items()}}
         if "table" in self.sigma:
             new_sigma["table"] = self.sigma["table"].detach().clone()

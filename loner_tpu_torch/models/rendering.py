@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F_nn
 
 from loner_tpu_torch.models.field import in_row_blocks
+from loner_tpu_torch.runtime import profiling
 
 
 def pack_rays(origins, dirs, near, far, viewdirs=None) -> torch.Tensor:
@@ -256,7 +257,7 @@ def render_rays(rays: torch.Tensor, field_params, field_cfg, sampler, n_samples:
                 ret_var: bool = False, jitter: Optional[torch.Tensor] = None,
                 noise: Optional[torch.Tensor] = None, pdf_u: Optional[torch.Tensor] = None,
                 compositor: str = "xla", sigma_only: bool = True, detach_sigma: bool = True,
-                white_bkgd: bool = False) -> Dict[str, torch.Tensor]:
+                white_bkgd: bool = False, marks=None) -> Dict[str, torch.Tensor]:
     """Render a batch of (N, 11) rays through the sigma field, and the intensity
     head unless ``sigma_only`` (view directions from the rays' viewdir columns;
     ``detach_sigma`` stops the colour loss's gradients into the sigma
@@ -273,7 +274,10 @@ def render_rays(rays: torch.Tensor, field_params, field_cfg, sampler, n_samples:
     ``sigma_only``, ``ret_var`` and no sigma noise. It is the CUDA kernel on a CUDA tensor and
     its plain version on a CPU tensor; ``"plain"`` takes the plain version on
     every device (the reference the kernel is held to on the card). Otherwise,
-    and for ``"xla"``, compositing is ``raw2outputs``."""
+    and for ``"xla"``, compositing is ``raw2outputs``.
+
+    ``marks``: a training iteration's ``runtime/profiling.py::LayerMarks``,
+    which marks the sigma field's start and end, forward and backward."""
     from loner_tpu_torch.models.field import query_field
 
     if compositor not in ("xla", "pallas", "plain"):
@@ -284,11 +288,15 @@ def render_rays(rays: torch.Tensor, field_params, field_cfg, sampler, n_samples:
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]  # (N, S, 3)
     n_rays, s = pts.shape[:2]
     flat = pts.reshape(-1, 3)
+    if marks is not None:
+        flat = marks.boundary(flat, profiling.FIELD, profiling.RAYS_BWD)
     flat_dirs = None if sigma_only else rays[:, None, 6:9].expand(n_rays, s, 3).reshape(-1, 3)
     raw = torch.cat([query_field(field_params, flat[i : i + POINT_BLOCK],
                                  None if sigma_only else flat_dirs[i : i + POINT_BLOCK],
                                  field_cfg, sigma_only=sigma_only, detach_sigma=detach_sigma)
                      for i in range(0, max(flat.shape[0], 1), POINT_BLOCK)])
+    if marks is not None:
+        raw = marks.boundary(raw, profiling.COMPOSITE, profiling.FIELD_BWD)
     softplus = field_cfg.density_activation == "softplus"
     if (compositor != "xla" and sigma_only and ret_var
             and (raw_noise_std == 0 or noise is None)):

@@ -7,7 +7,9 @@ the flags, so an edited source builds anew and an unchanged one is reused. The
 sources have a plain C interface and include no PyTorch header: ``nvcc`` takes
 seconds for them. ``build_all`` starts one ``nvcc`` for each source, all at once.
 ``ptxas -v`` reports each kernel's registers, shared memory and spills; the
-report is kept beside the library (``ptxas_report``).
+report is kept beside the library (``ptxas_report``). Each build is the span
+``kernels.build`` (``runtime/profiling.py``, always recorded) and adds one to
+the counter ``kernels.built``.
 
 Host C++ (``csrc/<name>.cpp``, the ingest's ``scan_ops``) is built the same way
 by the host compiler (``load_host_library``), with the JAX package's flags for
@@ -21,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Iterable, Optional
 
@@ -58,8 +61,11 @@ def ptxas_report(name: str) -> str:
 def build_all(names: Optional[Iterable[str]] = None) -> None:
     """Compile the named sources (default: every ``csrc/*.cu``) that are not
     built yet, one ``nvcc`` process each, all started together."""
+    from loner_tpu_torch.runtime import profiling
+
     names = sorted(p.stem for p in CSRC.glob("*.cu")) if names is None else list(names)
     jobs = []
+    t0 = time.perf_counter_ns()
     for name in names:
         out = _target(name)
         if out.exists():
@@ -74,11 +80,13 @@ def build_all(names: Optional[Iterable[str]] = None) -> None:
     failed = []
     for name, proc, tmp, out in jobs:
         stdout, stderr = proc.communicate()
+        profiling.record("kernels.build", t0, time.perf_counter_ns(), always=True, source=name)
         if proc.returncode != 0:
             failed.append(f"nvcc failed on csrc/{name}.cu:\n{stdout}\n{stderr}")
         else:
             out.with_suffix(".ptxas.txt").write_text(stdout + stderr)
             os.replace(tmp, out)
+            profiling.count("kernels.built")
     if failed:
         raise RuntimeError("\n".join(failed))
 

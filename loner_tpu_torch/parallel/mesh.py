@@ -73,6 +73,7 @@ import torch
 import torch.distributed as dist
 
 from loner_tpu_torch.mapping.rays import CameraWindowBuffers, WindowBuffers
+from loner_tpu_torch.runtime import profiling
 
 DATA_AXIS = "data"
 RAY_AXIS = "ray"
@@ -269,7 +270,9 @@ class Mesh:
         stream). Rank 0 of a launched mesh polls it, checking its followers: a
         follower that exits makes it raise, naming the rank, where a plain wait
         would sit on its collectives for ever (a collective replayed in a graph has
-        no watchdog); so does ``timeout`` passing. Other ranks wait plainly."""
+        no watchdog); so does ``timeout`` passing. Other ranks wait plainly.
+        Rank 0's poll is the span ``mesh.wait``; each query of the event adds one
+        to the counter ``mesh_polls`` (``runtime/profiling.py``)."""
         if self.device.type != "cuda":
             return
         if event is None:
@@ -279,14 +282,18 @@ class Mesh:
             event.synchronize()
             return
         deadline = time.monotonic() + self.timeout.total_seconds()
-        while not event.query():
-            self.check_followers()
-            if time.monotonic() > deadline:
-                self.broken = (f"rank 0's work on {self.device} did not end within "
-                               f"{self.timeout.total_seconds():.0f} s (followers alive: ranks "
-                               f"{[r for r, _ in self._alive()]})")
-                raise TimeoutError(self.broken)
-            time.sleep(POLL_SECONDS)
+        with profiling.span("mesh.wait"):
+            while True:
+                profiling.count("mesh_polls")
+                if event.query():
+                    return
+                self.check_followers()
+                if time.monotonic() > deadline:
+                    self.broken = (f"rank 0's work on {self.device} did not end within "
+                                   f"{self.timeout.total_seconds():.0f} s (followers alive: "
+                                   f"ranks {[r for r, _ in self._alive()]})")
+                    raise TimeoutError(self.broken)
+                time.sleep(POLL_SECONDS)
 
     def event(self) -> "_MeshEvent":
         """A CUDA event whose ``synchronize`` is ``wait``."""
@@ -410,6 +417,9 @@ class _MeshEvent:
 
     def record(self) -> None:
         self._event.record()
+
+    def query(self) -> bool:
+        return self._event.query()
 
     def synchronize(self) -> None:
         self._mesh.wait(self._event)

@@ -40,7 +40,7 @@ from loner_tpu_torch.common.signals import SharedState, Signal, StopSignal
 from loner_tpu_torch.common.world_cube import WorldCube, compute_world_cube
 from loner_tpu_torch.mapping.mapper import Mapper
 from loner_tpu_torch.runtime.logger import DefaultLogger
-from loner_tpu_torch.runtime.profiling import RunProfiler
+from loner_tpu_torch.runtime import profiling
 from loner_tpu_torch.tracking.tracker import Tracker
 
 
@@ -162,7 +162,8 @@ class Loner:
         with open(os.path.join(self._log_directory, "full_config.pkl"), "wb") as f:
             pickle.dump(plain, f)
 
-        self._profiler = RunProfiler(self._log_directory,
+        self._started_ns = time.perf_counter_ns()
+        self._profiler = profiling.RunProfiler(self._log_directory,
                                      enabled=bool(s.debug.get("profile", False)))
         self._profiler.start()
 
@@ -234,6 +235,10 @@ class Loner:
             self._mapping_thread.join(timeout=30)
         else:
             self._mapper.finish()
+        if self._settings.debug.get("log_times", False):
+            # The run's spans and the process's counters (runtime/profiling.py).
+            profiling.export(os.path.join(self._log_directory, "spans.json"),
+                             since_ns=self._started_ns)
         self.close()
         print("LONER SLAM successfully terminated.")
 

@@ -20,6 +20,14 @@ stream, its graph and the chained velocity init), so it need not share the
 mapper's card; the pose comes back to the host as before. On the CPU only 0 is
 valid, and an index the machine does not have raises (the JAX package falls
 back to its default device instead).
+
+Spans (``runtime/profiling.py``, always recorded): ``tracker.throttle`` (the
+wait behind the mapper; the counter ``frames_throttled`` counts the updates
+that waited), ``tracker.frame`` (one scan's update from the frame synthesis to
+the ICP results it resolves, without the throttle) and ``tracker.icp`` (a
+frame's ICP from its enqueue to its result on the host). Each emitted frame
+adds one to ``frames_tracked`` and carries its emit time (``_emitted_ns``)
+to the mapper.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from loner_tpu_torch.common.frame import Frame
 from loner_tpu_torch.common.pose import Pose
 from loner_tpu_torch.common.signals import Signal, SharedState, StopSignal
 from loner_tpu_torch.ops.voxel import voxel_downsample
+from loner_tpu_torch.runtime import profiling
 from loner_tpu_torch.tracking.frame_synthesis import FrameSynthesis
 from loner_tpu_torch.tracking.icp import ICPGraph, ICPResult, run_icp_schedule
 
@@ -153,17 +162,22 @@ class Tracker:
 
     # -- pipeline ------------------------------------------------------------
     def update(self) -> bool:
-        tic = time.time()
         num_tracked = 0
         did_work = False
 
         # Throttle: do not run ahead of the mapper.
         if (self._settings.synchronization.enabled and self._shared_state is not None
                 and self._shared_state.last_mapped_frame_time is not None):
+            waited = None
             while (self._last_tracked_frame_time
                    - (self._shared_state.last_mapped_frame_time + self._max_time_delta)
                    > 1.0 / self._frame_rate):
+                waited = waited or time.perf_counter_ns()
                 time.sleep(0.01)
+            if waited is not None:
+                profiling.count("frames_throttled")
+                profiling.record("tracker.throttle", waited, time.perf_counter_ns(), always=True)
+        tic = time.perf_counter_ns()
 
         if self._rgb_slot is not None and self._rgb_slot.has_value():
             val = self._rgb_slot.get_value()
@@ -193,9 +207,9 @@ class Tracker:
                 self._emit_frame(done)
                 num_tracked += 1
 
-        if num_tracked > 0 and self._settings.get("debug", {}).get("log_times", False):
-            with open(f"{self._settings.log_directory}/track_times.csv", "a+") as f:
-                f.write(f"{time.time() - tic},{num_tracked}\n")
+        if num_tracked > 0:
+            profiling.record("tracker.frame", tic, time.perf_counter_ns(), always=True,
+                             frames=num_tracked)
         return did_work or num_tracked > 0
 
     def _emit_frame(self, frame: Frame) -> None:
@@ -205,6 +219,8 @@ class Tracker:
             from loner_tpu_torch.runtime.debug_artifacts import dump_frame_point_cloud
 
             dump_frame_point_cloud(frame, self._settings.log_directory, frame._id)
+        profiling.count("frames_tracked")
+        frame._emitted_ns = time.perf_counter_ns()
         self._frame_signal.emit(frame)
         self._last_tracked_frame_time = frame.get_time()
 
@@ -265,13 +281,15 @@ class Tracker:
 
     def _resolve_pending(self):
         """Fetch the in-flight frame's ICP result. Returns (frame | None, chain_ok)."""
-        frame, result, cloud = self._pending
+        frame, result, cloud, enqueued = self._pending
         self._pending = None
         # One copy to the host for the transform and the fitness; on the
         # tracker's stream, so it waits for the ICP only.
         with CAPTURE_LOCK, self._on_stream():
             host = torch.cat([result.transformation.reshape(16),
                               result.fitness.reshape(1)]).cpu().numpy()
+        profiling.record("tracker.icp", enqueued, time.perf_counter_ns(), always=True,
+                         frame=frame._id)
         registration = host[:16].reshape(4, 4).astype(np.float64)
         min_fitness = float(self._settings.icp.get("min_fitness", 0.1))
         if not (np.isfinite(registration).all() and float(host[16]) >= min_fitness):
@@ -298,10 +316,11 @@ class Tracker:
             self._reference_time = frame.get_middle_time()
             return [frame]
 
+        enqueued = time.perf_counter_ns()
         if not self._pipelined:
             result = self._dispatch_icp(cloud, self._reference_points,
                                         self._last_relative if self._use_velocity_init else None)
-            self._pending = (frame, result, cloud)
+            self._pending = (frame, result, cloud, enqueued)
             emitted, _ = self._resolve_pending()
             if emitted is None:
                 print("Warning: Failed to track frame. Skipping.")
@@ -333,7 +352,7 @@ class Tracker:
                     self._last_relative if self._use_velocity_init else None)
                 self._last_relative_dev = result.transformation
 
-        self._pending = (frame, result, cloud)
+        self._pending = (frame, result, cloud, enqueued)
         self._reference_points = cloud
         return out
 

@@ -303,3 +303,21 @@ def test_smoke_sky_and_courtyard_settings_are_their_yaml(name, build):
                   "mapper": {"optimizer": {"model_config": {"model": {"render": {
                       "compositor": "pallas"}}}}}})
     assert smoke == want.as_plain_dict()
+
+
+def test_spans_json_replaces_the_timing_csvs(slam_run):
+    """Under ``debug.log_times`` the run writes its spans and counters
+    (``runtime/profiling.py``) to ``spans.json``, and no ``track_times.csv`` or
+    ``map_times.csv``."""
+    from loner_tpu_torch.runtime.profiling import read_spans
+
+    path = os.path.join(slam_run, "spans.json")
+    names = {e["name"] for e in read_spans(path)}
+    assert {"tracker.frame", "tracker.icp", "mapper.queue_wait", "mapper.keyframe",
+            "optimizer.copy_out"} <= names, names
+    for name in ("track_times.csv", "map_times.csv"):
+        assert not os.path.exists(os.path.join(slam_run, name))
+    timing = np.loadtxt(os.path.join(slam_run, "timing.csv"), delimiter=",", ndmin=2)
+    assert len(read_spans(path, "mapper.keyframe")) == len(timing)
+    frames = read_spans(path, "tracker.frame")
+    assert frames and all(e["dur"] >= 0 and e["args"]["frames"] >= 1 for e in frames)
