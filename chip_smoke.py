@@ -297,15 +297,15 @@ def f32_bound(flops: float, nbytes: float):
 
 def reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
-    from loner_tpu_torch.ops import composite, fourier_mlp, hash_grid
+    from loner_tpu_torch.ops import composite, fourier_mlp, hash_grid, sigma_mlp
 
-    for module in (composite, fourier_mlp, hash_grid):
+    for module in (composite, fourier_mlp, hash_grid, sigma_mlp):
         module.counts.reset()
 
 
 def read_counts() -> dict:
     """Every kernel's launches since the last ``reset_counts``, by name."""
-    from loner_tpu_torch.ops import composite, fourier_mlp, hash_grid
+    from loner_tpu_torch.ops import composite, fourier_mlp, hash_grid, sigma_mlp
 
     return {"fourier_mlp_fwd": fourier_mlp.counts.fwd_launches,
             "fourier_mlp_bwd": fourier_mlp.counts.bwd_launches,
@@ -314,7 +314,9 @@ def read_counts() -> dict:
             "composite": composite.counts.composite_launches,
             "hash_encode_fwd": hash_grid.counts.fwd_launches,
             "hash_encode_bwd": hash_grid.counts.bwd_launches,
-            "hash_encode_bwd_no_dpos": hash_grid.counts.bwd_no_dpos_launches}
+            "hash_encode_bwd_no_dpos": hash_grid.counts.bwd_no_dpos_launches,
+            "sigma_mlp_fwd": sigma_mlp.counts.fwd_launches,
+            "sigma_mlp_bwd": sigma_mlp.counts.bwd_launches}
 
 
 def device_line() -> str:
@@ -362,7 +364,7 @@ def ptxas_spills() -> None:
 
     from loner_tpu_torch.ops.build import ptxas_report
 
-    for lib in ("fourier_mlp", "fourier_mlp_f32", "composite", "hash_grid"):
+    for lib in ("fourier_mlp", "fourier_mlp_f32", "composite", "hash_grid", "sigma_mlp"):
         print_ptxas(lib)
     spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", ptxas_report("hash_grid"))
     if any(int(b) for b in spills):
@@ -971,6 +973,100 @@ def check_hash_kernels(dev) -> list:
         "ray_no_dpos_ms": times[("ray", big)][nd],
         "ray_no_dpos_bootstrap_ms": times[("ray", small)][nd],
         "no_dpos_bound_ms": bound(*cost[nd], peak_flops=PEAK_F32_FLOPS)[0]})
+    return records
+
+
+def sigma_mlp_errors(x, w0, w1, g, got) -> list:
+    """How far ``got`` (sigma, dx, dW0, dW1 of the hash head's f32 MLP) lies past
+    its f32 bounds of float64 (positive is a fault), one number each. The bounds
+    are tests/test_torch_sigma_mlp.py's: a sum of k f32 terms may be k ulp of the
+    terms' magnitudes from the exact sum (sigma D + H + 2, dx H + 1; the weight
+    gradients 2e-4 of their magnitudes); a pre-activation within the rounding of
+    zero may take either side of the ReLU, so its point is left out of dx and its
+    terms are added to the weight gradients' bounds."""
+    eps = 2.0 ** -24
+    X, W0, W1, G = (t.double() for t in (x, w0, w1, g))
+    d, h = w0.shape
+    z, zmag = X @ W0, X.abs() @ W0.abs()
+    r, gw1 = torch.relu(z), G @ W1.T
+    gz = (z > 0) * gw1
+    amb = z.abs() <= 2 * (d + 1) * eps * zmag
+    sure = ~amb.any(dim=1)
+    exact = (r @ W1, gz @ W0.T, X.T @ gz, r.T @ G)
+    tol = ((d + h + 2) * eps * ((r + zmag) @ W1.abs()),
+           (h + 1) * eps * (gz.abs() @ W0.abs().T),
+           2e-4 * (X.abs().T @ gz.abs()) + X.abs().T @ (amb * gw1.abs()),
+           2e-4 * ((r + zmag).T @ G.abs()) + (amb * zmag).T @ G.abs())
+    rows = (slice(None), sure, slice(None), slice(None))
+    return [float(((a.double() - e).abs() - t)[k].max())
+            for a, e, t, k in zip(got, exact, tol, rows)]
+
+
+def check_sigma_mlp_kernels(dev) -> list:
+    """The hash head's f32 MLP pair (csrc/sigma_mlp.cu) against its plain
+    version, models/field.py::mlp_apply (cuBLAS's products and PyTorch's
+    elementwise passes), at a W=8 iteration's 2,097,152 points, at the
+    reference's D = 32 and box_room_tiny's D = 12 (H = 64): sigma, dx, dW0 and dW1
+    of each within their f32 bounds of float64 (``sigma_mlp_errors``), and of
+    the pair against mlp_apply's (max_abs_err). Timed (median of 5, CUDA events):
+    the forward, the backward with its reduce, mlp_apply's forward and its
+    backward alone; mlp_apply is the library's products, so library_ms is its
+    time too. Bound: f32_bound of each kernel's operations (6 n (D H + H)
+    multiply-adds for the pair, recomputation not counted) and bytes (x, g, sigma
+    and dx; the pair's own bound reads x once)."""
+    from loner_tpu_torch.models.field import mlp_apply
+    from loner_tpu_torch.ops import sigma_mlp as sm
+
+    n, h = HASH_POINTS[0], 64
+    gen = torch.Generator(device=dev).manual_seed(22)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    times = {}
+    for d in (32, 12):
+        x = torch.randn((n, d), generator=gen, device=dev) * 0.1
+        w0 = (torch.rand((d, h), generator=gen, device=dev) * 2 - 1) * (6.0 / d) ** 0.5
+        w1 = (torch.rand((h, 1), generator=gen, device=dev) * 2 - 1) * (6.0 / h) ** 0.5
+        g = torch.randn((n, 1), generator=gen, device=dev) * n ** -0.5
+        sigma = sm.sigma_mlp_fwd_cuda(x, w0, w1)
+        pair = (sigma, *sm.sigma_mlp_bwd_cuda(x, w0, w1, g))
+        leaves = [t.clone().requires_grad_(True) for t in (x, w0, w1)]
+        out = mlp_apply({"w0": leaves[1], "w1": leaves[2]}, leaves[0])
+        plain = (out.detach(), *torch.autograd.grad(out, leaves, g, retain_graph=True))
+        for label, got in (("pair", pair), ("mlp_apply", plain)):
+            over = sigma_mlp_errors(x, w0, w1, g, got)
+            print(f"sigma MLP, {n} points, D {d}, {label}: past the f32 bound by "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in zip(("sigma", "dx", "dW0", "dW1"), over)),
+                  flush=True)
+            if max(over) > 0:
+                raise RuntimeError(f"the sigma MLP's {label} at D = {d} lies past its f32 bound")
+        errs = [float((a - b).abs().max()) for a, b in zip(pair, plain)]
+        worst["fwd"], worst["bwd"] = max(worst["fwd"], errs[0]), max(worst["bwd"], *errs[1:])
+        t = {"fwd": cuda_ms(lambda: sm.sigma_mlp_fwd_cuda(x, w0, w1)),
+             "bwd": cuda_ms(lambda: sm.sigma_mlp_bwd_cuda(x, w0, w1, g))}
+        with torch.no_grad():
+            t["fwd_plain"] = cuda_ms(lambda: mlp_apply({"w0": w0, "w1": w1}, x))
+        t["bwd_plain"] = cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
+        times[d] = t
+        print(f"kernel sigma_mlp times, {n} points, D {d} (ms, median of 5): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in t.items()), flush=True)
+        del x, g, sigma, pair, leaves, out, plain
+    macs = n * (32 * h + h)
+    cost = {"fwd": (2 * macs, 4 * n * (32 + 1)), "bwd": (4 * macs, 4 * n * (2 * 32 + 1))}
+    pair_bound = f32_bound(6 * macs, 4 * n * (2 * 32 + 2))[0]
+    src = "loner_tpu_torch/csrc/sigma_mlp.cu"
+    note = "not a TPU kernel: the JAX package computes this function in XLA"
+    records = []
+    for name in ("fwd", "bwd"):
+        b = f32_bound(*cost[name])
+        records.append({
+            "name": f"sigma_mlp_{name}", "route": "cuda", "source": src,
+            "replaces": "loner_tpu/models/field.py:310", "note": note, "launches": 0,
+            "max_abs_err": worst[name], "ms": times[32][name],
+            "plain_ms": times[32][f"{name}_plain"], "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": times[32][f"{name}_plain"], "pair_bound_ms": pair_bound,
+            "d12_ms": times[12][name], "d12_plain_ms": times[12][f"{name}_plain"]})
+    print(f"kernel sigma_mlp bound (ms): fwd {records[0]['bound_ms']:.4f} "
+          f"({records[0]['bound_by']}), bwd {records[1]['bound_ms']:.4f} "
+          f"({records[1]['bound_by']}), the pair {pair_bound:.4f}", flush=True)
     return records
 
 
@@ -3101,7 +3197,7 @@ def forward_batch_witness(dev, parts: int = 4, f32: bool = False, window: str = 
     from loner_tpu_torch.mapping.rays import WindowBuffers, sample_and_build_rays
     from loner_tpu_torch.mapping.optimizer import training_field_cfg
     from loner_tpu_torch.models.field import (
-        _round, _RowBlockedProduct, encode_fourier, field_mlp, mlp_apply, query_field,
+        _round, _RowBlockedProduct, encode_fourier, field_mlp, hash_sigma_mlp, query_field,
         query_intensity,
     )
     from loner_tpu_torch.models.proposal import RAY_BLOCK, _OneColumnProduct, proposal_logits
@@ -3315,7 +3411,8 @@ def forward_batch_witness(dev, parts: int = 4, f32: bool = False, window: str = 
             sig = params.field_params["sigma"]
             feats = hash_encode(sig["table"], (points + 1.0) * 0.5, field_cfg.pos_encoding_sigma,
                                 field_cfg.hash_encode_dtype)
-            head = ((lambda f: mlp_apply(sig["mlp"], f)) if field_cfg.compute_dtype == torch.float32
+            head = ((lambda f: hash_sigma_mlp(sig["mlp"], f, field_cfg))
+                    if field_cfg.compute_dtype == torch.float32
                     else (lambda f: field_mlp(sig["mlp"], f, field_cfg)))
             op("backward: cotangent at the encoder's output (the sigma MLP)",
                lambda f, g: vjp(lambda a: (head(a),), f, [g]), feats, d_sigma)
@@ -4447,22 +4544,27 @@ def main() -> int:
                                                   "fourier_mlp_fwd", "pallas", mesh=True)["launches"]
         for k in kernels:
             k["launches"] = {**slam["map_launches"], **slam["launches"]}[k["name"]]
+        if slam["counts"]["sigma_mlp_fwd"] or slam["counts"]["sigma_mlp_bwd"]:
+            raise RuntimeError(f"the flagship's Fourier field ran the hash head's MLP pair: "
+                               f"{slam['counts']}")
         phase_done("9 + 13 (flagship SLAM, map quality)")
         hash_kernels = check_hash_kernels(dev)
+        sigma_kernels = check_sigma_mlp_kernels(dev)
         with fixed_point.recording() as readings:
             reference = run_slam(dev, "hash+OGM", box_room_settings(""), sequence,
                                  os.path.join(data_dir, "reference"),
-                                 ("hash_encode_fwd", "hash_encode_bwd"), ("hash_encode_fwd",),
+                                 ("hash_encode_fwd", "hash_encode_bwd", "sigma_mlp_fwd",
+                                  "sigma_mlp_bwd"), ("hash_encode_fwd",),
                                  "xla", measure_test_chunk=True)
         print_readings(f"SLAM hash+OGM, {SLAM_SCANS} scans", readings)
         reference["eval_launches"] = check_map_quality(
             dev, "hash+OGM", reference["log_dir"], sequence, "hash_encode_fwd", "xla",
             mesh=True)["launches"]
-        phase_done("10-11 + 13 (hash kernels, reference SLAM, map quality)")
+        phase_done("10-11 + 13 (hash and sigma-MLP kernels, reference SLAM, map quality)")
         # Phase 16 on phase 9's sequence.
         resume = run_resume(dev, sequence, slam["ate"])
         phase_done("16 (resume)")
-    for k in hash_kernels:
+    for k in hash_kernels + sigma_kernels:
         k["launches"] = reference["launches"][k["name"]]
         k["map_check_launches"] = reference["map_launches"].get(k["name"], 0)
     # The backward's launches split by variant: without dpos in the frozen-pose W=1
@@ -4479,7 +4581,7 @@ def main() -> int:
             and bwd["launches_with_dpos"] >= windows):
         raise RuntimeError("the hash backward's launches do not split between the frozen-pose "
                            "bootstrap (without dpos) and the windows (with it)")
-    kernels += hash_kernels
+    kernels += hash_kernels + sigma_kernels
     check_dispatch(dev)
     phase_done("12 (dispatch)")
     # Phase 14: both configurations on the drive, the cell of the bars.
@@ -4495,8 +4597,8 @@ def main() -> int:
         with fixed_point.recording() as readings:
             reference_drive = run_slam(dev, "hash+OGM drive", box_room_settings(""), drive,
                                        os.path.join(data_dir, "reference"),
-                                       ("hash_encode_fwd", "hash_encode_bwd"),
-                                       ("hash_encode_fwd",), "xla")
+                                       ("hash_encode_fwd", "hash_encode_bwd", "sigma_mlp_fwd",
+                                        "sigma_mlp_bwd"), ("hash_encode_fwd",), "xla")
         print_readings(f"SLAM hash+OGM drive, {DRIVE_SCANS} scans", readings)
         reference_drive["eval_launches"] = check_map_quality(
             dev, "hash+OGM drive", reference_drive["log_dir"], drive, "hash_encode_fwd", "xla",

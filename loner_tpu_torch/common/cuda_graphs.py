@@ -1,11 +1,11 @@
 """CUDA graphs of the port's programs: capture and replay with launch counts,
 the capture lock, and the size of a graph's memory pool.
 
-The kernel wrappers (``ops/{composite,fourier_mlp,hash_grid}.py``) count their
-launches in Python, where the wrapper runs. Under a CUDA graph that code runs
-once, at capture, and the kernel runs at every replay. ``CountedGraph`` takes
-the counts a capture added back out and adds them again at each replay, so every
-count, the hash backward's split by variant among them, stays a count of
+The kernel wrappers (``ops/{composite,fourier_mlp,hash_grid,sigma_mlp}.py``)
+count their launches in Python, where the wrapper runs. Under a CUDA graph that
+code runs once, at capture, and the kernel runs at every replay. ``CountedGraph``
+takes the counts a capture added back out and adds them again at each replay, so
+every count, the hash backward's split by variant among them, stays a count of
 launches on the card.
 
 Capture and threads. A capture is made with ``capture_error_mode=
@@ -33,10 +33,10 @@ Counts = Dict[Tuple[str, str], int]
 
 
 def _counters() -> dict:
-    from loner_tpu_torch.ops import composite, fourier_mlp, hash_grid
+    from loner_tpu_torch.ops import composite, fourier_mlp, hash_grid, sigma_mlp
 
     return {"composite": composite.counts, "fourier_mlp": fourier_mlp.counts,
-            "hash_grid": hash_grid.counts}
+            "hash_grid": hash_grid.counts, "sigma_mlp": sigma_mlp.counts}
 
 
 def launch_counts() -> Counts:

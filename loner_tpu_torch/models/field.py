@@ -8,8 +8,9 @@ Two sigma heads:
 - ``hash`` (the reference's, cfg/nerf_config/default_nerf_hash.yaml): the
   multiresolution hash encoding of ``models/hash_encoding.py`` (the hand-written
   CUDA kernel pair on CUDA tensors, its plain version on the CPU) feeding a
-  bias-free ReLU MLP of plain ``torch`` matmuls, as the JAX package computes it
-  outside any kernel;
+  bias-free ReLU MLP, which the JAX package computes outside any kernel: in f32,
+  where ``sigma_mlp_engages`` holds, the hand-written kernel pair of
+  ``ops/sigma_mlp.py``, else plain ``torch`` matmuls (``mlp_apply``);
 - ``fourier``: the fused Fourier-feature + MLP function of
   ``ops/fourier_mlp.py`` (the JAX package's ``sigma_kernel: pallas`` path)
   wherever that is the function the settings ask for (``FieldConfig.fused_fourier``),
@@ -38,6 +39,7 @@ import torch
 
 from loner_tpu_torch.models.hash_encoding import HashEncodingConfig, hash_encode, init_hash_table
 from loner_tpu_torch.models.sh_encoding import sh_encode
+from loner_tpu_torch.ops import sigma_mlp as sigma_mlp_ops
 from loner_tpu_torch.ops.fourier_mlp import fourier_sigma_fused
 
 BMAT_FIXTURE = Path(__file__).resolve().parent / "fourier_bmats.npz"
@@ -322,6 +324,32 @@ def mlp_apply(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     return h
 
 
+def sigma_mlp_engages(mlp: Dict[str, torch.Tensor], cfg: FieldConfig,
+                      device: torch.device) -> bool:
+    """Whether the hash head's f32 MLP on ``device`` takes the kernel pair of
+    ``ops/sigma_mlp.py``: on a CUDA device under ``sigma_kernel: fused``, for a
+    hash encoding in float32, with one hidden ReLU layer and one output column
+    and no biases (upstream's default_nerf_hash.yaml). Such a head whose widths
+    the kernels do not take raises there (``sigma_mlp.check_operands``) rather
+    than falling back. Heads of another function (biases, more layers or
+    outputs), ``sigma_kernel: plain`` and the CPU keep ``mlp_apply``."""
+    if (device.type != "cuda" or cfg.sigma_kernel != "fused" or cfg.encoding_sigma != "hash"
+            or cfg.compute_dtype != torch.float32 or set(mlp) != {"w0", "w1"}):
+        return False
+    w0, w1 = mlp["w0"], mlp["w1"]
+    return w0.dim() == 2 and tuple(w1.shape) == (w0.shape[-1], 1)
+
+
+def hash_sigma_mlp(mlp: Dict[str, torch.Tensor], feats: torch.Tensor,
+                   cfg: FieldConfig) -> torch.Tensor:
+    """The hash head's f32 MLP on (N, D) features: the kernel pair where
+    ``sigma_mlp_engages`` (raising on widths it does not take), else
+    ``mlp_apply``."""
+    if sigma_mlp_engages(mlp, cfg, feats.device):
+        return sigma_mlp_ops.sigma_mlp(mlp, feats)
+    return mlp_apply(mlp, feats)
+
+
 def query_sigma(params: Dict[str, Any], pos: torch.Tensor, cfg: FieldConfig) -> torch.Tensor:
     """Density head. pos: (N, 3) in [-1, 1]. Returns (N, 1) raw sigma (f32). A
     hash head's ``table_sum`` beside its ``table`` (a ``FixedPointSum``, here and
@@ -334,7 +362,7 @@ def query_sigma(params: Dict[str, Any], pos: torch.Tensor, cfg: FieldConfig) -> 
                             cfg.hash_encode_dtype, plain=cfg.sigma_kernel == "plain",
                             sink=params["sigma"].get("table_sum"))
         if cfg.compute_dtype == torch.float32:  # both of the JAX package's MLP backwards
-            return mlp_apply(params["sigma"]["mlp"], feats)
+            return hash_sigma_mlp(params["sigma"]["mlp"], feats, cfg)
         return field_mlp(params["sigma"]["mlp"], feats, cfg)
     if cfg.fused_fourier:
         return fourier_sigma_fused(

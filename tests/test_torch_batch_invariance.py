@@ -15,7 +15,9 @@ ranks' sums differ from one device's by more than the order of summation
   transmittance's (its reversed cumsum in blocks of ``SCAN_ROWS`` rays, over more
   than two blocks), and the hash field's (box_room_tiny's grid, the f32 MLP)
   cotangent at the encoder's output and dpos, each from seeded upstream
-  cotangents, equal to the bit in 2 and 4 batches.
+  cotangents, equal to the bit in 2 and 4 batches; on a card (``-m cuda``) the
+  hash field's case again through its kernels, the hash pair and the sigma-MLP
+  pair (``ops/sigma_mlp.py``).
 - Two gloo ranks, each adding its half of the points' hash-table and OGM-grid
   gradients into fixed-point sums and all-reducing the int64 sums through
   ``Mesh.all_reduce_``: the one-rank sums to the bit.
@@ -236,7 +238,8 @@ def _grads(fn, inputs: list, wrt: list, upstream: list) -> dict:
     return {f"d{i}": g for i, g in zip(wrt, got)}
 
 
-@pytest.mark.parametrize("op", ["compositing", "transmittance", "hash_field"])
+@pytest.mark.parametrize("op", ["compositing", "transmittance", "hash_field",
+                                pytest.param("hash_field_kernels", marks=pytest.mark.cuda)])
 def test_backward_per_ray_does_not_depend_on_the_batch(op):
     rng = np.random.default_rng(14)
     if op == "transmittance":
@@ -263,17 +266,25 @@ def test_backward_per_ray_does_not_depend_on_the_batch(op):
         _equal_in_batches(fn, B, raw, z, d, noise, far, ud, uw)
         return
     fcfg, params = _hash_field()
+    dev = CPU
+    if op == "hash_field_kernels":  # the hash kernels and the sigma-MLP pair on the card
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA card: the hash field's kernels run only there")
+        dev = torch.device("cuda")
+        params = {"sigma": {"table": params["sigma"]["table"].to(dev),
+                            "mlp": {k: w.to(dev) for k, w in params["sigma"]["mlp"].items()}}}
+        assert tfield.sigma_mlp_engages(params["sigma"]["mlp"], fcfg, dev)
     n = 5 * B  # points: whole RUNs, ragged in 2 and 4 batches
-    pos = torch.tensor(rng.uniform(-1.0, 1.0, (n, 3)), dtype=torch.float32)
-    up = torch.tensor(rng.normal(size=(n, 1)), dtype=torch.float32)
+    pos = torch.tensor(rng.uniform(-1.0, 1.0, (n, 3)), dtype=torch.float32, device=dev)
+    up = torch.tensor(rng.normal(size=(n, 1)), dtype=torch.float32, device=dev)
     cfg = fcfg.pos_encoding_sigma
 
     def fn(pp, uu):
         feats = hash_grid.hash_encode(params["sigma"]["table"], (pp + 1.0) * 0.5, cfg)
-        d_features = _grads(lambda f: (tfield.mlp_apply(params["sigma"]["mlp"], f),),
+        d_features = _grads(lambda f: (tfield.hash_sigma_mlp(params["sigma"]["mlp"], f, fcfg),),
                             [feats.detach()], [0], [uu])["d0"]
         dpos = _grads(lambda x: (tfield.query_sigma(params, x, fcfg),), [pp], [0], [uu])["d0"]
-        return {"d_features": d_features, "dpos": dpos}
+        return {"d_features": d_features.cpu(), "dpos": dpos.cpu()}
 
     _equal_in_batches(fn, n, pos, up)
 
