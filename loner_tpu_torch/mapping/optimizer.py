@@ -307,8 +307,10 @@ def iteration_loss(cfg: "OptimizerConfig", field_cfg: FieldConfig, sigma: Dict[s
     whole window's, and every loss term is this rank's share of the window's.
 
     ``marks``: the iteration's layer marks (``runtime/profiling.py::
-    LayerMarks``): the sigma field's boundaries and the LiDAR loss's end,
-    where the proposal's and the camera's losses begin."""
+    LayerMarks``): the sigma field's boundaries, the LiDAR loss's end, where
+    the proposal's linear loss begins, and the camera branch's ends, which the
+    backward runs first (its operations were recorded last). Without a camera
+    branch its marks fire back to back."""
     use_prop = cfg.samples_strategy == "PROPOSAL"
     if cfg.samples_strategy == "OGM":
         sampler = OccGridRaySampler()
@@ -353,6 +355,8 @@ def iteration_loss(cfg: "OptimizerConfig", field_cfg: FieldConfig, sigma: Dict[s
         n_valid = aux["valid"].sum().to(logits.dtype) if window is None else window["valid"]
         denom = torch.clamp(n_valid * z_sub.shape[1], min=1.0)
         loss = loss + (logits_grad * logits).sum() / denom
+    if marks is not None:
+        loss = marks.boundary(loss, profiling.CAMERA, profiling.CAMERA_BWD_END)
     if camera is not None:
         if cam is None:
             cam = _camera_rays(cfg, camera, twists, world_scale, world_shift, buffers.slot_valid,
@@ -365,6 +369,8 @@ def iteration_loss(cfg: "OptimizerConfig", field_cfg: FieldConfig, sigma: Dict[s
             pdf_u=draws.cam_pdf_u, count=None if window is None else window["camera"])
         aux["camera_loss"] = cam_mse
         loss = loss + cfg.cameraloss_lambda * cam_mse
+    if marks is not None:
+        loss = marks.boundary(loss, profiling.CAMERA_END, profiling.CAMERA_BWD)
     return loss, aux
 
 

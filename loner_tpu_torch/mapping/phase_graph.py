@@ -165,6 +165,10 @@ class PhaseProgram:
             self._shard = WindowShard(mesh, window_size, cfg.n_lidar_samples,
                                       _opt.sky_rays_per_slot(cfg),
                                       cfg.n_camera_samples if self.use_camera else 0)
+        # The camera rays an iteration of this program traces (a mesh rank's share).
+        self._camera_rays = window_size * cfg.n_camera_samples if self.use_camera else 0
+        if self._shard is not None and self.use_camera:
+            self._camera_rays = self._shard.cam_rays.stop - self._shard.cam_rays.start
         self._window = window
         # One pool for the program's graphs unless the caller shares one.
         self.pool = pool if pool is not None or not (graphs and self._cuda) else (
@@ -273,7 +277,8 @@ class PhaseProgram:
                 if "table" in self.intensity:
                     self.intensity["table"].copy_(field_params["intensity"]["table"])
             if self.use_camera and camera is not None and camera is not self._camera:
-                copy_camera(self._camera, camera)
+                with profiling.span("phase.camera_copy"):
+                    copy_camera(self._camera, camera)
             self.tw.copy_(twists)
             if self._use_prop:
                 for k, v in occ_state.items():
@@ -465,6 +470,7 @@ class PhaseProgram:
         The phase is the span ``phase``, with the children ``phase.capture``,
         ``phase.seat``, ``dispatch.enqueue`` (k replays), ``dispatch.wait``,
         ``phase.collect``, ``mesh.wait``, ``phase.check_overflow``,
+        ``phase.camera_copy`` (in the seat: new camera buffers copied in),
         ``phase.read_marks`` (while tracing: the iterations' layer marks as
         device spans) and ``phase.copy_out``."""
         n_iters = self._phase_iterations if num_iterations is None else num_iterations
@@ -514,6 +520,9 @@ class PhaseProgram:
 
         def iterate(i: int) -> None:
             occ_step = self._use_occ and (step0 + i) % self.cfg.occ_update_every == 0
+            if self._camera_rays:
+                profiling.count("camera.rays", self._camera_rays)
+                profiling.count("camera.points", self._camera_rays * self.cfg.n_samples_per_ray)
             if not self.graphs:
                 d = draws[i] if draws is not None else _opt.draw_step(
                     generator, self.cfg, self.w, self.device, camera=self.use_camera)

@@ -55,27 +55,36 @@ COUNTERS = (
     "replays.draw", "replays.step", "replays.step_occ",  # graph replays of a phase
     "dispatches", "dispatch_waits", "dispatch_waits_ready",  # run_dispatches
     "phases", "captures", "captures.late", "mesh_polls", "kernels.built",
+    "camera.rays", "camera.points",  # a camera phase's rays and field points, per iteration
     "frames_tracked", "frames_throttled", "keyframes",  # the SLAM runtime
     "spans_dropped",
 )
 
 # The layer marks of the mapper's iteration (``mapping/phase_graph.py``), in
 # the order they run. The backward's marks come from identity autograd
-# functions at the forward's boundaries (``LayerMarks.boundary``).
-MARKS = ("iteration", "rays", "field", "composite", "losses", "composite.bwd", "field.bwd",
-         "rays.bwd", "optimizer", "end")
-(ITERATION, RAYS, FIELD, COMPOSITE, LOSSES, COMPOSITE_BWD, FIELD_BWD, RAYS_BWD, OPTIMIZER,
- END) = range(len(MARKS))
+# functions at the forward's boundaries (``LayerMarks.boundary``). The camera
+# branch's four marks fire in every iteration: without a camera branch its two
+# segments are empty.
+MARKS = ("iteration", "rays", "field", "composite", "losses", "camera", "camera.end",
+         "camera.bwd", "camera.bwd_end", "composite.bwd", "field.bwd", "rays.bwd", "optimizer",
+         "end")
+(ITERATION, RAYS, FIELD, COMPOSITE, LOSSES, CAMERA, CAMERA_END, CAMERA_BWD, CAMERA_BWD_END,
+ COMPOSITE_BWD, FIELD_BWD, RAYS_BWD, OPTIMIZER, END) = range(len(MARKS))
 ANCHOR = len(MARKS)  # the mark that maps the device clock onto the host's
 # Segment i runs from mark i to mark i + 1. "grad_zero": the fixed-point sums'
-# zeroing; "losses": the losses after the LiDAR loss (the proposal's linear
-# loss, a camera branch), forward and backward, and the backward's start.
-SEGMENTS = ("grad_zero", "rays", "field", "composite", "losses", "composite.bwd", "field.bwd",
-            "rays.bwd", "optimizer")
-SAMPLER, SIGMA_FIELD, COMPOSITING, OPTIMIZER_STEP = (
-    "ray build and sampler", "sigma field", "compositing and loss", "optimizer step")
-LAYERS = (OPTIMIZER_STEP, SAMPLER, SIGMA_FIELD, COMPOSITING, SAMPLER, COMPOSITING, SIGMA_FIELD,
-          SAMPLER, OPTIMIZER_STEP)
+# zeroing; "losses": the proposal's linear loss; "camera" and "camera.bwd": the
+# camera branch, forward and backward (its rays, their samples, the field at
+# their points, the intensity head, the compositing and the weighted MSE added
+# to the loss; under a mesh the camera rays are built beside the LiDAR rays, for
+# the window's counts); "bwd_start": the backward's start; "losses.bwd": the
+# proposal's linear loss, backward.
+SEGMENTS = ("grad_zero", "rays", "field", "composite", "losses", "camera", "bwd_start",
+            "camera.bwd", "losses.bwd", "composite.bwd", "field.bwd", "rays.bwd", "optimizer")
+SAMPLER, SIGMA_FIELD, COMPOSITING, OPTIMIZER_STEP, CAMERA_BRANCH = (
+    "ray build and sampler", "sigma field", "compositing and loss", "optimizer step",
+    "camera branch")
+LAYERS = (OPTIMIZER_STEP, SAMPLER, SIGMA_FIELD, COMPOSITING, SAMPLER, CAMERA_BRANCH, SAMPLER,
+          CAMERA_BRANCH, SAMPLER, COMPOSITING, SIGMA_FIELD, SAMPLER, OPTIMIZER_STEP)
 
 
 class Span(NamedTuple):

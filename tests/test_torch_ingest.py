@@ -514,7 +514,7 @@ def test_converter_reads_a_fusion_portable_sequence_config_as_jax(tmp_path, monk
     assert 0.05 < ts[-1] - ts[0] < 0.11  # the column-index sweep of 0.1 s
 
 
-def test_drill_end_to_end_on_the_cpu(tmp_path):
+def test_drill_end_to_end_on_the_cpu(tmp_path, request):
     """bag (32 x 256, 3 s, bz2, epoch stamps) -> the port's converter -> threaded
     SLAM at box_room_drill.yaml cut to a CPU size (run_trial on the CPU) -> the
     metrics pipeline against the bag's /tf ground truth: ATE under the bar, the
@@ -523,6 +523,11 @@ def test_drill_end_to_end_on_the_cpu(tmp_path):
 
     from loner_tpu_torch import real_data_drill
 
+    # Four threads for this run only: a later test on this worker that holds a
+    # computation to a one-thread process's bits must find the one thread its
+    # module set.
+    threads = torch.get_num_threads()
+    request.addfinalizer(lambda: torch.set_num_threads(threads))
     torch.set_num_threads(4)
     cut = {
         "system": {"log_dir_prefix": str(tmp_path / "outputs")},

@@ -203,7 +203,7 @@ def test_dispatch_waits_are_counted_and_queried_only_while_tracing(depth, traced
 MARK = "void loner_mark_kernel<{}>(unsigned long long*, long long const*, int, int, int)"
 # Per iteration, from its base time b (us): the draws, then each segment's one
 # kernel between marks of 1 us. Segment lengths in the order of SEGMENTS.
-SEGMENT_US = (2, 10, 40, 10, 4, 10, 100, 10, 20)
+SEGMENT_US = (2, 10, 30, 10, 2, 20, 1, 40, 1, 10, 50, 6, 20)
 
 
 def _synthetic_trace(iterations: int = 2):
@@ -235,8 +235,9 @@ def _read(name, ctx):
 
 
 @pytest.mark.parametrize("name,want_us", [
-    ("sampler_ms_per_iter", 10 + 4 + 10), ("sigma_field_ms_per_iter", 40 + 100),
-    ("composite_loss_ms_per_iter", 10 + 10), ("optimizer_step_ms_per_iter", 2 + 20)])
+    ("sampler_ms_per_iter", 10 + 2 + 1 + 1 + 6), ("sigma_field_ms_per_iter", 30 + 50),
+    ("composite_loss_ms_per_iter", 10 + 10), ("optimizer_step_ms_per_iter", 2 + 20),
+    ("camera_branch_ms_per_iter", 20 + 40)])
 def test_layer_readers_on_a_synthetic_trace(name, want_us, monkeypatch):
     monkeypatch.setitem(profiling._traced, "replays.step", 1)
     monkeypatch.setitem(profiling._traced, "replays.step_occ", 1)
@@ -250,8 +251,8 @@ def test_the_partition_sums_to_the_busy_time():
     parts = layers.partition(_synthetic_trace())
     assert parts["iterations"] == 2
     for seg, lead, busy in zip(parts["segments"], parts["between"], parts["busy"]):
-        # The marks' own 10 x 1 us are the only busy time left out.
-        assert sum(seg) + lead == pytest.approx(busy - 10e-6, abs=1e-12)
+        # The marks' own 1 us each are the only busy time left out.
+        assert sum(seg) + lead == pytest.approx(busy - len(profiling.MARKS) * 1e-6, abs=1e-12)
     assert parts["between"][1] == pytest.approx(10e-6)  # the second iteration's draws
 
 
